@@ -6,14 +6,18 @@ kernels for Hopper (sm_90a) in place of the Pallas TPU kernels.  It imports
 neither jax nor any `pfemfort_tpu` module: the numpy-only host modules are
 copied here, each naming its source file in its first line.
 
-The slice ported so far is the flagship main path (tetrapoissonparallelimpl1):
-box_tet mesh -> DOF map -> tetra4 Poisson element matrices -> structured
-slice-add assembly of the reduced DIA system -> Jacobi-CG, with every SpMV
-on a CUDA tensor launched as the kernel in csrc/dia_spmv.cu.
+Ported so far: Poisson on any mesh through `solve_poisson` (reduced BCs,
+Jacobi-CG).  Generated box_tet meshes take the structured slice-add
+assembly of the reduced DIA system; every other mesh (read with `mesh_io`,
+renumbered, unstructured) takes the pattern assembly, first trying a
+geometric renumbering that recovers a DIA structure, else solving the ELL
+system in a bandwidth-reducing row order.  Every SpMV on a CUDA tensor is
+launched as a hand-written kernel: csrc/dia_spmv.cu for DIA, csrc/ell_spmv.cu
+for ELL.
 """
 
 from pfemfort_tpu_torch.mesh.core import Mesh, ELEMENT_INFO
-from pfemfort_tpu_torch.mesh import generate
+from pfemfort_tpu_torch.mesh import generate, io as mesh_io
 from pfemfort_tpu_torch.dofs.dofmap import DofMap, build_dofmap
 from pfemfort_tpu_torch.solve.cg import cg_solve, SolveStats
 from pfemfort_tpu_torch.drivers.poisson import solve_poisson
@@ -22,6 +26,7 @@ __all__ = [
     "Mesh",
     "ELEMENT_INFO",
     "generate",
+    "mesh_io",
     "DofMap",
     "build_dofmap",
     "cg_solve",

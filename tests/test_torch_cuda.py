@@ -1,4 +1,4 @@
-"""The port's CUDA kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked `cuda`: each test skips without a CUDA device.  This file imports no
 JAX, so it runs where JAX is not installed:
@@ -10,10 +10,12 @@ import numpy as np
 import pytest
 import torch
 
-from pfemfort_tpu_torch import generate, solve_poisson
-from pfemfort_tpu_torch.sparse import dia_spmv_cuda
+from pfemfort_tpu_torch import generate, interop, solve_poisson
+from pfemfort_tpu_torch.sparse import dia_spmv_cuda, ell_spmv_cuda
 from pfemfort_tpu_torch.sparse.dia import DIAMatrix, spmv_dia
+from pfemfort_tpu_torch.sparse.formats import ELLMatrix
 from pfemfort_tpu_torch.sparse.ops import dia_operator
+from pfemfort_tpu_torch.sparse.spmv import spmv_ell
 
 pytestmark = pytest.mark.cuda
 
@@ -101,5 +103,116 @@ def test_solve_on_the_card_matches_the_cpu(cuda):
     r_gpu = solve_poisson(mesh, dbc, device=cuda, dtype=torch.float64,
                           rtol=1e-10)
     assert dia_spmv_cuda.kernel.launches - before >= r_gpu.stats.iters
+    assert r_gpu.stats.iters == r_cpu.stats.iters
+    assert np.abs(r_gpu.u_full - r_cpu.u_full).max() <= 1e-10
+
+
+def _permuted_box(n):
+    mesh, dbc = generate.box_tet(0, 1, n, 0, 1, n, 0, 1, n)
+    perm = np.random.default_rng(0).permutation(mesh.n_node)
+    mesh = mesh.renumbered(perm.astype(np.int64))
+    dbc = dbc.copy()
+    dbc[:, 0] = perm[dbc[:, 0].astype(np.int64)]
+    return mesh, dbc
+
+
+def _ordered_ell_system(n, device, dtype):
+    """The permuted box_tet Poisson ELL system in the solve's row order."""
+    from pfemfort_tpu_torch.dofs.dofmap import build_dofmap
+    from pfemfort_tpu_torch.drivers.common import build_ell_ordering, \
+        build_reduced_assembler
+    from pfemfort_tpu_torch.elements.geometry import to_element_minor
+    from pfemfort_tpu_torch.elements.poisson import poisson_element_matrices
+
+    mesh, dbc = _permuted_box(n)
+    dofmap = build_dofmap(mesh, 1, dbc)
+    assemble = build_reduced_assembler(
+        mesh, 1, dofmap,
+        lambda c: poisson_element_matrices(c, "tetra4", source=-6.0),
+        dtype, device)
+    assert assemble.pattern.layout == "ell"
+    ordering = build_ell_ordering(assemble.pattern,
+                                  mesh.coords[dofmap.assy_for_soln],
+                                  dofmap.assy_for_soln % 1, device)
+    coords = torch.as_tensor(to_element_minor(mesh.elem_coords()),
+                             dtype=dtype, device=device)
+    return assemble, ordering, coords
+
+
+def _ragged_ell(n_rows, n_cols, k, device, dtype, seed):
+    """Random ELL with mixed sentinels (n_cols and 2 * n_rows + 128)."""
+    rng = np.random.default_rng(seed)
+    cols = rng.integers(0, n_cols, (n_rows, k))
+    pad = rng.random((n_rows, k)) < 0.3
+    cols = np.where(pad, np.where(rng.random((n_rows, k)) < 0.5, n_cols,
+                                  2 * n_rows + 128), cols)
+    vals = np.where(pad, 0.0, rng.standard_normal((n_rows, k)))
+    A = interop.ell_from_numpy(cols, vals, n_cols, device=device, dtype=dtype)
+    x = torch.as_tensor(rng.standard_normal(n_cols), dtype=dtype,
+                        device=device)
+    return A, x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(1, 1, 1), (255, 255, 7), (257, 300, 16),
+                                   (100_003, 110_010, 7), (4097, 4097, 33),
+                                   (1000, 1000, 0)])
+def test_ell_kernel_matches_plain_on_ragged_systems(cuda, shape, dtype):
+    A, x = _ragged_ell(*shape, cuda, dtype, seed=shape[0])
+    before = ell_spmv_cuda.kernel.launches
+    y = ell_spmv_cuda.ell_spmv(A, x)
+    torch.cuda.synchronize()
+    assert ell_spmv_cuda.kernel.launches == before + 1
+    y_ref = spmv_ell(A, x)
+    if shape[2] == 0:
+        assert torch.equal(y, y_ref)
+    else:
+        assert _rel_err(y, y_ref) <= REL_TOL[dtype]
+    assert torch.equal(y, ell_spmv_cuda.ell_spmv(A, x))   # same bits again
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ell_kernel_matches_plain_on_the_ordered_mesh_system(cuda, dtype):
+    assemble, ordering, coords = _ordered_ell_system(12, cuda, dtype)
+    A, b = ordering.system(*assemble(coords))
+    x = torch.as_tensor(np.random.default_rng(1).standard_normal(A.n_cols),
+                        dtype=dtype, device=cuda)
+    y = ell_spmv_cuda.ell_spmv(A, x)
+    torch.cuda.synchronize()
+    assert _rel_err(y, spmv_ell(A, x)) <= REL_TOL[dtype]
+
+
+def test_ell_assembly_on_the_card_repeats_bit_for_bit(cuda):
+    assemble, ordering, coords = _ordered_ell_system(12, cuda, torch.float32)
+    (A1, b1), (A2, b2) = (ordering.system(*assemble(coords))
+                          for _ in range(2))
+    assert torch.equal(A1.vals, A2.vals) and torch.equal(b1, b2)
+
+
+def test_ell_kernel_rejects_what_it_does_not_take(cuda):
+    A, x = _ragged_ell(64, 64, 4, cuda, torch.float32, seed=0)
+    with pytest.raises(ValueError):
+        ell_spmv_cuda.ell_spmv(
+            ELLMatrix(cols=A.cols.long(), vals=A.vals, n_cols=64), x)
+    with pytest.raises(ValueError):
+        ell_spmv_cuda.ell_spmv(
+            ELLMatrix(cols=A.cols, vals=A.vals.t().contiguous().t(),
+                      n_cols=64), x)
+    with pytest.raises(ValueError):
+        ell_spmv_cuda.ell_spmv(A, torch.ones(128, device=cuda)[::2])
+    with pytest.raises(ValueError):
+        ell_spmv_cuda.ell_spmv(A, x.cpu())
+
+
+def test_ell_solve_on_the_card_matches_the_cpu(cuda):
+    from pfemfort_tpu_torch.drivers.common import solve_implicit
+    from pfemfort_tpu_torch.elements.poisson import poisson_element_matrices
+
+    mesh, dbc = _permuted_box(10)
+    fn = lambda c: poisson_element_matrices(c, "tetra4", source=-6.0)
+    r_cpu, r_gpu = (solve_implicit(mesh, 1, dbc, fn, device=d,
+                                   dtype=torch.float64, rtol=1e-10,
+                                   recover=False) for d in ("cpu", cuda))
+    assert "order_s" in r_gpu.timings
     assert r_gpu.stats.iters == r_cpu.stats.iters
     assert np.abs(r_gpu.u_full - r_cpu.u_full).max() <= 1e-10

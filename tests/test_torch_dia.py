@@ -23,7 +23,7 @@ from pfemfort_tpu.mesh import generate
 from pfemfort_tpu.sparse import dia as jdia
 from pfemfort_tpu.sparse.ops import operator_and_diag as j_operator_and_diag
 from pfemfort_tpu.sparse.pallas_spmv import spmv_dia_pallas
-from pfemfort_tpu_torch import interop
+from pfemfort_tpu_torch import cuda_build, interop
 from pfemfort_tpu_torch.sparse import dia as tdia
 from pfemfort_tpu_torch.sparse import dia_spmv_cuda
 from pfemfort_tpu_torch.sparse.ops import dia_operator, operator_and_diag
@@ -151,18 +151,18 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.delenv("CUDA_PATH", raising=False)
-    monkeypatch.setattr(dia_spmv_cuda, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "_build")
     with pytest.raises(RuntimeError, match="nvcc"):
-        dia_spmv_cuda.build()
+        dia_spmv_cuda.kernel.build()
 
 
 def test_kernel_builds_for_sm90a_into_an_ignored_directory():
-    root = Path(dia_spmv_cuda.__file__).resolve().parents[2]
-    assert "arch=compute_90a,code=sm_90a" in dia_spmv_cuda.NVCC_FLAGS
-    assert dia_spmv_cuda.SOURCE.exists()
-    build_dir = dia_spmv_cuda.BUILD_DIR.relative_to(root).as_posix()
+    root = Path(cuda_build.__file__).resolve().parents[1]
+    assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
+    assert dia_spmv_cuda.kernel.source.exists()
+    build_dir = cuda_build.BUILD_DIR.relative_to(root).as_posix()
     assert f"{build_dir}/" in (root / ".gitignore").read_text().split()
-    assert dia_spmv_cuda.library_path().parent == dia_spmv_cuda.BUILD_DIR
+    assert dia_spmv_cuda.kernel.library_path().parent == cuda_build.BUILD_DIR
 
 
 def test_interop_dia_rejects_mismatched_shape():

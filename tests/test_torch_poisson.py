@@ -89,13 +89,21 @@ def test_options_outside_the_slice_raise(option):
 
 @pytest.mark.parametrize("mesh_kind", ["no_structure", "partial_dirichlet"])
 def test_meshes_outside_the_slice_raise(mesh_kind):
-    (_, _), (tm, td) = _meshes((4, 4, 4))
+    """The meshes the structured slice could not take (no generator
+    structure; a free set that is not a box) no longer raise: they take
+    the pattern assembly (a DIA pattern without a lattice) and must solve
+    as the JAX package does."""
+    (jm, jd), (tm, td) = _meshes((4, 4, 4))
     if mesh_kind == "no_structure":
         tm = interop.mesh_from_numpy(tm.etype, tm.coords, tm.conn)
+        jm = ft.Mesh(jm.etype, jm.coords, jm.conn)
     else:
-        td = td[td[:, 2] > 0.5]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.solve_poisson(tm, td)
+        td, jd = td[td[:, 2] > 0.5], jd[jd[:, 2] > 0.5]
+    rj = ft.solve_poisson(jm, jd, rtol=1e-11)
+    rt = pt.solve_poisson(tm, td, rtol=1e-11, dtype=torch.float64)
+    assert rt.stats.iters == int(rj.stats.iters)
+    assert rt.stats.converged
+    assert np.abs(rt.u_full - rj.u_full).max() < 1e-10
 
 
 def test_public_surface():
