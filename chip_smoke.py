@@ -30,28 +30,63 @@ of JAX.  Phases, one JSON line each:
   6. solve_recovered solve_poisson on box_tet n=48 with its nodes renumbered:
                      the structure is recovered, B1 launches >= iterations,
                      B2 launches = 0, iterations = the lattice solve's +- 1;
-  7. timing          kernel and plain SpMV times (plain, kernel, kernel,
+  7. elasticity3d    solve_elasticity on box_tet n=48 clamped on x=0 (the
+                     tetra preset: E = 240.565, nu = 0.3, body force
+                     (0.1, 0, 0)), float32 and float64, rtol 1e-6: the flat
+                     59-diagonal DIA system on B1 (B2 launches = 0); the
+                     float32 count within 15% of the JAX package's 1240;
+                     float32 within 2e-3 of float64; B1 and B2 against their
+                     plain versions on that matrix; and an all-face patch
+                     test (Dirichlet values of a linear field, n=32, float32,
+                     nodal error <= 5e-7);
+  8. elasticity2d    rect_tria [0,2]x[0,1] at 1024x512 clamped on x=0 with
+                     unit +x point loads on x=2, plane stress, float64, rtol
+                     1e-6: on the DIA path (B1, 17 diagonals), then with its
+                     nodes renumbered by default_rng(0) and recover=False on
+                     the ELL path (B2, K = 16, B1 launches = 0); the two
+                     solutions agree and so do the counts (+- 2);
+  9. explicit        the tria preset on rect_tria [0,10]x[0,2] at 1000x200,
+                     x=0 clamped, probes 670/671, 5,000 steps: float32 twice
+                     bit for bit, 2,500 + checkpoint + 2,500 bit for bit,
+                     float64 against float32 on the probes; a quad preset
+                     (hourglass) run, float64, card against CPU; ms per step;
+ 10. cli             `python -m pfemfort_tpu_torch` elasticity and explicit
+                     as subprocesses on .dat files, --device cuda;
+ 11. timing          kernel and plain SpMV times (plain, kernel, kernel,
                      plain) of B1 on the n=96 lattice system and of B2 on the
                      same matrix in the solve's row order, in lattice order
-                     and unordered, the GB/s they imply, and each solve's
-                     seconds by stage.
+                     and unordered; of B1 (59 diagonals) and B2 (the same
+                     matrix as ELL) on the 3D elasticity system, of B1 (17
+                     diagonals) and B2 (K = 16, renumbered, the solve's row
+                     order) on the 2D one; the GB/s they imply, and each
+                     solve's seconds by stage.
 
 Every launch count is set to 0 just before its path is driven and read just
-after.  Then one JSON line describing the kernels, and the result line
+after.  Then one JSON line describing the kernels (launches summed over the
+counted paths; times on the n=96 matrix), and the result line
 {"ok": true, "device": {...}} last.  Any failed check raises.
 """
 
 import json
 import subprocess
+import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from pfemfort_tpu_torch import Mesh, build_dofmap, generate, solve_poisson
+from pfemfort_tpu_torch import Mesh, build_dofmap, explicit_dynamics, \
+    generate, mesh_io, solve_elasticity, solve_poisson
+from pfemfort_tpu_torch.drivers import presets
 from pfemfort_tpu_torch.drivers.common import build_ell_ordering, \
     build_reduced_assembler, solve_implicit
+from pfemfort_tpu_torch.dynamics.checkpoint import load_state, save_state, \
+    ExplicitState
+from pfemfort_tpu_torch.elements.elasticity import dmat_3d, \
+    dmat_plane_stress, elasticity_stiffness
 from pfemfort_tpu_torch.elements.geometry import to_element_minor
 from pfemfort_tpu_torch.elements.poisson import poisson_element_matrices
 from pfemfort_tpu_torch.sparse import dia_spmv_cuda, ell_spmv_cuda
@@ -71,6 +106,26 @@ KERNELS = {"dia_spmv": dia_spmv_cuda.kernel, "ell_spmv": ell_spmv_cuda.kernel}
 # Data-sheet HBM peaks in GB/s; an unknown card is measured against the SXM
 # part's.
 PEAK_GBPS = {"H100 PCIe": 2000.0, "H100 NVL": 3900.0, "H100": 3350.0}
+ROOT = Path(__file__).resolve().parent
+
+# Implicit elasticity (the tetra preset).  The JAX package's counts for the
+# 3D configuration, f32 and f64 Jacobi-CG to rtol 1e-6, measured on the CPU
+# (command in PERF.md).  The f32 count moves with the order of the sums: the
+# port's own f32 run on the CPU took 1130, so the band is 15%.
+E_EL, NU_EL = 240.565, 0.3
+N_EL3D = 48
+EL3D_JAX_ITERS = {torch.float32: 1240, torch.float64: 1096}
+EL3D_ITERS_BAND = 0.15
+EL3D_F32_VS_F64 = 2e-3      # relative; 3.4e-4 on the CPU
+N_PATCH, PATCH_ERR_MAX = 32, 5e-7
+EL2D_CELLS = (1024, 512)
+EL2D_U_REL = 1e-8           # DIA vs ELL solutions, float64, rtol 1e-6
+# Explicit dynamics: the tria preset; float32 drifts from float64 by a few
+# per cent of the probes' range over 5,000 steps (up to 6% on a 250x50 mesh
+# on the CPU), so the bound is 25%.
+EXPLICIT_CELLS, EXPLICIT_STEPS = (1000, 200), 5000
+EXPLICIT_F32_VS_F64 = 0.25
+QUAD_CELLS, QUAD_STEPS = (200, 40), 500
 
 
 def _phase(name, **fields):
@@ -236,6 +291,342 @@ def _check_solve(label, res, u_exact):
            and res.u_full.shape == u_exact.shape, f"{label}: solution")
     _check(nodal_err <= NODAL_ERR_MAX, f"{label}: nodal error {nodal_err}")
     return nodal_err
+
+
+def _clamped(mesh):
+    """Every component of the nodes on the face coords[:, 0] == min."""
+    nodes = np.nonzero(mesh.coords[:, 0] == mesh.coords[:, 0].min())[0]
+    d = mesh.ndim
+    return np.stack([np.repeat(nodes, d), np.tile(np.arange(d), len(nodes)),
+                     np.zeros(d * len(nodes))], 1).astype(np.float64)
+
+
+def _edge_loads(mesh, value=1.0):
+    """+x point loads on the nodes of the face coords[:, 0] == max."""
+    nodes = np.nonzero(mesh.coords[:, 0] == mesh.coords[:, 0].max())[0]
+    return np.stack([nodes, np.zeros(len(nodes)),
+                     np.full(len(nodes), value)], 1).astype(np.float64)
+
+
+def _renumber(mesh, *tables, seed=0):
+    perm = np.random.default_rng(seed).permutation(mesh.n_node)
+    out = [mesh.renumbered(perm.astype(np.int64))]
+    for t in tables:
+        t = t.copy()
+        t[:, 0] = perm[t[:, 0].astype(np.int64)]
+        out.append(t)
+    return perm, out
+
+
+def _elastic_fn(etype, D):
+    return lambda c: elasticity_stiffness(c, etype, D)
+
+
+def _assembled(mesh, dbc, fn, dtype, device, ordered):
+    """(A, pattern) of the reduced system as its solve assembles it; ordered:
+    in the ELL row order of the solve."""
+    ndof = mesh.ndim
+    dofmap = build_dofmap(mesh, ndof, dbc)
+    assemble = build_reduced_assembler(mesh, ndof, dofmap, fn, dtype, device)
+    A, b = assemble(torch.as_tensor(to_element_minor(mesh.elem_coords()),
+                                    dtype=dtype, device=device))
+    if ordered:
+        ordering = build_ell_ordering(
+            assemble.pattern, mesh.coords[dofmap.assy_for_soln // ndof],
+            dofmap.assy_for_soln % ndof, device)
+        A, b = ordering.system(A, b)
+    return A, assemble.pattern
+
+
+def _ell_from_dia(A):
+    """The DIA matrix as padded ELL in the same (lattice) row order: each
+    row's nonzero diagonals in offset order, sentinel n_rows after them."""
+    N = A.n_rows
+    offs = torch.tensor(A.offsets, dtype=torch.int64, device=A.vals.device)
+    cols = torch.arange(N, device=A.vals.device)[:, None] + offs[None, :]
+    vals = A.vals.t()
+    valid = (cols >= 0) & (cols < N) & (vals != 0)
+    k = int(valid.sum(1).max())
+    order = torch.sort((~valid).to(torch.int8), dim=1,
+                       stable=True).indices[:, :k]
+    cols = torch.where(valid, cols, N).gather(1, order)
+    vals = torch.where(valid, vals, 0.0).gather(1, order)
+    return ELLMatrix(cols=cols.to(torch.int32).contiguous(),
+                     vals=vals.contiguous(), n_cols=N)
+
+
+def _kernel_errors(label, A, errs, rng):
+    """Each kernel against its plain version on A in float32 and float64."""
+    dev = A.vals.device
+    is_dia = isinstance(A, DIAMatrix)
+    name = "dia_spmv" if is_dia else "ell_spmv"
+    n = A.n_rows if is_dia else A.n_cols
+    x64 = rng.standard_normal(n)
+    for dtype in (torch.float32, torch.float64):
+        x = torch.as_tensor(x64, dtype=dtype, device=dev)
+        if is_dia:
+            Ad = DIAMatrix(vals=A.vals.to(dtype), offsets=A.offsets,
+                           n_rows=A.n_rows, lattice=A.lattice)
+            offsets = torch.tensor(A.offsets, dtype=torch.int32, device=dev)
+            y, y_ref = dia_spmv_cuda.dia_spmv(Ad, x, offsets), spmv_dia(Ad, x)
+        else:
+            Ad = ELLMatrix(cols=A.cols, vals=A.vals.to(dtype),
+                           n_cols=A.n_cols)
+            y, y_ref = ell_spmv_cuda.ell_spmv(Ad, x), spmv_ell(Ad, x)
+        abs_err, rel_err = _errors(y, y_ref)
+        errs[(name, label, dtype)] = abs_err
+        _phase("kernel", kernel=name, case=label, dtype=str(dtype),
+               rows=A.n_rows,
+               **({"diagonals": len(A.offsets)} if is_dia else {"k": A.k}),
+               max_abs_err=abs_err, max_rel_err=rel_err,
+               bound=REL_ERR_MAX[dtype])
+        _check(rel_err <= REL_ERR_MAX[dtype],
+               f"{name} {label} {dtype}: rel err {rel_err}")
+
+
+def _counted(fn, counted):
+    """Run one path with every launch count set to 0 just before it and
+    read just after; add the counts to `counted`."""
+    _reset_launches()
+    out = fn()
+    launches = _launches()
+    for k, v in launches.items():
+        counted[k] += v
+    return out, launches
+
+
+def _check_elastic(label, res, launches, on):
+    st = res.stats
+    _check(st.converged and st.relres <= 1e-6, f"{label}: {st}")
+    _check(bool(np.isfinite(res.u_full).all()), f"{label}: non-finite u")
+    off = "ell_spmv" if on == "dia_spmv" else "dia_spmv"
+    _check(launches[on] >= st.iters and launches[off] == 0,
+           f"{label}: launches {launches} vs {st.iters} iterations")
+    _check(("order_s" in res.timings) == (on == "ell_spmv"),
+           f"{label}: took the wrong path ({res.timings})")
+
+
+def _elasticity3d(dev, counted, errs, rng):
+    n = N_EL3D
+    mesh, _ = generate.box_tet(0, 1, n, 0, 1, n, 0, 1, n)
+    dbc = _clamped(mesh)
+    A, _ = _assembled(mesh, dbc, _elastic_fn("tetra4", dmat_3d(E_EL, NU_EL)),
+                      torch.float32, dev, ordered=False)
+    _check(len(A.offsets) == 59 and A.lattice is None
+           and A.n_rows == 3 * n * (n + 1) ** 2,
+           f"3D elasticity DIA is {A.n_rows} rows x {len(A.offsets)} "
+           f"diagonals, lattice {A.lattice}")
+    A_ell = _ell_from_dia(A)
+    _kernel_errors("elasticity3d n=48", A, errs, rng)
+    _kernel_errors("elasticity3d n=48 as ELL", A_ell, errs, rng)
+    res = {}
+    for dtype in (torch.float32, torch.float64):
+        r, launches = _counted(lambda: solve_elasticity(
+            mesh, dbc, E_EL, NU_EL, bforce=(0.1, 0.0, 0.0), device=dev,
+            dtype=dtype, rtol=1e-6), counted)
+        label = f"elasticity3d {dtype}"
+        _check_elastic(label, r, launches, "dia_spmv")
+        jax_iters = EL3D_JAX_ITERS[dtype]
+        _phase("elasticity3d", n=n, dtype=str(dtype), elements=mesh.n_elem,
+               dofs=int(r.u_reduced.numel()), iters=r.stats.iters,
+               jax_iters=jax_iters, relres=r.stats.relres,
+               u_max=float(np.abs(r.u_full).max()), launches=launches,
+               **r.timings)
+        _check(abs(r.stats.iters - jax_iters) <= EL3D_ITERS_BAND * jax_iters,
+               f"{label}: {r.stats.iters} iterations, JAX {jax_iters}")
+        res[dtype] = r
+    u32, u64 = res[torch.float32].u_full, res[torch.float64].u_full
+    rel = float(np.abs(u32 - u64).max() / np.abs(u64).max())
+    _phase("elasticity3d", f32_vs_f64_rel=rel, bound=EL3D_F32_VS_F64)
+    _check(rel <= EL3D_F32_VS_F64, f"elasticity3d f32 vs f64: {rel}")
+
+    # patch test: Dirichlet values of a linear field on all faces
+    pm, _ = generate.box_tet(0, 1, N_PATCH, 0, 1, N_PATCH, 0, 1, N_PATCH)
+    G = np.array([[1e-3, 2e-3, -1e-3], [0.5e-3, -2e-3, 1e-3],
+                  [3e-3, 1e-3, 2e-3]])
+    u_lin = pm.coords @ G.T + np.array([1e-3, -2e-3, 0.5e-3])
+    bd = generate.boundary_nodes(pm)
+    pdbc = np.stack([np.repeat(bd, 3), np.tile(np.arange(3), len(bd)),
+                     u_lin[bd].reshape(-1)], 1)
+    r, launches = _counted(lambda: solve_elasticity(
+        pm, pdbc, E_EL, NU_EL, device=dev, dtype=torch.float32, rtol=1e-6),
+        counted)
+    _check_elastic("patch", r, launches, "dia_spmv")
+    err = float(np.abs(r.u_full - u_lin.reshape(-1)).max())
+    _phase("elasticity3d", patch_n=N_PATCH, iters=r.stats.iters,
+           nodal_err=err, u_max=float(np.abs(u_lin).max()),
+           bound=PATCH_ERR_MAX, launches=launches)
+    _check(err <= PATCH_ERR_MAX, f"patch test nodal error {err}")
+    return A, A_ell, res
+
+
+def _elasticity2d(dev, counted, errs, rng):
+    nx, ny = EL2D_CELLS
+    mesh = generate.rect_tria(0, 2, nx, 0, 1, ny)
+    dbc, fbc = _clamped(mesh), _edge_loads(mesh)
+    D = dmat_plane_stress(E_EL, NU_EL)
+    dtype = torch.float64
+    A_dia, _ = _assembled(mesh, dbc, _elastic_fn("tria3", D), dtype, dev,
+                          ordered=False)
+    _check(len(A_dia.offsets) == 17 and A_dia.n_rows == 2 * nx * (ny + 1),
+           f"2D DIA is {A_dia.n_rows} rows x {len(A_dia.offsets)}")
+    r_dia, l_dia = _counted(lambda: solve_elasticity(
+        mesh, dbc, E_EL, NU_EL, force_bc=fbc, device=dev, dtype=dtype,
+        rtol=1e-6), counted)
+    _check_elastic("elasticity2d dia", r_dia, l_dia, "dia_spmv")
+    _phase("elasticity2d", path="dia", cells=[nx, ny], nodes=mesh.n_node,
+           elements=mesh.n_elem, dofs=int(r_dia.u_reduced.numel()),
+           iters=r_dia.stats.iters, relres=r_dia.stats.relres,
+           u_max=float(np.abs(r_dia.u_full).max()), launches=l_dia,
+           **r_dia.timings)
+
+    perm, (pmesh, pdbc, pfbc) = _renumber(mesh, dbc, fbc)
+    A_ell, _ = _assembled(pmesh, pdbc, _elastic_fn("tria3", D), dtype, dev,
+                          ordered=True)
+    _check(A_ell.k == 16, f"renumbered 2D ELL has K = {A_ell.k}")
+    _kernel_errors("elasticity2d 1024x512", A_dia, errs, rng)
+    _kernel_errors("elasticity2d renumbered, ordered", A_ell, errs, rng)
+    r_ell, l_ell = _counted(lambda: solve_implicit(
+        pmesh, 2, pdbc, _elastic_fn("tria3", D), force_bc=pfbc, device=dev,
+        dtype=dtype, rtol=1e-6, recover=False), counted)
+    _check_elastic("elasticity2d ell", r_ell, l_ell, "ell_spmv")
+    u_back = r_ell.u_full.reshape(-1, 2)[perm].reshape(-1)
+    rel = float(np.abs(u_back - r_dia.u_full).max()
+                / np.abs(r_dia.u_full).max())
+    _phase("elasticity2d", path="ell", iters=r_ell.stats.iters,
+           relres=r_ell.stats.relres, dia_iters=r_dia.stats.iters,
+           u_rel_to_dia=rel, bound=EL2D_U_REL, launches=l_ell,
+           **r_ell.timings)
+    _check(rel <= EL2D_U_REL, f"elasticity2d ELL vs DIA u: {rel}")
+    _check(abs(r_ell.stats.iters - r_dia.stats.iters) <= 2,
+           f"elasticity2d iterations {r_ell.stats.iters} (ELL) vs "
+           f"{r_dia.stats.iters} (DIA)")
+    return A_dia, A_ell, r_dia, r_ell
+
+
+def _explicit_run(mesh, dbc, preset, nsteps, device, dtype, **kw):
+    bforce = torch.tensor(preset.bforce, dtype=dtype, device=device)
+    if preset.pulse_t is None:
+        bforce_fn = lambda t: bforce
+    else:
+        pulse = torch.tensor(preset.pulse_t, dtype=dtype, device=device)
+        bforce_fn = lambda t: bforce * torch.where(t <= pulse, 1.0, 0.0)
+    t0 = time.perf_counter()
+    res = explicit_dynamics(
+        mesh, dbc, preset.E, preset.nu, preset.dens, preset.dt, nsteps,
+        bforce_fn=bforce_fn, thickness=preset.thickness,
+        use_hourglass=preset.use_hourglass, device=device, dtype=dtype, **kw)
+    return res, time.perf_counter() - t0
+
+
+def _same(a, b, fields=("disp", "disp_prev", "velo", "acce",
+                        "probe_history")):
+    return all(np.array_equal(getattr(a, f), getattr(b, f)) for f in fields)
+
+
+def _explicit(dev):
+    p = presets.TRIA_EXPLICIT
+    nx, ny = EXPLICIT_CELLS
+    mesh = generate.rect_tria(0, 10, nx, 0, 2, ny)
+    dbc = _clamped(mesh)
+    kw = dict(probe_dofs=p.probe_dofs)
+    f32 = torch.float32
+    a, ta = _explicit_run(mesh, dbc, p, EXPLICIT_STEPS, dev, f32, **kw)
+    b, _ = _explicit_run(mesh, dbc, p, EXPLICIT_STEPS, dev, f32, **kw)
+    half_steps = EXPLICIT_STEPS // 2
+    half, th = _explicit_run(mesh, dbc, p, half_steps, dev, f32, **kw)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "state.npz")
+        save_state(path, ExplicitState(disp=half.disp,
+                                       disp_prev=half.disp_prev,
+                                       velo=half.velo, step=half_steps))
+        state = load_state(path)
+    rest, _ = _explicit_run(mesh, dbc, p, EXPLICIT_STEPS - half_steps, dev,
+                            f32, init_state=state, **kw)
+    c, t64 = _explicit_run(mesh, dbc, p, EXPLICIT_STEPS, dev,
+                           torch.float64, **kw)
+    repeat = _same(a, b)
+    resumed = _same(rest, a, ("disp", "disp_prev", "velo", "acce")) \
+        and np.array_equal(np.concatenate([half.probe_history,
+                                           rest.probe_history]),
+                           a.probe_history)
+    # each probe column against the f64 range of its kind (displacements,
+    # velocities): a component that hardly moves has no range of its own
+    h32, h64 = a.probe_history.astype(np.float64), c.probe_history
+    n_p = len(p.probe_dofs)
+    scale = np.repeat([np.abs(h64[:, :n_p]).max(), np.abs(h64[:, n_p:]).max()],
+                      n_p)
+    rel = np.abs(h32 - h64).max(axis=0) / scale
+    ms_step = 1e3 * (ta - th) / (EXPLICIT_STEPS - half_steps)
+    _phase("explicit", preset="tria", cells=[nx, ny], nodes=mesh.n_node,
+           elements=mesh.n_elem, steps=EXPLICIT_STEPS,
+           bit_identical_repeat=repeat, bit_identical_resume=resumed,
+           f32_vs_f64_probe_rel=rel.tolist(), bound=EXPLICIT_F32_VS_F64,
+           probe_range_f64=scale.tolist(), seconds_f32=ta, seconds_f64=t64,
+           ms_per_step_f32=ms_step, ms_per_step_f64_with_setup=1e3 * t64
+           / EXPLICIT_STEPS, finite=bool(np.isfinite(a.disp).all()))
+    _check(repeat, "explicit f32 run does not repeat bit for bit")
+    _check(resumed, "explicit resume differs from the uninterrupted run")
+    _check(bool(np.isfinite(h32).all()) and scale.min() > 0
+           and a.probe_history.shape == (EXPLICIT_STEPS, 4),
+           "explicit probes")
+    _check(float(rel.max()) <= EXPLICIT_F32_VS_F64,
+           f"explicit f32 vs f64 probes: {rel}")
+
+    q = presets.QUAD_EXPLICIT
+    qx, qy = QUAD_CELLS
+    qmesh = generate.rect_quad(0, 10, qx, 0, 2, qy)
+    qkw = dict(force_bc=_edge_loads(qmesh, 1e3), probe_dofs=(2 * qx + 1,))
+    (qc, _), (qg, tq) = (_explicit_run(qmesh, _clamped(qmesh), q, QUAD_STEPS,
+                                       d, torch.float64, **qkw)
+                         for d in ("cpu", dev))
+    qrel = float(np.abs(qg.disp - qc.disp).max() / np.abs(qc.disp).max())
+    _phase("explicit", preset="quad (hourglass)", cells=[qx, qy],
+           steps=QUAD_STEPS, card_vs_cpu_rel=qrel, bound=1e-10,
+           seconds=tq, u_max=float(np.abs(qc.disp).max()))
+    _check(qrel <= 1e-10 and np.abs(qc.disp).max() > 0,
+           f"quad preset card vs CPU: {qrel}")
+    return ms_step
+
+
+def _cli(dev):
+    """The port's command line as a user runs it, in subprocesses."""
+    def run(*argv):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "pfemfort_tpu_torch",
+                               *argv], cwd=ROOT, capture_output=True,
+                              text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"pfemfort_tpu_torch {argv[0]} exited "
+                               f"{proc.returncode}:\n{proc.stdout}"
+                               f"{proc.stderr}")
+        return proc.stdout, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = str(Path(tmp) / "beam")
+        run("genmesh", "tria", "0", "2", "256", "0", "1", "128", "-o", prefix)
+        mesh = mesh_io.read_mesh(prefix + "-nodes.dat", prefix + "-elems.dat")
+        mesh_io.write_dat(prefix, mesh, dirichlet=_clamped(mesh),
+                          force=_edge_loads(mesh))
+        files = [prefix + s for s in ("-nodes.dat", "-elems.dat",
+                                      "-DirichBC.dat", "-ForceBC.dat")]
+        out, secs = run("elasticity", *files, "--device", dev.type,
+                        "-o", str(Path(tmp) / "u.vtk"))
+        line = next((ln for ln in out.splitlines()
+                     if "Convergence in" in ln), None)
+        _phase("cli", subcommand="elasticity", seconds=secs,
+               output=out.strip().splitlines())
+        _check(line is not None, "CLI elasticity printed no convergence line")
+        probe = Path(tmp) / "probe.dat"
+        out, secs = run("explicit", *files[:3], "--preset", "tria",
+                        "--nsteps", "1000", "--device", dev.type,
+                        "--probe-out", str(probe),
+                        "-o", str(Path(tmp) / "x.vtk"))
+        hist = np.loadtxt(probe)
+        _phase("cli", subcommand="explicit", seconds=secs,
+               output=out.strip().splitlines(), probe_shape=hist.shape)
+        _check("1000 steps in" in out and hist.shape == (1000, 5)
+               and bool(np.isfinite(hist).all()), "CLI explicit output")
 
 
 def main():
@@ -413,8 +804,17 @@ def main():
            launches_rec["ell_spmv"] == 0,
            f"recovered solve launches {launches_rec} vs {st.iters} iters")
     _check(nodal_err <= NODAL_ERR_MAX, f"recovered nodal error {nodal_err}")
+    counted = {name: launches_dia[name] + launches_ell[name]
+               + launches_rec[name] for name in KERNELS}
 
-    # 7. timing on the n=96 matrix: B1 in lattice order; B2 in the solve's
+    # 7.-10. elasticity, explicit dynamics and the command line
+    A_el3, A_el3_ell, el3 = _elasticity3d(dev, counted, errs, rng)
+    A_el2, A_el2_ell, el2_dia, el2_ell = _elasticity2d(dev, counted, errs,
+                                                       rng)
+    _explicit(dev)
+    _cli(dev)
+
+    # 11. timing on the n=96 matrix: B1 in lattice order; B2 in the solve's
     # row order, in lattice order (lex, the numbering B1 runs in) and
     # unordered
     peak = next((v for k, v in PEAK_GBPS.items() if k in kind),
@@ -443,10 +843,33 @@ def main():
               "ell_ordered": (2 * A_ord.k * N + 2 * N) * 4,
               "ell_lex": (2 * A_lex.k * N + 2 * N) * 4,
               "ell_unordered": (2 * A_un.k * N + 2 * N) * 4}
+    # the elasticity matrices: 3D in f32 (B1 59 diagonals, B2 the same
+    # matrix as ELL in lattice order), 2D in f64, the dtype of its solves
+    # (B1 17 diagonals; B2 K = 16 on the renumbered mesh in the solve's
+    # row order)
+    for label, A in (("dia_el3d", A_el3), ("ell_el3d", A_el3_ell),
+                     ("dia_el2d", A_el2), ("ell_el2d", A_el2_ell)):
+        xe = torch.ones(A.n_rows, dtype=A.vals.dtype, device=dev)
+        size = A.vals.element_size()
+        if label.startswith("dia"):
+            off = torch.tensor(A.offsets, dtype=torch.int32, device=dev)
+            ms[label], runs[label] = _timed_pairs(
+                lambda A=A, xe=xe: spmv_dia(A, xe),
+                lambda A=A, xe=xe, off=off: dia_spmv_cuda.dia_spmv(A, xe,
+                                                                   off))
+            nbytes[label] = (len(A.offsets) + 2) * A.n_rows * size
+        else:
+            ms[label], runs[label] = _timed_pairs(
+                lambda A=A, xe=xe: spmv_ell(A, xe),
+                lambda A=A, xe=xe: ell_spmv_cuda.ell_spmv(A, xe))
+            nbytes[label] = A.n_rows * (A.k * (4 + size) + 2 * size)
+    widths = {"dia_el3d": len(A_el3.offsets), "ell_el3d": A_el3_ell.k,
+              "dia_el2d": len(A_el2.offsets), "ell_el2d": A_el2_ell.k}
     for label in ms:
         gbps = {k: nbytes[label] / (v * 1e-3) / 1e9
                 for k, v in ms[label].items()}
         _phase("timing", matrix=label, card=smi, spmv_bytes=nbytes[label],
+               width=widths.get(label),
                kernel_ms=ms[label]["kernel"], plain_ms=ms[label]["plain"],
                kernel_ms_runs=runs[label]["kernel"],
                plain_ms_runs=runs[label]["plain"],
@@ -457,7 +880,13 @@ def main():
            ordered=ms["ell_ordered"]["kernel"] / ms["dia"]["kernel"],
            lex=ms["ell_lex"]["kernel"] / ms["dia"]["kernel"],
            unordered=ms["ell_unordered"]["kernel"] / ms["dia"]["kernel"])
-    for label, r in (("solve", solve_dia), ("solve_ell", solve_ell)):
+    _phase("timing", matrix="el3d_b2_over_b1",
+           ratio=ms["ell_el3d"]["kernel"] / ms["dia_el3d"]["kernel"])
+    for label, r in (("solve", solve_dia), ("solve_ell", solve_ell),
+                     ("elasticity3d f32", el3[torch.float32]),
+                     ("elasticity3d f64", el3[torch.float64]),
+                     ("elasticity2d dia f64", el2_dia),
+                     ("elasticity2d ell f64", el2_ell)):
         _phase("timing", stages=label, card=smi, cg_iters=r.stats.iters,
                cg_ms_per_iter=1e3 * r.timings["solve_s"]
                / max(r.stats.iters, 1), **r.timings)
@@ -466,13 +895,13 @@ def main():
         {"name": "dia_spmv", "route": "cuda",
          "source": "pfemfort_tpu_torch/csrc/dia_spmv.cu",
          "replaces": "pfemfort_tpu/sparse/pallas_spmv.py:48",
-         "launches": launches_dia["dia_spmv"],
+         "launches": counted["dia_spmv"],
          "max_abs_err": errs[("dia_spmv", "flagship", torch.float32)],
          "ms": ms["dia"]["kernel"], "plain_ms": ms["dia"]["plain"]},
         {"name": "ell_spmv", "route": "cuda",
          "source": "pfemfort_tpu_torch/csrc/ell_spmv.cu",
          "replaces": "pfemfort_tpu/sparse/slotgather.py:403",
-         "launches": launches_ell["ell_spmv"],
+         "launches": counted["ell_spmv"],
          "max_abs_err": errs[("ell_spmv", "ordered", torch.float32)],
          "ms": ms["ell_ordered"]["kernel"],
          "plain_ms": ms["ell_ordered"]["plain"]}]}), flush=True)

@@ -6,10 +6,14 @@ kernels for Hopper (sm_90a) in place of the Pallas TPU kernels.  It imports
 neither jax nor any `pfemfort_tpu` module: the numpy-only host modules are
 copied here, each naming its source file in its first line.
 
-Ported so far: Poisson on any mesh through `solve_poisson` (reduced BCs,
-Jacobi-CG).  Generated box_tet meshes take the structured slice-add
-assembly of the reduced DIA system; every other mesh (read with `mesh_io`,
-renumbered, unstructured) takes the pattern assembly, first trying a
+Ported so far: Poisson and linear elasticity on any mesh through
+`solve_poisson` and `solve_elasticity` (reduced BCs, nodal point loads,
+Jacobi-preconditioned CG, BiCGStab or GMRES), explicit central-difference
+dynamics through `explicit_dynamics` (with checkpoint/resume), VTK output,
+and the command line `python -m pfemfort_tpu_torch`.  Generated box_tet and
+rect_tria Poisson meshes take the structured slice-add assembly of the
+reduced DIA system; every other system (read with `mesh_io`, renumbered,
+unstructured, ndof > 1) takes the pattern assembly, first trying a
 geometric renumbering that recovers a DIA structure, else solving the ELL
 system in a bandwidth-reducing row order.  Every SpMV on a CUDA tensor is
 launched as a hand-written kernel: csrc/dia_spmv.cu for DIA, csrc/ell_spmv.cu
@@ -19,8 +23,12 @@ for ELL.
 from pfemfort_tpu_torch.mesh.core import Mesh, ELEMENT_INFO
 from pfemfort_tpu_torch.mesh import generate, io as mesh_io
 from pfemfort_tpu_torch.dofs.dofmap import DofMap, build_dofmap
-from pfemfort_tpu_torch.solve.cg import cg_solve, SolveStats
+from pfemfort_tpu_torch.solve.cg import bicgstab_solve, cg_solve, SolveStats
+from pfemfort_tpu_torch.solve.gmres import gmres_solve
 from pfemfort_tpu_torch.drivers.poisson import solve_poisson
+from pfemfort_tpu_torch.drivers.elasticity import solve_elasticity
+from pfemfort_tpu_torch.dynamics.explicit import explicit_dynamics, \
+    ExplicitResult
 
 __all__ = [
     "Mesh",
@@ -30,6 +38,11 @@ __all__ = [
     "DofMap",
     "build_dofmap",
     "cg_solve",
+    "bicgstab_solve",
+    "gmres_solve",
     "SolveStats",
     "solve_poisson",
+    "solve_elasticity",
+    "explicit_dynamics",
+    "ExplicitResult",
 ]

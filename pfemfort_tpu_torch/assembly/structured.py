@@ -1,6 +1,6 @@
-# Ported from pfemfort_tpu/assembly/structured.py (the 3D box-tet parts).
+# Ported from pfemfort_tpu/assembly/structured.py.
 """Structured slice-add assembly: scatter-free stiffness assembly for
-generated box-tet meshes.
+generated box-tet and rect-tria meshes.
 
 For the mesh the reference's generator produces (box -> 6 tets per hex,
 lexicographic node numbering; genTetranovtk.cpp:203-208), every element
@@ -10,7 +10,9 @@ the (row, col) pair lands on diagonal offset(c,i,j) at a translated copy of
 the hex lattice.  Assembly therefore reduces to 6*npe^2 = 96 static in-place
 slice-adds of dense (nez, ney, nex) blocks into the (D, nnz, nny, nnx) DIA
 value lattice.  The adds run one after another in plan order, so the sums
-are deterministic, with no scatters and no atomics.
+are deterministic, with no scatters and no atomics.  The rect_tria
+lattice (2 triangles per cell) takes the same plan in 2D: 2*npe^2 adds of
+(ney, nex) blocks.
 """
 
 from __future__ import annotations
@@ -44,9 +46,17 @@ def _corner_bits(k: int) -> Tuple[int, int, int]:
     return (k & 1, (k >> 1) & 1, (k >> 2) & 1)
 
 
+# rect_tria classes (bl,br,tr)+(bl,tr,tl) as (by, bx) lattice corners:
+_CLASSES_2D_TRIA = (
+    ((0, 0), (0, 1), (1, 1)),
+    ((0, 0), (1, 1), (1, 0)),
+)
+
+
 def _generic_plan(classes, dims, strides, ndof):
     """classes: per class, tuple of corner lattice coords (slowest..fastest);
-    dims = (nez, ney, nex); strides = node-id stride per axis."""
+    dims = (nez, ney, nex) or (ney, nex); strides = node-id stride per
+    axis."""
     offsets = set()
     entries = []
     rhs_entries = []
@@ -82,6 +92,55 @@ def build_structured_plan(nex: int, ney: int, nez: int,
     return StructuredPlan(nex=nex, ney=ney, nez=nez, ndof=ndof,
                           offsets=offs, entries=entries,
                           rhs_entries=rhs_entries)
+
+
+@dataclasses.dataclass(frozen=True)
+class StructuredPlan2D:
+    nex: int
+    ney: int
+    ndof: int
+    offsets: Tuple[int, ...]
+    entries: Tuple[tuple, ...]      # (class, nr, nc, d, ry, rx, ci)
+    rhs_entries: Tuple[tuple, ...]  # (class, nr, ry, rx, ci)
+
+
+def build_structured_plan_2d(nex: int, ney: int,
+                             ndof: int = 1) -> StructuredPlan2D:
+    """rect_tria lattice: 2 triangles per cell, node numbering x-fastest."""
+    nnx = nex + 1
+    offs, entries, rhs_entries = _generic_plan(
+        _CLASSES_2D_TRIA, (ney, nex), (nnx, 1), ndof)
+    return StructuredPlan2D(nex=nex, ney=ney, ndof=ndof, offsets=offs,
+                            entries=entries, rhs_entries=rhs_entries)
+
+
+def assemble_dia_structured_2d(Ke: torch.Tensor,
+                               plan: StructuredPlan2D) -> DIAMatrix:
+    """Ke (ns, ns, E) with e = cell*2 + class -> DIA over the 2D lattice,
+    2*ns^2 in-place slice-adds."""
+    nex, ney, ndof = plan.nex, plan.ney, plan.ndof
+    nnx, nny = nex + 1, ney + 1
+    ns = 3 * ndof
+    D = len(plan.offsets)
+    vals = Ke.new_zeros((D, nny, nnx, ndof))
+    Kc = Ke.reshape(ns, ns, ney, nex, 2)   # cell = (iy, ix)
+    for (c, nr, nc, d, ry, rx, ci) in plan.entries:
+        vals[d, ry:ry + ney, rx:rx + nex, ci] += Kc[nr, nc, :, :, c]
+    lattice = (nny, nnx) if ndof == 1 else None
+    return DIAMatrix(vals=vals.reshape(D, -1), offsets=plan.offsets,
+                     n_rows=nnx * nny * ndof, lattice=lattice)
+
+
+def assemble_rhs_structured_2d(Fe: torch.Tensor,
+                               plan: StructuredPlan2D) -> torch.Tensor:
+    """Fe (ns, E) -> full nodal-dof rhs (n,), 2*ns slice-adds."""
+    nex, ney, ndof = plan.nex, plan.ney, plan.ndof
+    ns = 3 * ndof
+    rhs = Fe.new_zeros((ney + 1, nex + 1, ndof))
+    Fc = Fe.reshape(ns, ney, nex, 2)
+    for (c, nr, ry, rx, ci) in plan.rhs_entries:
+        rhs[ry:ry + ney, rx:rx + nex, ci] += Fc[nr, :, :, c]
+    return rhs.reshape(-1)
 
 
 def _vals_shape(plan: StructuredPlan):

@@ -1,0 +1,362 @@
+# Ported from pfemfort_tpu/drivers/cli.py (single device).
+"""Command-line drivers mirroring the reference executable matrix.
+
+Every reference solver is a standalone PROGRAM run as
+  mpirun -np N <exe> <nodefile> <elemfile> <DirichletBCfile> [<ForceBCfile>]
+(PFEMFort bin/makefile:3-11).  One CLI exposes the same problem
+matrix as subcommands with the same positional-file convention, the same
+options and the same printed milestones as the JAX package's CLI:
+
+  python -m pfemfort_tpu_torch poisson     <nodes> <elems> <dbc> [-o out.vtk]
+  python -m pfemfort_tpu_torch elasticity  <nodes> <elems> <dbc> [fbc] ...
+  python -m pfemfort_tpu_torch explicit    <nodes> <elems> <dbc> [fbc] --preset tria
+  python -m pfemfort_tpu_torch genmesh     tet x0 x1 nex y0 y1 ney z0 z1 nez -o prefix
+  python -m pfemfort_tpu_torch vtktovtu    in.vtk out.vtu
+
+The solving subcommands add two options of their own: `--device` (default
+cuda; without a card the run fails, pass `--device cpu` to run on the
+CPU) and `--dtype` (float32 by default, as the JAX CLI without x64; the
+port's counterpart of `jax_enable_x64` is `--dtype float64`).  The
+`partition`, `cfd` and `bench` subcommands and `--shards > 1` are not
+ported yet: they raise NotImplementedError naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import torch
+
+_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+def _read(args):
+    from pfemfort_tpu_torch.mesh import io as mesh_io
+
+    mesh = mesh_io.read_mesh(args.nodes, args.elems)
+    dbc = mesh_io.read_bcs(args.dbc)
+    fbc = mesh_io.read_bcs(args.fbc) if getattr(args, "fbc", None) else None
+    return mesh, dbc, fbc
+
+
+def _device(args):
+    """The --device/--dtype pair; a CUDA device without a card fails."""
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {args.device}: torch.cuda.is_available() "
+                         "is false (pass --device cpu to run on the CPU)")
+    return device, _DTYPES[args.dtype]
+
+
+def _no_shards(args):
+    if args.shards and args.shards > 1:
+        raise NotImplementedError(
+            f"--shards {args.shards}: sharded solves wait for ROADMAP A.9 "
+            "(distributed)")
+
+
+def _report(mesh, ndof, res, t0):
+    # Same user-visible milestones as the reference drivers: mesh stats,
+    # iteration count, wall-clock (triapoissonparallelimpl1.F:373-384,914-921).
+    print(f" Mesh statistics: nElem {mesh.n_elem}  nNode {mesh.n_node}  "
+          f"npElem {mesh.npe}  ndof {ndof}")
+    iters = int(res.stats.iters)
+    if res.stats.converged:
+        print(f" Convergence in {iters} iterations, "
+              f"relres {float(res.stats.relres):.3e}")
+    else:
+        print(f" Fails to converge within {iters} iterations "
+              f"(relres {float(res.stats.relres):.3e})")
+    print(f" That took {time.perf_counter() - t0:.3f} seconds")
+
+
+def _write_output(args, mesh, ndof, u_full):
+    if args.output:
+        from pfemfort_tpu_torch.io.vtk import write_vtk
+
+        write_vtk(args.output, mesh, u_full, ndof)
+        print(f" Wrote {args.output}")
+
+
+def _solver_opts(args):
+    """PETSc-options-file parity: -ksp_type/-pc_type/-ksp_rtol etc.
+    (solverpetsc.F:198,209 let the reference switch solvers this way)."""
+    if getattr(args, "options_file", None):
+        from pfemfort_tpu_torch.config import SolverOptions
+        o = SolverOptions.from_options_file(args.options_file)
+        args.rtol = o.rtol
+        if o.ksp_type in ("cg", "bicgstab", "gmres"):
+            args.ksp = o.ksp_type
+        if hasattr(args, "precond") and o.pc_type != "jacobi":
+            # -pc_type ilu/icc -> ic0, -pc_type hypre/gamg -> mg (config.py
+            # aliases); block_jacobi -> the sharded bjacobi route
+            args.precond = {"block_jacobi": "bjacobi"}.get(o.pc_type,
+                                                           o.pc_type)
+    return args
+
+
+def cmd_poisson(args):
+    from pfemfort_tpu_torch.drivers.poisson import solve_poisson
+
+    _solver_opts(args)
+    _no_shards(args)
+    device, dtype = _device(args)
+    mesh, dbc, _ = _read(args)
+    t0 = time.perf_counter()
+    res = solve_poisson(mesh, dbc, rtol=args.rtol, method=args.ksp,
+                        source=args.source, bc_mode=args.bc_mode,
+                        precond=args.precond, refine=args.refine,
+                        matrix_free=args.matrix_free, device=device,
+                        dtype=dtype)
+    _report(mesh, 1, res, t0)
+    _write_output(args, mesh, 1, res.u_full)
+    return 0 if res.stats.converged else 1
+
+
+def cmd_elasticity(args):
+    from pfemfort_tpu_torch.drivers.elasticity import solve_elasticity
+
+    _solver_opts(args)
+    # --precond selects the sharded solve's preconditioner; a single-device
+    # solve ignores it, as the JAX CLI does
+    _no_shards(args)
+    device, dtype = _device(args)
+    mesh, dbc, fbc = _read(args)
+    t0 = time.perf_counter()
+    res = solve_elasticity(
+        mesh, dbc, args.E, args.nu, force_bc=fbc,
+        bforce=None, plane=args.plane, rtol=args.rtol,
+        method=args.ksp, refine=args.refine, device=device, dtype=dtype)
+    _report(mesh, mesh.ndim, res, t0)
+    _write_output(args, mesh, mesh.ndim, res.u_full)
+    return 0 if res.stats.converged else 1
+
+
+def cmd_explicit(args):
+    from pfemfort_tpu_torch.drivers import presets as P
+    from pfemfort_tpu_torch.dynamics.explicit import explicit_dynamics
+
+    preset = {
+        "tria": P.TRIA_EXPLICIT,
+        "quad": P.QUAD_EXPLICIT,
+        "prism": P.PRISM_EXPLICIT,
+        "tria6": P.TRIA6_EXPLICIT,
+    }[args.preset]
+    device, dtype = _device(args)
+    mesh, dbc, fbc = _read(args)
+    if mesh.etype != preset.etype:
+        raise SystemExit(f"mesh is {mesh.etype}, preset wants {preset.etype}")
+
+    nsteps = args.nsteps or preset.nsteps
+    dt = args.dt or preset.dt
+    ndim = mesh.ndim
+    bforce = torch.tensor(preset.bforce, dtype=dtype, device=device)
+    pulse_t = None if preset.pulse_t is None else \
+        torch.tensor(preset.pulse_t, dtype=dtype, device=device)
+
+    def bforce_fn(t):
+        if pulse_t is None:
+            return bforce
+        return bforce * torch.where(t <= pulse_t, 1.0, 0.0)
+
+    snapshot_cb = None
+    if args.vtk_every and args.output:
+        from pfemfort_tpu_torch.io.vtk import write_vtk
+        stem = args.output[:-4] if args.output.endswith(".vtk") \
+            else args.output
+
+        def snapshot_cb(step, disp_full):
+            path = f"{stem}-{step:05d}.vtk"
+            write_vtk(path, mesh, disp_full, ndim)
+            print(f" Wrote {path}")
+
+    t0 = time.perf_counter()
+    res = explicit_dynamics(
+        mesh, dbc, preset.E, preset.nu, preset.dens, dt, nsteps,
+        bforce_fn=bforce_fn, force_bc=fbc,
+        probe_dofs=args.probe or preset.probe_dofs,
+        thickness=preset.thickness, use_hourglass=preset.use_hourglass,
+        snapshot_every=args.vtk_every, snapshot_cb=snapshot_cb,
+        device=device, dtype=dtype)
+    print(f" {nsteps} steps in {time.perf_counter() - t0:.3f} seconds")
+    if (args.probe or preset.probe_dofs):
+        # reference writes timeNow disp... velo... (triaelasticityexplicit.F:1098)
+        with open(args.probe_out, "w") as f:
+            for t, row in zip(res.times, res.probe_history):
+                f.write(" ".join(map(str, [t] + list(row))) + "\n")
+        print(f" Wrote {args.probe_out}")
+    if args.output:
+        from pfemfort_tpu_torch.io.vtk import write_vtk
+
+        write_vtk(args.output, mesh, res.disp, ndim)
+        print(f" Wrote {args.output}")
+    return 0
+
+
+def cmd_genmesh(args):
+    from pfemfort_tpu_torch.mesh import generate
+    from pfemfort_tpu_torch.mesh import io as mesh_io
+
+    if args.shape == "tet":
+        mesh, dbc = generate.box_tet(
+            args.x0, args.x1, args.nex, args.y0, args.y1, args.ney,
+            args.z0, args.z1, args.nez)
+        mesh_io.write_dat(args.out, mesh, dirichlet=dbc)
+    else:
+        mesh = generate.rect_tria(args.x0, args.x1, args.nex,
+                                  args.y0, args.y1, args.ney)
+        mesh_io.write_dat(args.out, mesh)
+    print(f" Wrote {args.out}-nodes.dat / -elems.dat"
+          + (" / -DirichBC.dat" if args.shape == "tet" else ""))
+    return 0
+
+
+def cmd_vtktovtu(args):
+    from pfemfort_tpu_torch.io.vtk import vtk_to_vtu
+
+    vtk_to_vtu(args.input, args.out)
+    print(f" Wrote {args.out}")
+    return 0
+
+
+def _not_ported(item):
+    def cmd(args):
+        raise NotImplementedError(
+            f"the {args.cmd} subcommand waits for ROADMAP {item}")
+    return cmd
+
+
+def build_parser():
+    p = argparse.ArgumentParser(
+        prog="pfemfort_tpu_torch",
+        description="FEM solvers on PyTorch and CUDA (PFEMFort capability "
+                    "set)")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    def add_files(sp, force=False):
+        sp.add_argument("nodes")
+        sp.add_argument("elems")
+        sp.add_argument("dbc")
+        if force:
+            sp.add_argument("fbc", nargs="?", default=None)
+        sp.add_argument("-o", "--output", default=None,
+                        help="legacy VTK output path")
+        sp.add_argument("--options-file", default=None,
+                        help="PETSc-style options file (-ksp_type, "
+                             "-pc_type, -ksp_rtol, ...)")
+        sp.add_argument("--device", default="cuda",
+                        help="torch device to solve on (default cuda; "
+                             "cpu runs the kernels' plain versions)")
+        sp.add_argument("--dtype", choices=sorted(_DTYPES),
+                        default="float32", help="working precision")
+
+    sp = sub.add_parser("poisson", help="implicit Poisson (2D/3D)")
+    add_files(sp)
+    sp.add_argument("--rtol", type=float, default=1e-8)
+    sp.add_argument("--ksp", choices=["cg", "bicgstab", "gmres"],
+                    default="cg")
+    sp.add_argument("--source", type=float, default=None,
+                    help="volume source (default: 0 in 2D, -6 for tetra)")
+    sp.add_argument("--shards", type=int, default=0,
+                    help="shard the solve over N devices (0 = single; "
+                         "ROADMAP A.9)")
+    sp.add_argument("--bc-mode", choices=["reduced", "full"],
+                    default="reduced",
+                    help="reduced = BC-eliminated system (impl1/2); "
+                         "full = MatZeroRows identity rows (impl3; "
+                         "ROADMAP A.6)")
+    sp.add_argument("--precond",
+                    choices=["jacobi", "cheby", "ic0", "amg", "mg"],
+                    default="jacobi",
+                    help="only jacobi is ported (the rest: ROADMAP A.6)")
+    sp.add_argument("--refine", action="store_true",
+                    help="refinement to TRUE f64 rtol (ROADMAP A.7)")
+    sp.add_argument("--matrix-free", action="store_true",
+                    help="assembly-free operator (ROADMAP A.8)")
+    sp.set_defaults(fn=cmd_poisson)
+
+    sp = sub.add_parser("elasticity", help="implicit linear elasticity")
+    add_files(sp, force=True)
+    sp.add_argument("--E", type=float, default=240.565)
+    sp.add_argument("--nu", type=float, default=0.3)
+    sp.add_argument("--plane", choices=["stress", "strain"],
+                    default="stress")
+    sp.add_argument("--rtol", type=float, default=1e-8)
+    sp.add_argument("--ksp", choices=["cg", "bicgstab", "gmres"],
+                    default="cg")
+    sp.add_argument("--shards", type=int, default=0,
+                    help="shard the solve over N devices (0 = single; "
+                         "ROADMAP A.9)")
+    sp.add_argument("--precond",
+                    choices=["jacobi", "bjacobi", "ic0", "amg", "mg"],
+                    default="bjacobi",
+                    help="sharded-solve preconditioner; a single-device "
+                         "solve uses Jacobi")
+    sp.add_argument("--refine", action="store_true",
+                    help="refinement to TRUE f64 rtol (ROADMAP A.7)")
+    sp.set_defaults(fn=cmd_elasticity)
+
+    sp = sub.add_parser("explicit", help="explicit central-difference dynamics")
+    add_files(sp, force=True)
+    sp.add_argument("--preset", choices=["tria", "quad", "prism", "tria6"],
+                    required=True)
+    sp.add_argument("--nsteps", type=int, default=None)
+    sp.add_argument("--dt", type=float, default=None)
+    sp.add_argument("--probe", type=int, nargs="*", default=None,
+                    help="0-based global node-dof indices to record")
+    sp.add_argument("--probe-out", default="solnoutput.dat")
+    sp.add_argument("--vtk-every", type=int, default=0,
+                    help="write <output-stem>-NNNNN.vtk every k steps (the "
+                         "reference's Elasticity-soln-NNNNN.vtk series)")
+    sp.set_defaults(fn=cmd_explicit)
+
+    sp = sub.add_parser("cfd", help="incompressible NS fractional step "
+                                    "(ROADMAP A.8)")
+    add_files(sp)
+    sp.add_argument("--nu-visc", type=float, default=0.05)
+    sp.add_argument("--dt", type=float, default=2e-3)
+    sp.add_argument("--nsteps", type=int, default=500)
+    sp.set_defaults(fn=_not_ported("A.8 (CFD)"))
+
+    sp = sub.add_parser("genmesh", help="generate structured meshes")
+    sp.add_argument("shape", choices=["tet", "tria"])
+    sp.add_argument("x0", type=float)
+    sp.add_argument("x1", type=float)
+    sp.add_argument("nex", type=int)
+    sp.add_argument("y0", type=float)
+    sp.add_argument("y1", type=float)
+    sp.add_argument("ney", type=int)
+    sp.add_argument("z0", type=float, nargs="?")
+    sp.add_argument("z1", type=float, nargs="?")
+    sp.add_argument("nez", type=int, nargs="?")
+    sp.add_argument("-o", "--out", required=True, help="output prefix")
+    sp.set_defaults(fn=cmd_genmesh)
+
+    sp = sub.add_parser("partition", help="partition a mesh (ROADMAP A.9)")
+    sp.add_argument("nodes")
+    sp.add_argument("elems")
+    sp.add_argument("--nparts", type=int, required=True)
+    sp.add_argument("--method", choices=["rcb", "greedy"], default="rcb")
+    sp.add_argument("-o", "--output", default=None)
+    sp.set_defaults(fn=_not_ported("A.9 (distributed)"))
+
+    sp = sub.add_parser("vtktovtu", help="legacy VTK -> XML .vtu")
+    sp.add_argument("input")
+    sp.add_argument("out")
+    sp.set_defaults(fn=cmd_vtktovtu)
+
+    sp = sub.add_parser("bench", help="the benchmark harness (ROADMAP A.10)")
+    sp.add_argument("n", type=int, nargs="?", default=72)
+    sp.set_defaults(fn=_not_ported("A.10 (benchmark)"))
+    return p
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

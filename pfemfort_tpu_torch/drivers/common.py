@@ -1,4 +1,4 @@
-# Ported from pfemfort_tpu/drivers/common.py (reduced-system Jacobi/CG paths).
+# Ported from pfemfort_tpu/drivers/common.py (reduced-system Jacobi paths).
 """Shared implicit-solve pipeline: dofmap -> pattern -> assemble -> Krylov.
 
 This is the skeleton every reference driver re-implements inline
@@ -6,8 +6,9 @@ This is the skeleton every reference driver re-implements inline
 PFEMFort src/triapoissonserialimpl1.F and 14 siblings).  Three
 paths, chosen from the mesh:
 
-  * generated box-tet meshes whose free nodes form a box: scatter-free
-    structured slice-add assembly of the reduced DIA system;
+  * generated box-tet and rect-tria meshes whose free nodes form a box
+    (ndof = 1): scatter-free structured slice-add assembly of the reduced
+    DIA system;
   * every other mesh: the pattern/segment-sum assembly
     (assembly/pattern.py, assembly/assemble.py).  A structure-less mesh
     whose numbering is not DIA-able is first renumbered geometrically
@@ -17,7 +18,7 @@ paths, chosen from the mesh:
 
 Every SpMV goes through sparse/ops.py:operator_and_diag (kernels B1 and B2
 on the card, their plain versions on the CPU); the Krylov method is
-Jacobi-preconditioned CG.
+Jacobi-preconditioned CG, BiCGStab or GMRES.
 """
 
 from __future__ import annotations
@@ -43,8 +44,9 @@ from pfemfort_tpu_torch.dofs.dofmap import build_dofmap, full_lattice, \
 from pfemfort_tpu_torch.elements.geometry import to_element_minor
 from pfemfort_tpu_torch.mesh.core import Mesh
 from pfemfort_tpu_torch.mesh.reorder import recover_structure
-from pfemfort_tpu_torch.solve.cg import SolveStats, cg_solve, \
-    jacobi_preconditioner
+from pfemfort_tpu_torch.solve.cg import SolveStats, bicgstab_solve, \
+    cg_solve, jacobi_preconditioner
+from pfemfort_tpu_torch.solve.gmres import gmres_solve
 from pfemfort_tpu_torch.sparse.formats import ELLMatrix
 from pfemfort_tpu_torch.sparse.ops import operator_and_diag
 from pfemfort_tpu_torch.sparse.ordering import coord_lex_order, \
@@ -69,9 +71,14 @@ def _sync(device: torch.device):
         torch.cuda.synchronize(device)
 
 
+_SOLVERS = {"cg": cg_solve, "bicgstab": bicgstab_solve,
+            "gmres": gmres_solve}
+
+
 def _structured_box(mesh: Mesh, dofmap):
-    """The free-node box of a generated box_tet mesh, or None."""
-    if (mesh.structure or {}).get("kind") != "box_tet":
+    """The free-node box of a generated box_tet or rect_tria mesh, or
+    None."""
+    if (mesh.structure or {}).get("kind") not in ("box_tet", "rect_tria"):
         return None
     return reduced_box(mesh, dofmap)
 
@@ -80,9 +87,10 @@ def build_reduced_assembler(mesh: Mesh, ndof: int, dofmap, element_fn,
                             dtype: torch.dtype, device: torch.device):
     """Return assemble(coords_em) -> (A, b_reduced).
 
-    Generated box-tet meshes whose free nodes form a rectangular box take
-    the scatter-FREE structured slice-add assembly of the FULL system and
-    the slice-only reduction (assembly/structured.py:reduce_structured_system).
+    Generated box-tet and rect-tria meshes whose free nodes form a
+    rectangular box take the scatter-FREE structured slice-add assembly of
+    the FULL system and the slice-only reduction
+    (assembly/structured.py:reduce_structured_system).
     Every other mesh takes the pattern path, which needs `dofmap` built
     with `with_elem=True`; its assembler carries the pattern as
     `assemble.pattern`.  Both give the same reduced system.
@@ -90,15 +98,24 @@ def build_reduced_assembler(mesh: Mesh, ndof: int, dofmap, element_fn,
     red_box = _structured_box(mesh, dofmap)
     if red_box is None:
         return _pattern_assembler(mesh, dofmap, element_fn, dtype, device)
-    plan = st.build_structured_plan(
-        mesh.structure["nex"], mesh.structure["ney"], mesh.structure["nez"],
-        ndof=ndof)
+    if mesh.structure["kind"] == "box_tet":
+        plan = st.build_structured_plan(
+            mesh.structure["nex"], mesh.structure["ney"],
+            mesh.structure["nez"], ndof=ndof)
+        asm_mat, asm_rhs = (st.assemble_dia_structured,
+                            st.assemble_rhs_structured)
+    else:
+        plan = st.build_structured_plan_2d(
+            mesh.structure["nex"], mesh.structure["ney"], ndof=ndof)
+        asm_mat, asm_rhs = (st.assemble_dia_structured_2d,
+                            st.assemble_rhs_structured_2d)
     shape = full_lattice(mesh)
     bc_vals_full = torch.as_tensor(dofmap.bc_values_full, dtype=dtype,
                                    device=device)
 
     n_chunks = 1
-    if mesh.n_elem > _CHUNK_ABOVE_ELEMS:
+    if mesh.structure["kind"] == "box_tet" \
+            and mesh.n_elem > _CHUNK_ABOVE_ELEMS:
         nez = mesh.structure["nez"]
         want = -(-mesh.n_elem // _CHUNK_ELEMS)
         for cand in range(want, nez + 1):
@@ -112,8 +129,8 @@ def build_reduced_assembler(mesh: Mesh, ndof: int, dofmap, element_fn,
                 element_fn, coords_em, plan, n_chunks)
         else:
             Ke, Fe_src = element_fn(coords_em)
-            A_full = st.assemble_dia_structured(Ke, plan)
-            b_full = st.assemble_rhs_structured(Fe_src, plan)
+            A_full = asm_mat(Ke, plan)
+            b_full = asm_rhs(Fe_src, plan)
         return st.reduce_structured_system(
             A_full, b_full, red_box, shape, bc_vals_full)
 
@@ -138,6 +155,18 @@ def _pattern_assembler(mesh, dofmap, element_fn, dtype, device):
 
     assemble.pattern = pattern
     return assemble
+
+
+def _point_loads(dofmap, force_bc) -> np.ndarray:
+    """Nodal ForceBC rows -> reduced rhs vector (row-ownership guard as in
+    triaelasticityparallelimpl1.F:976-987)."""
+    fvec = np.zeros(dofmap.total_dof, dtype=np.float64)
+    if force_bc is not None and len(force_bc):
+        rows = dofmap.node_dof[force_bc[:, 0].astype(np.int64),
+                               force_bc[:, 1].astype(np.int64)]
+        keep = rows >= 0
+        np.add.at(fvec, rows[keep], force_bc[keep, 2])
+    return fvec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -205,6 +234,7 @@ def solve_implicit(
     ndof: int,
     dirichlet: np.ndarray,
     element_fn: Callable,
+    force_bc: Optional[np.ndarray] = None,
     device="cpu",
     dtype: Optional[torch.dtype] = None,
     rtol: float = 1e-8,
@@ -220,6 +250,11 @@ def solve_implicit(
       element_fn: coords_em (npe, ndim, E) tensor -> (Ke (ns,ns,E),
                   Fe_src (ns,E)).
       dirichlet:  (n,3) [node, dof, value] rows (0-based).
+      force_bc:   optional (n,3) nodal point loads added to the rhs
+                  (the reference's ForceBC files); loads on Dirichlet
+                  dofs are dropped.
+      method:     'cg' (the reference default, solverpetsc.F:187),
+                  'bicgstab' or 'gmres'.
       device, dtype: where and in what precision assembly and solve run;
                   dtype None means torch.get_default_dtype().
       recover:    when a structure-less mesh's diagonal census fails the
@@ -231,10 +266,8 @@ def solve_implicit(
     Timings: pattern_s (host set-up), order_s (ELL row ordering, ELL path
     only), assemble_s and solve_s (each ends in a device synchronise).
     """
-    if method != "cg":
-        raise NotImplementedError(
-            f"method={method!r}: only 'cg' is ported; BiCGStab and GMRES "
-            "wait for ROADMAP A.3")
+    if method not in _SOLVERS:
+        raise ValueError(f"method={method!r}: one of {sorted(_SOLVERS)}")
     if precond != "jacobi":
         raise NotImplementedError(
             f"precond={precond!r}: only 'jacobi' is ported; the other "
@@ -244,11 +277,12 @@ def solve_implicit(
         dtype = torch.get_default_dtype()
 
     if recover and mesh.structure is None:
-        rec = recover_structure(mesh, ndof, dirichlet)
+        rec = recover_structure(mesh, ndof, dirichlet, force_bc)
         if rec is not None:
-            mesh2, dbc2, _, perm, dofmap0 = rec
+            mesh2, dbc2, fbc2, perm, dofmap0 = rec
             res = solve_implicit(
-                mesh2, ndof, dbc2, element_fn, device=device, dtype=dtype,
+                mesh2, ndof, dbc2, element_fn, force_bc=fbc2, device=device,
+                dtype=dtype,
                 rtol=rtol, atol=atol, maxiter=maxiter, method=method,
                 recover=False, precond=precond)
             u_full = res.u_full.reshape(mesh.n_node, ndof)[perm].reshape(-1)
@@ -267,6 +301,8 @@ def solve_implicit(
         mesh, ndof, dofmap, element_fn, dtype, device)
     coords_em = torch.as_tensor(to_element_minor(mesh.elem_coords()),
                                 dtype=dtype, device=device)
+    fvec = torch.as_tensor(_point_loads(dofmap, force_bc), dtype=dtype,
+                           device=device)
     _sync(device)
     timings = dict(pattern_s=time.perf_counter() - t0)
 
@@ -285,6 +321,7 @@ def solve_implicit(
 
     t0 = time.perf_counter()
     A, b = assemble_reduced(coords_em)
+    b = b + fvec
     if ordering is not None:
         A, b = ordering.system(A, b)
     operator, diag = operator_and_diag(A)
@@ -292,8 +329,9 @@ def solve_implicit(
     timings["assemble_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    u, stats = cg_solve(operator, b, precond=jacobi_preconditioner(diag),
-                        rtol=rtol, atol=atol, maxiter=maxiter)
+    u, stats = _SOLVERS[method](
+        operator, b, precond=jacobi_preconditioner(diag), rtol=rtol,
+        atol=atol, maxiter=maxiter)
     if ordering is not None:
         u = u[ordering.inv]
     _sync(device)

@@ -1,0 +1,73 @@
+# Ported from pfemfort_tpu/drivers/elasticity.py (reduced BCs).
+"""Implicit linear-elasticity drivers: the port's
+triaelasticityparallelimpl1 (2D, plane stress) and
+tetraelasticityparallelimpl1 (3D)."""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from pfemfort_tpu_torch.drivers.common import ImplicitResult, solve_implicit
+from pfemfort_tpu_torch.elements.elasticity import (
+    dmat_3d,
+    dmat_plane_strain,
+    dmat_plane_stress,
+    elasticity_stiffness,
+)
+from pfemfort_tpu_torch.mesh.core import Mesh
+
+
+def solve_elasticity(
+    mesh: Mesh,
+    dirichlet: np.ndarray,
+    E: float,
+    nu: float,
+    force_bc: Optional[np.ndarray] = None,
+    bforce: Optional[Sequence[float]] = None,
+    thickness: float = 1.0,
+    plane: str = "stress",
+    device="cpu",
+    dtype: Optional[torch.dtype] = None,
+    rtol: float = 1e-8,
+    maxiter: Optional[int] = None,
+    method: str = "cg",
+    refine: bool = False,
+    bc_mode: str = "reduced",
+    precond: str = "jacobi",
+) -> ImplicitResult:
+    """Static linear elasticity K u = F with Dirichlet + nodal Force BCs.
+
+    The reference's implicit 2D path is plane STRESS
+    (PFEMFort src/elementutilitieselasticity2D.F:61-66) — that is the
+    default here; pass plane='strain' for the explicit-dynamics constitutive
+    law.  3D uses the standard isotropic D
+    (PFEMFort src/elementutilitieselasticity3D.F:287-296).
+    device, dtype: as in drivers/common.py:solve_implicit.
+    """
+    if refine:
+        raise NotImplementedError(
+            "refine=True waits for ROADMAP A.7 (precision)")
+    if bc_mode != "reduced":
+        raise NotImplementedError(
+            f"bc_mode={bc_mode!r}: only 'reduced' is ported; the full "
+            "system waits for ROADMAP A.6")
+    ndim = mesh.ndim
+    if ndim == 2:
+        D = dmat_plane_stress(E, nu) if plane == "stress" \
+            else dmat_plane_strain(E, nu)
+    else:
+        D = dmat_3d(E, nu)
+
+    def element_fn(coords_em):
+        return elasticity_stiffness(
+            coords_em, mesh.etype, D,
+            thickness=thickness if ndim == 2 else 1.0,
+            bforce=bforce)
+
+    return solve_implicit(
+        mesh, ndim, dirichlet, element_fn, force_bc=force_bc, device=device,
+        dtype=dtype, rtol=rtol, maxiter=maxiter, method=method,
+        precond=precond)

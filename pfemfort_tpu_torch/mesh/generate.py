@@ -1,10 +1,16 @@
-# Copied from pfemfort_tpu/mesh/generate.py (box_tet and its helpers only).
-"""Structured box-tet mesh generator (host-side numpy).
+# Copied from pfemfort_tpu/mesh/generate.py (all but box_tet_coords_em_device).
+"""Structured mesh generators (host-side numpy).
 
-`box_tet`: box -> hexes -> 6 tets each, with Dirichlet u = x^2+y^2+z^2 on
-all six faces — same node lattice (x fastest, then y, then z), the same
-6-tet split pattern and the same BC field as genTetra
-(/root/reference/src/genTetranovtk.cpp:130-208, genTetra.cpp:516-524).
+Re-creates the reference's offline mesh tools as vectorized numpy:
+  * `box_tet`: box -> hexes -> 6 tets each, with Dirichlet u = x^2+y^2+z^2 on
+    all six faces — same node lattice (x fastest, then y, then z), the same
+    6-tet split pattern and the same BC field as genTetra
+    (PFEMFort src/genTetranovtk.cpp:130-208, genTetra.cpp:516-524).
+  * `rect_tria`: the tria20x20-style unit-square triangulation (each grid quad
+    split into two triangles, matching input/tria20x20-elems.dat).
+  * `rect_quad`, `rect_tria6`, `box_hexa`, `box_prism`: structured quad /
+    quadratic-triangle / hex / prism grids for the explicit-dynamics element
+    types.
 
 All generators return 0-based connectivity.
 """
@@ -19,7 +25,7 @@ from pfemfort_tpu_torch.mesh.core import Mesh
 
 # The fixed hex->6-tet split (corner indices into the hex's 8 nodes, using the
 # reference's lattice corner order pts[0..7] = (x,y,z) bit pattern with x
-# fastest; /root/reference/src/genTetranovtk.cpp:203-208).
+# fastest; PFEMFort src/genTetranovtk.cpp:203-208).
 _TET_SPLIT = np.array(
     [
         [0, 1, 3, 5],
@@ -42,6 +48,23 @@ def _lattice(x0, x1, nex, y0, y1, ney, z0=None, z1=None, nez=None):
     zs = np.linspace(z0, z1, nez + 1)
     Z, Y, X = np.meshgrid(zs, ys, xs, indexing="ij")  # z slowest, x fastest
     return np.stack([X.ravel(), Y.ravel(), Z.ravel()], axis=1)
+
+
+def _hex_corner_ids(nex, ney, nez):
+    """(n_hex, 8) node ids of every hex cell, x fastest; corner order = the
+    reference's pts[0..7]."""
+    nnx, nny = nex + 1, ney + 1
+    ii, jj, kk = np.meshgrid(
+        np.arange(nex), np.arange(ney), np.arange(nez), indexing="ij")
+    ii, jj, kk = ii.ravel(order="F"), jj.ravel(order="F"), kk.ravel(order="F")
+    base = kk * (nnx * nny) + jj * nnx + ii
+    # pts[0]=base, pts[1]=+x, pts[2]=+y, pts[3]=+x+y, pts[4..7]=same +z
+    offs = np.array(
+        [0, 1, nnx, nnx + 1,
+         nnx * nny, nnx * nny + 1, nnx * nny + nnx, nnx * nny + nnx + 1],
+        dtype=np.int64,
+    )
+    return (base[:, None] + offs[None, :]).astype(np.int32)
 
 
 def box_tet(x0, x1, nex, y0, y1, ney, z0, z1, nez,
@@ -112,3 +135,98 @@ def box_tet_coords_em(x0, x1, nex, y0, y1, ney, z0, z1, nez,
             view[i, 1, :, :, :, c] = ys[by:by + ney][None, :, None]
             view[i, 2, :, :, :, c] = zs[bz:bz + nez][:, None, None]
     return out
+
+
+def rect_tria(x0, x1, nex, y0, y1, ney) -> Mesh:
+    """Unit-square-style triangulation: each grid quad -> 2 triangles
+    (bl,br,tr) + (bl,tr,tl), matching input/tria20x20-elems.dat."""
+    coords = _lattice(x0, x1, nex, y0, y1, ney)
+    nnx = nex + 1
+    jj, ii = np.meshgrid(np.arange(ney), np.arange(nex), indexing="ij")
+    bl = (jj * nnx + ii).ravel()
+    br, tl = bl + 1, bl + nnx
+    tr = tl + 1
+    t1 = np.stack([bl, br, tr], axis=1)
+    t2 = np.stack([bl, tr, tl], axis=1)
+    conn = np.concatenate([t1[:, None, :], t2[:, None, :]], axis=1).reshape(-1, 3)
+    return Mesh("tria3", coords, conn.astype(np.int32),
+                structure=dict(kind="rect_tria", nex=nex, ney=ney))
+
+
+def rect_quad(x0, x1, nex, y0, y1, ney) -> Mesh:
+    coords = _lattice(x0, x1, nex, y0, y1, ney)
+    nnx = nex + 1
+    jj, ii = np.meshgrid(np.arange(ney), np.arange(nex), indexing="ij")
+    bl = (jj * nnx + ii).ravel()
+    conn = np.stack([bl, bl + 1, bl + 1 + nnx, bl + nnx], axis=1)
+    return Mesh("quad4", coords, conn.astype(np.int32))
+
+
+def rect_tria6(x0, x1, nex, y0, y1, ney) -> Mesh:
+    """Quadratic triangles on a refined lattice (corner+midside nodes).
+
+    Node order per element: 3 corners then midsides (12, 23, 31) — the
+    reference's Tria6 basis ordering
+    (PFEMFort src/elementutilitiesbasisfuncs.F:80-99: N4 on edge 1-2,
+    N5 on edge 2-3, N6 on edge 3-1 in its xi numbering; see basis.py).
+    """
+    # Lattice with doubled resolution: every node of the fine lattice exists.
+    coords = _lattice(x0, x1, 2 * nex, y0, y1, 2 * ney)
+    nnx = 2 * nex + 1
+
+    def nid(i, j):
+        return j * nnx + i
+
+    elems = []
+    for j in range(ney):
+        for i in range(nex):
+            i0, j0 = 2 * i, 2 * j
+            bl, br = nid(i0, j0), nid(i0 + 2, j0)
+            tr, tl = nid(i0 + 2, j0 + 2), nid(i0, j0 + 2)
+            # triangle 1: bl, br, tr
+            elems.append([bl, br, tr,
+                          nid(i0 + 1, j0), nid(i0 + 2, j0 + 1), nid(i0 + 1, j0 + 1)])
+            # triangle 2: bl, tr, tl
+            elems.append([bl, tr, tl,
+                          nid(i0 + 1, j0 + 1), nid(i0 + 1, j0 + 2), nid(i0, j0 + 1)])
+    return Mesh("tria6", coords, np.asarray(elems, dtype=np.int32))
+
+
+def box_hexa(x0, x1, nex, y0, y1, ney, z0, z1, nez) -> Mesh:
+    coords = _lattice(x0, x1, nex, y0, y1, ney, z0, z1, nez)
+    hexes = _hex_corner_ids(nex, ney, nez)
+    # Lattice-bit node order (x fastest), matching LagrangeBasisFunsHex
+    # (PFEMFort src/elementutilitiesbasisfuncs.F:323-330).  The VTK
+    # writer reorders to VTK-ccw on output.
+    return Mesh("hexa8", coords, hexes)
+
+
+def box_prism(x0, x1, nex, y0, y1, ney, z0, z1, nez) -> Mesh:
+    """Each hex split into two triangular prisms (extruded rect_tria).
+
+    Prism node order: bottom triangle then top triangle (the reference's
+    LagrangeBasisFunsPrism expects triangle at xi4=-1 first;
+    PFEMFort src/elementutilitiesbasisfuncs.F:387-392).
+    """
+    coords = _lattice(x0, x1, nex, y0, y1, ney, z0, z1, nez)
+    nnx, nny = nex + 1, ney + 1
+    layer = nnx * nny
+    kk, jj, ii = np.meshgrid(
+        np.arange(nez), np.arange(ney), np.arange(nex), indexing="ij")
+    bl = (kk * layer + jj * nnx + ii).ravel()
+    br, tl = bl + 1, bl + nnx
+    tr = tl + 1
+    p1 = np.stack([bl, br, tr, bl + layer, br + layer, tr + layer], axis=1)
+    p2 = np.stack([bl, tr, tl, bl + layer, tr + layer, tl + layer], axis=1)
+    conn = np.concatenate([p1[:, None, :], p2[:, None, :]], axis=1).reshape(-1, 6)
+    return Mesh("prism6", coords, conn.astype(np.int32))
+
+
+def boundary_nodes(mesh: Mesh) -> np.ndarray:
+    """Node ids on the bounding box faces (structured-grid convenience)."""
+    X = mesh.coords
+    mask = np.zeros(mesh.n_node, dtype=bool)
+    for d in range(mesh.ndim):
+        mask |= np.isclose(X[:, d], X[:, d].min())
+        mask |= np.isclose(X[:, d], X[:, d].max())
+    return np.nonzero(mask)[0]

@@ -1,8 +1,8 @@
-# Ported from pfemfort_tpu/solve/cg.py (CG and the Jacobi preconditioner).
-"""Preconditioned conjugate gradients (torch).
+# Ported from pfemfort_tpu/solve/cg.py (CG, BiCGStab and the Jacobi preconditioner).
+"""Preconditioned conjugate gradients and BiCGStab (torch).
 
 Reimplements the reference's PETSc KSP layer (KSP=CG;
-/root/reference/src/solverpetsc.F:187-209, KSPSolve at :476) as a host loop
+PFEMFort src/solverpetsc.F:187-209, KSPSolve at :476) as a host loop
 over a user-supplied operator.  The vectors and the scalars of the
 recurrence stay on the operator's device; the host reads one boolean per
 iteration, the convergence test rr > tol2, so the iteration count is the
@@ -69,9 +69,63 @@ def cg_solve(
         rz = rz_new
         k += 1
 
+    return x, _stats(k, rr, bnorm, tol2)
+
+
+def _stats(k: int, rr: torch.Tensor, bnorm: torch.Tensor,
+           tol2: torch.Tensor) -> SolveStats:
     relres = torch.sqrt(rr) / torch.where(bnorm > 0, bnorm, 1.0)
-    return x, SolveStats(iters=k, relres=float(relres),
-                         converged=bool(rr <= tol2))
+    return SolveStats(iters=k, relres=float(relres),
+                      converged=bool(rr <= tol2))
+
+
+def bicgstab_solve(
+    operator: Callable,
+    b: torch.Tensor,
+    x0: Optional[torch.Tensor] = None,
+    precond: Optional[Callable] = None,
+    rtol: float = 1e-8,
+    atol: float = 0.0,
+    maxiter: int = 10_000,
+):
+    """Preconditioned BiCGStab (for the nonsymmetric systems the reference
+    lets users request via the PETSc options file; solverpetsc.F:1-8).
+
+    The same host loop as `cg_solve`: one boolean read per iteration, every
+    vector and scalar on b's device.  Returns (x, SolveStats).
+    """
+    if precond is None:
+        precond = lambda r: r
+    x = torch.zeros_like(b) if x0 is None else x0.clone()
+
+    bnorm = torch.sqrt(torch.dot(b, b))
+    tol2 = torch.clamp_min(rtol * bnorm, atol) ** 2
+
+    r = b - operator(x)
+    rhat = r.clone()
+    p = torch.zeros_like(b)
+    v = torch.zeros_like(b)
+    rho = alpha = omega = torch.ones((), dtype=b.dtype, device=b.device)
+    rr = torch.dot(r, r)
+
+    k = 0
+    while k < maxiter and bool(rr > tol2):
+        rho_new = torch.dot(rhat, r)
+        beta = (rho_new / rho) * (alpha / omega)
+        p = r + beta * (p - omega * v)
+        phat = precond(p)
+        v = operator(phat)
+        alpha = rho_new / torch.dot(rhat, v)
+        s = r - alpha * v
+        shat = precond(s)
+        t = operator(shat)
+        omega = torch.dot(t, s) / torch.dot(t, t)
+        x = x + alpha * phat + omega * shat
+        r = s - omega * t
+        rho = rho_new
+        rr = torch.dot(r, r)
+        k += 1
+    return x, _stats(k, rr, bnorm, tol2)
 
 
 def jacobi_preconditioner(diag: torch.Tensor) -> Callable:

@@ -216,3 +216,127 @@ def test_ell_solve_on_the_card_matches_the_cpu(cuda):
     assert "order_s" in r_gpu.timings
     assert r_gpu.stats.iters == r_cpu.stats.iters
     assert np.abs(r_gpu.u_full - r_cpu.u_full).max() <= 1e-10
+
+
+# ------------------------------------------------------------ elasticity
+
+
+def _clamped(mesh):
+    nodes = np.nonzero(mesh.coords[:, 0] == mesh.coords[:, 0].min())[0]
+    d = mesh.ndim
+    return np.stack([np.repeat(nodes, d), np.tile(np.arange(d), len(nodes)),
+                     np.zeros(d * len(nodes))], 1).astype(np.float64)
+
+
+def _elasticity_system(case, device, dtype):
+    """The assembled elasticity system in the solve's layout: 3D box_tet
+    clamped on x=0 (flat DIA, 59 diagonals) or the 2D rect_tria with its
+    nodes renumbered, as ELL in the solve's row order (K = 16)."""
+    from pfemfort_tpu_torch.dofs.dofmap import build_dofmap
+    from pfemfort_tpu_torch.drivers.common import build_ell_ordering, \
+        build_reduced_assembler
+    from pfemfort_tpu_torch.elements.elasticity import dmat_3d, \
+        dmat_plane_stress, elasticity_stiffness
+    from pfemfort_tpu_torch.elements.geometry import to_element_minor
+
+    if case == "3d":
+        mesh, _ = generate.box_tet(0, 1, 10, 0, 1, 10, 0, 1, 10)
+        D = dmat_3d(240.565, 0.3)
+    else:
+        mesh = generate.rect_tria(0, 2, 40, 0, 1, 20)
+        perm = np.random.default_rng(0).permutation(mesh.n_node)
+        mesh = mesh.renumbered(perm.astype(np.int64))
+        D = dmat_plane_stress(240.565, 0.3)
+    dbc = _clamped(mesh)
+    dofmap = build_dofmap(mesh, mesh.ndim, dbc)
+    assemble = build_reduced_assembler(
+        mesh, mesh.ndim, dofmap,
+        lambda c: elasticity_stiffness(c, mesh.etype, D), dtype, device)
+    A, b = assemble(torch.as_tensor(to_element_minor(mesh.elem_coords()),
+                                    dtype=dtype, device=device))
+    if case == "2d":
+        ordering = build_ell_ordering(
+            assemble.pattern, mesh.coords[dofmap.assy_for_soln // 2],
+            dofmap.assy_for_soln % 2, device)
+        A, b = ordering.system(A, b)
+    return A
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_dia_kernel_at_59_flat_diagonals(cuda, dtype):
+    A = _elasticity_system("3d", cuda, dtype)
+    assert len(A.offsets) == 59 and A.lattice is None
+    x = torch.as_tensor(np.random.default_rng(5).standard_normal(A.n_rows),
+                        dtype=dtype, device=cuda)
+    before = dia_spmv_cuda.kernel.launches
+    y = dia_operator(A)(x)
+    torch.cuda.synchronize()
+    assert dia_spmv_cuda.kernel.launches == before + 1
+    assert _rel_err(y, spmv_dia(A, x)) <= REL_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ell_kernel_at_k16_two_dofs(cuda, dtype):
+    A = _elasticity_system("2d", cuda, dtype)
+    assert A.k == 16
+    x = torch.as_tensor(np.random.default_rng(6).standard_normal(A.n_cols),
+                        dtype=dtype, device=cuda)
+    before = ell_spmv_cuda.kernel.launches
+    y = ell_spmv_cuda.ell_spmv(A, x)
+    torch.cuda.synchronize()
+    assert ell_spmv_cuda.kernel.launches == before + 1
+    assert _rel_err(y, spmv_ell(A, x)) <= REL_TOL[dtype]
+    assert torch.equal(y, ell_spmv_cuda.ell_spmv(A, x))
+
+
+def test_elasticity_solve_on_the_card_matches_the_cpu(cuda):
+    from pfemfort_tpu_torch import solve_elasticity
+
+    mesh, _ = generate.box_tet(0, 1, 6, 0, 1, 6, 0, 1, 6)
+    dbc = _clamped(mesh)
+    r_cpu, r_gpu = (solve_elasticity(mesh, dbc, 240.565, 0.3,
+                                     bforce=(0.1, 0.0, 0.0), device=d,
+                                     dtype=torch.float64, rtol=1e-10)
+                    for d in ("cpu", cuda))
+    assert abs(r_gpu.stats.iters - r_cpu.stats.iters) <= 1
+    assert np.abs(r_gpu.u_full - r_cpu.u_full).max() <= 1e-10 * np.abs(
+        r_cpu.u_full).max()
+
+
+def _explicit(device, dtype, nsteps, init_state=None):
+    from pfemfort_tpu_torch.drivers import presets as P
+    from pfemfort_tpu_torch.dynamics.explicit import explicit_dynamics
+
+    p = P.TRIA_EXPLICIT
+    mesh = generate.rect_tria(0, 10, 100, 0, 2, 20)
+    pulse = torch.tensor(p.pulse_t, dtype=dtype, device=device)
+    bforce = torch.tensor(p.bforce, dtype=dtype, device=device)
+    return explicit_dynamics(
+        mesh, _clamped(mesh), p.E, p.nu, p.dens, p.dt, nsteps,
+        bforce_fn=lambda t: bforce * torch.where(t <= pulse, 1.0, 0.0),
+        probe_dofs=p.probe_dofs, device=device, dtype=dtype,
+        init_state=init_state)
+
+
+def test_explicit_on_the_card_repeats_and_resumes_bit_for_bit(cuda):
+    from pfemfort_tpu_torch.dynamics.checkpoint import ExplicitState
+
+    a, b = (_explicit(cuda, torch.float32, 600) for _ in range(2))
+    half = _explicit(cuda, torch.float32, 300)
+    rest = _explicit(cuda, torch.float32, 300, init_state=ExplicitState(
+        disp=half.disp, disp_prev=half.disp_prev, velo=half.velo, step=300))
+    for field in ("disp", "velo", "acce", "probe_history"):
+        np.testing.assert_array_equal(getattr(a, field), getattr(b, field))
+    np.testing.assert_array_equal(rest.disp, a.disp)
+    np.testing.assert_array_equal(
+        np.concatenate([half.probe_history, rest.probe_history]),
+        a.probe_history)
+    assert np.abs(a.disp).max() > 0
+
+
+def test_explicit_on_the_card_matches_the_cpu_in_float64(cuda):
+    r_cpu, r_gpu = (_explicit(d, torch.float64, 200) for d in ("cpu", cuda))
+    assert np.abs(r_gpu.disp - r_cpu.disp).max() <= 1e-12 * np.abs(
+        r_cpu.disp).max()
+    assert np.abs(r_gpu.probe_history - r_cpu.probe_history).max() <= \
+        1e-12 * np.abs(r_cpu.probe_history).max()

@@ -78,7 +78,7 @@ def test_interop_mesh_from_numpy_solves_like_the_generator():
 
 
 @pytest.mark.parametrize("option", [
-    dict(method="bicgstab"), dict(method="gmres"), dict(precond="cheby"),
+    dict(precond="ic0"), dict(precond="mg"), dict(precond="cheby"),
     dict(precond="amg"), dict(refine=True), dict(bc_mode="full"),
     dict(matrix_free=True)])
 def test_options_outside_the_slice_raise(option):
@@ -108,13 +108,16 @@ def test_meshes_outside_the_slice_raise(mesh_kind):
 
 def test_public_surface():
     for name in ("generate", "build_dofmap", "solve_poisson", "cg_solve",
-                 "SolveStats"):
+                 "SolveStats", "solve_elasticity", "explicit_dynamics",
+                 "bicgstab_solve", "gmres_solve"):
         assert hasattr(pt, name)
 
 
 def test_import_leaves_jax_out_of_a_fresh_process():
     code = ("import sys, pfemfort_tpu_torch, pfemfort_tpu_torch.interop, "
-            "pfemfort_tpu_torch.sparse.ops; "
+            "pfemfort_tpu_torch.sparse.ops, pfemfort_tpu_torch.drivers.cli, "
+            "pfemfort_tpu_torch.io.vtk, pfemfort_tpu_torch.config, "
+            "pfemfort_tpu_torch.dynamics.checkpoint; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'pfemfort_tpu.')) "
             "or m == 'pfemfort_tpu'); print(bad)")
