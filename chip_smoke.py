@@ -52,21 +52,53 @@ of JAX.  Phases, one JSON line each:
                      (hourglass) run, float64, card against CPU; ms per step;
  10. cli             `python -m pfemfort_tpu_torch` elasticity and explicit
                      as subprocesses on .dat files, --device cuda;
- 11. timing          kernel and plain SpMV times (plain, kernel, kernel,
+ 11. mg            solve_poisson on box_tet n=96, float32, bc_mode='full',
+                     precond='mg', rtol 1e-6, maxiter 100 (the JAX bench's
+                     flagship MG stage): 7 +- 1 iterations, nodal error <=
+                     2e-4, 4 levels, B1 launched on every smoothing level
+                     (the coarsest, 13^3, is the dense inverse);
+ 12. cheby, ic0      solve_poisson on the same lattice, reduced, float32,
+                     rtol 1e-6: each under the Jacobi solve's count and
+                     within 10% of the JAX package's float64 count on the
+                     CPU;
+ 13. amg             solve_implicit on box_tet n=96 renumbered by
+                     default_rng(2), recover=False, float32, rtol 1e-6,
+                     precond='amg' (the JAX bench's amg stage): <= 20
+                     iterations, B2 launched on the rectangular transfers;
+                     beside it Jacobi on the same system, time to solution;
+ 14. elasticity_mg   the elasticity3d system with bc_mode='full',
+                     precond='mg', float32: under half the float32 Jacobi
+                     count of phase 7 and within 2e-3 of its float64
+                     solution;
+ 15. large           box_tet n=200 (48M elements): float32 Jacobi-CG, rtol
+                     1e-6, 546 +- 15 iterations; refine=True to a true
+                     float64 relres <= 1e-8 with nodal error <= 1e-5; peak
+                     device memory and the assembly's chunk count;
+ 16. kernel          B2 on an SA-AMG P0, its P0^T and an IC(0) T of the
+                     renumbered n=96 system in its solve's row order, B1 on
+                     the 13^3 multigrid level and on the full-system DIA,
+                     each against its plain version (float32 and float64);
+ 17. cli             poisson --bc-mode full --precond mg, --refine and an
+                     options file with -pc_type gamg, as subprocesses;
+ 18. timing          kernel and plain SpMV times (plain, kernel, kernel,
                      plain) of B1 on the n=96 lattice system and of B2 on the
                      same matrix in the solve's row order, in lattice order
                      and unordered; of B1 (59 diagonals) and B2 (the same
                      matrix as ELL) on the 3D elasticity system, of B1 (17
                      diagonals) and B2 (K = 16, renumbered, the solve's row
-                     order) on the 2D one; the GB/s they imply, and each
-                     solve's seconds by stage.
+                     order) on the 2D one; of the phase-16 blocks; the GB/s
+                     they imply, and each solve's seconds by stage, launches
+                     and ms per iteration.
 
 Every launch count is set to 0 just before its path is driven and read just
-after.  Then one JSON line describing the kernels (launches summed over the
-counted paths; times on the n=96 matrix), and the result line
-{"ok": true, "device": {...}} last.  Any failed check raises.
+after; in phases 11-15 a plain SpMV called on a card tensor would also be
+counted, and none may be.  Then one JSON line describing the kernels
+(launches summed over the counted paths; times on the n=96 matrix; the
+errors of every case), and the result line {"ok": true, "device": {...}}
+last.  Any failed check raises.
 """
 
+import collections
 import json
 import subprocess
 import sys
@@ -80,6 +112,8 @@ import torch
 
 from pfemfort_tpu_torch import Mesh, build_dofmap, explicit_dynamics, \
     generate, mesh_io, solve_elasticity, solve_poisson
+from pfemfort_tpu_torch.assembly import structured
+from pfemfort_tpu_torch.assembly.fullsystem import zero_dirichlet_rows
 from pfemfort_tpu_torch.drivers import presets
 from pfemfort_tpu_torch.drivers.common import build_ell_ordering, \
     build_reduced_assembler, solve_implicit
@@ -89,7 +123,12 @@ from pfemfort_tpu_torch.elements.elasticity import dmat_3d, \
     dmat_plane_stress, elasticity_stiffness
 from pfemfort_tpu_torch.elements.geometry import to_element_minor
 from pfemfort_tpu_torch.elements.poisson import poisson_element_matrices
+from pfemfort_tpu_torch.solve import amg_device
+from pfemfort_tpu_torch.solve.amg import build_samg
+from pfemfort_tpu_torch.solve.ic0 import build_ic0_from_csr
+from pfemfort_tpu_torch.solve.multigrid import build_gmg
 from pfemfort_tpu_torch.sparse import dia_spmv_cuda, ell_spmv_cuda
+from pfemfort_tpu_torch.sparse import ops as sparse_ops
 from pfemfort_tpu_torch.sparse.dia import DIAMatrix, spmv_dia
 from pfemfort_tpu_torch.sparse.formats import ELLMatrix
 from pfemfort_tpu_torch.sparse.ordering import coord_lex_order, \
@@ -126,6 +165,24 @@ EL2D_U_REL = 1e-8           # DIA vs ELL solutions, float64, rtol 1e-6
 EXPLICIT_CELLS, EXPLICIT_STEPS = (1000, 200), 5000
 EXPLICIT_F32_VS_F64 = 0.25
 QUAD_CELLS, QUAD_STEPS = (200, 40), 500
+# Preconditioners, the full system and refinement.  Bars from the JAX
+# package: its bench's flagship MG stage (7 iterations, 4 levels), its amg
+# stage (12 iterations, levels [857375, 107983, 38008, 542]) and its 48M
+# flagship (546 float32 Jacobi iterations); the cheby/ic0 counts of the JAX
+# package for this system on the CPU (commands in PERF.md), in float64:
+# its float32 counts there (231, 105) carry XLA-CPU float32 round-off (its
+# float32 Jacobi count is 344, against 271 in float64 and on the card).
+MG_ITERS, MG_SLACK, MG_LEVELS = 7, 1, 4
+PC_JAX_CPU_ITERS = {"cheby": 198, "ic0": 90}
+PC_JAX_CPU_F32_ITERS = {"cheby": 231, "ic0": 105}
+PC_BAND = 0.10
+AMG_ITERS_MAX = 20
+EL_MG_FRACTION = 0.5        # of the elasticity3d phase's float32 count
+N_LARGE, LARGE_ITERS, LARGE_SLACK = 200, 546, 15
+LARGE_RELRES, LARGE_NODAL_ERR = 1e-8, 1e-5
+# Plain SpMV calls made on a card tensor (the kernel wrappers route card
+# tensors to their kernels, so this must stay empty).
+PLAIN_ON_CARD = collections.Counter()
 
 
 def _phase(name, **fields):
@@ -629,6 +686,299 @@ def _cli(dev):
                and bool(np.isfinite(hist).all()), "CLI explicit output")
 
 
+def _guard_plain_spmv():
+    """Count plain SpMV calls on card tensors inside the kernel wrappers."""
+    for mod, name in ((dia_spmv_cuda, "spmv_dia"),
+                      (ell_spmv_cuda, "spmv_ell")):
+        plain = getattr(mod, name)
+
+        def counted(A, x, plain=plain, name=name):
+            if x.is_cuda:
+                PLAIN_ON_CARD[name] += 1
+            return plain(A, x)
+
+        setattr(mod, name, counted)
+
+
+def _stage_seconds(r):
+    return sum(v for k, v in r.timings.items() if k.endswith("_s"))
+
+
+def _per_iter(r, launches):
+    """Launches and ms per Krylov iteration of one counted solve."""
+    it = max(r.stats.iters, 1)
+    return dict(launches_per_iter={k: v / it for k, v in launches.items()},
+                ms_per_iter=1e3 * r.timings["solve_s"] / it,
+                time_to_solution_s=_stage_seconds(r))
+
+
+def _check_pc(label, r, launches, on):
+    _check(r.timings.get("precond_used") == r.timings.get(
+        "precond_requested"), f"{label}: precond {r.timings}")
+    _check(r.stats.converged and r.stats.relres <= 1e-6, f"{label}: "
+           f"{r.stats}")
+    _check(bool(np.isfinite(r.u_full).all()), f"{label}: non-finite u")
+    _check(launches[on] >= r.stats.iters, f"{label}: launches {launches}")
+    _check(not PLAIN_ON_CARD, f"{label}: plain SpMVs on the card "
+           f"{dict(PLAIN_ON_CARD)}")
+
+
+def _mg(dev, counted):
+    """Phase 11: the full system under geometric multigrid; the rows of
+    every B1 launch are recorded to show each smoothing level ran on it."""
+    n = N_FLAGSHIP
+    mesh, dbc = generate.box_tet(0, 1, n, 0, 1, n, 0, 1, n)
+    rows = collections.Counter()
+    launch = sparse_ops.dia_spmv
+
+    def recorded(A, x, offsets):
+        rows[A.n_rows] += 1
+        return launch(A, x, offsets)
+
+    run = lambda: solve_poisson(mesh, dbc, device=dev, dtype=torch.float32,
+                                rtol=1e-6, maxiter=100, bc_mode="full",
+                                precond="mg")
+    sparse_ops.dia_spmv = recorded
+    try:
+        r, launches = _counted(run, counted)
+    finally:
+        sparse_ops.dia_spmv = launch
+    # a second run times the cycle once its kernels are loaded
+    warm, _ = _counted(run, counted)
+    levels = r.timings["mg_levels"]
+    nodal_err = float(np.abs(r.u_full - (mesh.coords ** 2).sum(1)).max())
+    _phase("mg", n=n, dofs=mesh.n_node, iters=r.stats.iters,
+           relres=r.stats.relres, nodal_err=nodal_err, levels=levels,
+           b1_launches_by_rows={str(k): v for k, v in sorted(rows.items())},
+           launches=launches, **_per_iter(r, launches), **r.timings,
+           warm_solve_s=warm.timings["solve_s"],
+           warm_ms_per_iter=1e3 * warm.timings["solve_s"] / warm.stats.iters)
+    _check_pc("mg", r, launches, "dia_spmv")
+    _check(abs(r.stats.iters - MG_ITERS) <= MG_SLACK,
+           f"mg: {r.stats.iters} iterations, not {MG_ITERS} +- {MG_SLACK}")
+    _check(nodal_err <= NODAL_ERR_MAX, f"mg: nodal error {nodal_err}")
+    _check(warm.stats == r.stats, f"mg: a second run gave {warm.stats}")
+    _check(len(levels) == MG_LEVELS and all(rows[m] > 0
+                                            for m in levels[:-1]),
+           f"mg: levels {levels}, B1 launches by rows {dict(rows)}")
+    return r
+
+
+def _cheby_ic0(dev, counted, jacobi):
+    """Phase 12: Chebyshev and IC(0) on the reduced lattice system."""
+    n = N_FLAGSHIP
+    mesh, dbc = generate.box_tet(0, 1, n, 0, 1, n, 0, 1, n)
+    out = {}
+    for pc, jax_iters in PC_JAX_CPU_ITERS.items():
+        amg_device.route_calls.clear()
+        r, launches = _counted(lambda: solve_poisson(
+            mesh, dbc, device=dev, dtype=torch.float32, rtol=1e-6,
+            precond=pc), counted)
+        nodal_err = float(np.abs(r.u_full - (mesh.coords ** 2).sum(1)).max())
+        _phase(pc, n=n, iters=r.stats.iters, relres=r.stats.relres,
+               jacobi_iters=jacobi.stats.iters, jax_cpu_f64_iters=jax_iters,
+               jax_cpu_f32_iters=PC_JAX_CPU_F32_ITERS[pc],
+               under_0p7_jacobi=r.stats.iters < 0.7 * jacobi.stats.iters,
+               nodal_err=nodal_err, launches=launches,
+               routes=dict(amg_device.route_calls), **_per_iter(r, launches),
+               **r.timings)
+        _check_pc(pc, r, launches, "dia_spmv")
+        _check(r.stats.iters < jacobi.stats.iters,
+               f"{pc}: {r.stats.iters} iterations, Jacobi "
+               f"{jacobi.stats.iters}")
+        _check(abs(r.stats.iters - jax_iters) <= PC_BAND * jax_iters,
+               f"{pc}: {r.stats.iters} iterations, JAX on the CPU "
+               f"{jax_iters}")
+        _check(nodal_err <= NODAL_ERR_MAX, f"{pc}: nodal error {nodal_err}")
+        out[pc] = (r, launches)
+    return out
+
+
+def _amg(dev, counted):
+    """Phase 13: SA-AMG on the renumbered n=96 ELL system, and Jacobi on
+    the same system."""
+    pmesh, pdbc = _permuted_box(N_FLAGSHIP, seed=2)
+    u_exact = (pmesh.coords ** 2).sum(1)
+    out = {}
+    for pc in ("amg", "jacobi"):
+        amg_device.route_calls.clear()
+        r, launches = _counted(lambda: solve_implicit(
+            pmesh, 1, pdbc, _poisson_fn, device=dev, dtype=torch.float32,
+            rtol=1e-6, recover=False, precond=pc), counted)
+        routes = dict(amg_device.route_calls)
+        nodal_err = float(np.abs(r.u_full - u_exact).max())
+        _phase("amg", precond=pc, iters=r.stats.iters,
+               relres=r.stats.relres, nodal_err=nodal_err,
+               launches=launches, routes=routes,
+               b2_rectangular_launches=routes.get("ell_rect", 0),
+               **_per_iter(r, launches), **r.timings)
+        _check(r.stats.converged and r.stats.relres <= 1e-6
+               and nodal_err <= NODAL_ERR_MAX, f"amg phase {pc}: {r.stats}")
+        _check(launches["ell_spmv"] >= r.stats.iters and not PLAIN_ON_CARD,
+               f"amg phase {pc}: launches {launches}")
+        out[pc] = (r, launches, routes)
+    r, launches, routes = out["amg"]
+    _check_pc("amg", r, launches, "ell_spmv")
+    _check(r.stats.iters <= AMG_ITERS_MAX,
+           f"amg: {r.stats.iters} iterations > {AMG_ITERS_MAX}")
+    _check(routes.get("ell_rect", 0) >= 2 * r.stats.iters,
+           f"amg: the transfers did not launch B2 ({routes})")
+    _phase("amg", time_to_solution_s={
+        pc: _stage_seconds(o[0]) for pc, o in out.items()},
+        amg_over_jacobi=_stage_seconds(out["amg"][0])
+        / _stage_seconds(out["jacobi"][0]))
+    return out
+
+
+def _elasticity_mg(dev, counted, el3):
+    """Phase 14: the elasticity3d system, full, under geometric MG."""
+    n = N_EL3D
+    mesh, _ = generate.box_tet(0, 1, n, 0, 1, n, 0, 1, n)
+    dbc = _clamped(mesh)
+    r, launches = _counted(lambda: solve_elasticity(
+        mesh, dbc, E_EL, NU_EL, bforce=(0.1, 0.0, 0.0), device=dev,
+        dtype=torch.float32, rtol=1e-6, bc_mode="full", precond="mg"),
+        counted)
+    u64 = el3[torch.float64].u_full
+    rel = float(np.abs(r.u_full - u64).max() / np.abs(u64).max())
+    bar = EL_MG_FRACTION * el3[torch.float32].stats.iters
+    _phase("elasticity_mg", n=n, iters=r.stats.iters, relres=r.stats.relres,
+           jacobi_f32_iters=el3[torch.float32].stats.iters, bar=bar,
+           rel_to_f64_reduced=rel, bound=EL3D_F32_VS_F64, launches=launches,
+           **_per_iter(r, launches), **r.timings)
+    _check_pc("elasticity_mg", r, launches, "dia_spmv")
+    _check(r.stats.iters < bar, f"elasticity_mg: {r.stats.iters} >= {bar}")
+    _check(rel <= EL3D_F32_VS_F64, f"elasticity_mg vs f64: {rel}")
+    return r, launches
+
+
+def _large(dev, counted):
+    """Phase 15: the 48M-element box: float32 Jacobi-CG and the refined
+    float64 solve, with peak device memory."""
+    n = N_LARGE
+    t0 = time.perf_counter()
+    mesh, dbc = generate.box_tet(0, 1, n, 0, 1, n, 0, 1, n)
+    mesh_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    to_element_minor(mesh.elem_coords())
+    coords_s = time.perf_counter() - t0
+    u_exact = (mesh.coords ** 2).sum(1)
+    out = {}
+    for label, kw in (("f32", dict(dtype=torch.float32, rtol=1e-6)),
+                      ("refined", dict(refine=True, rtol=LARGE_RELRES))):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        r, launches = _counted(lambda: solve_poisson(mesh, dbc, device=dev,
+                                                     **kw), counted)
+        peak = torch.cuda.max_memory_allocated()
+        nodal_err = float(np.abs(r.u_full - u_exact).max())
+        _phase("large", run=label, n=n, elements=mesh.n_elem,
+               dofs=int(r.u_reduced.numel()), iters=r.stats.iters,
+               relres=r.stats.relres, nodal_err=nodal_err,
+               peak_device_bytes=peak, mesh_s=mesh_s,
+               elem_coords_to_element_minor_s=coords_s, launches=launches,
+               **_per_iter(r, launches), **r.timings)
+        _check(r.stats.converged and bool(np.isfinite(r.u_full).all())
+               and launches["dia_spmv"] >= r.stats.iters
+               and launches["ell_spmv"] == 0 and not PLAIN_ON_CARD,
+               f"large {label}: {r.stats}, launches {launches}")
+        out[label] = (r, launches)
+    r32, r64 = out["f32"][0], out["refined"][0]
+    _check(abs(r32.stats.iters - LARGE_ITERS) <= LARGE_SLACK,
+           f"large f32: {r32.stats.iters} iterations, not {LARGE_ITERS} +- "
+           f"{LARGE_SLACK}")
+    _check(r64.stats.relres <= LARGE_RELRES
+           and float(np.abs(r64.u_full - u_exact).max()) <= LARGE_NODAL_ERR,
+           f"large refined: relres {r64.stats.relres}")
+    return out
+
+
+def _csr_of_ell(A: ELLMatrix):
+    """Host CSR (indptr, indices, float64 vals) of an ELL matrix whose
+    columns ascend per row with sentinels last."""
+    cols, vals = A.cols.cpu().numpy(), A.vals.cpu().double().numpy()
+    valid = cols < A.n_cols
+    indptr = np.zeros(A.n_rows + 1, np.int64)
+    np.cumsum(valid.sum(1), out=indptr[1:])
+    return indptr, cols[valid], vals[valid]
+
+
+def _to(A: ELLMatrix, dev):
+    return ELLMatrix(cols=A.cols.to(dev), vals=A.vals.to(dev),
+                     n_cols=A.n_cols)
+
+
+def _preconditioner_blocks(dev, errs, rng, A_ord):
+    """Phase 16: the preconditioners' blocks at the main path's shapes, each
+    kernel against its plain version.  Returns {label: matrix}."""
+    t0 = time.perf_counter()
+    indptr, indices, vals = _csr_of_ell(A_ord)
+    n = A_ord.n_rows
+    arrs, meta = build_samg(indptr, indices, vals, n, ndof=1,
+                            dtype=torch.float32)
+    amg_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ic0 = build_ic0_from_csr(indptr, indices, vals, n, dtype=torch.float32)
+    ic0_s = time.perf_counter() - t0
+    blocks = {"amg P0": _to(arrs.p0[0], dev), "amg P0^T": _to(arrs.p0t[0], dev),
+              "ic0 T": _to(ic0.t, dev)}
+    _phase("kernel", case="preconditioner set-up, renumbered n=96 in its "
+           "solve's row order", amg_levels=list(meta.sizes),
+           amg_setup_s=amg_s, ic0_setup_s=ic0_s,
+           t_sentinel_rows=int((ic0.t.cols >= n).all(1).sum()))
+
+    m = N_FLAGSHIP
+    mesh, dbc = generate.box_tet(0, 1, m, 0, 1, m, 0, 1, m)
+    bc = np.zeros(mesh.n_node, bool)
+    bc[dbc[:, 0].astype(np.int64)] = True
+    arrays, gmeta = build_gmg(mesh, 1, bc, _poisson_fn, dtype=torch.float32,
+                              device=dev)
+    blocks["gmg 13^3 level"] = arrays.mats[-1]
+    plan = structured.build_structured_plan(m, m, m)
+    coords = torch.as_tensor(to_element_minor(mesh.elem_coords()),
+                             dtype=torch.float32, device=dev)
+    Ke, Fe = _poisson_fn(coords)
+    A_full, _ = zero_dirichlet_rows(
+        structured.assemble_dia_structured(Ke, plan),
+        structured.assemble_rhs_structured(Fe, plan),
+        torch.as_tensor(bc, device=dev),
+        torch.zeros(mesh.n_node, dtype=torch.float32, device=dev))
+    del Ke, Fe, coords
+    blocks["full system"] = A_full
+    _check(gmeta.shapes[-1] == (13, 13, 13), f"gmg levels {gmeta.shapes}")
+    for label, A in blocks.items():
+        _kernel_errors(label, A, errs, rng)
+    return blocks
+
+
+def _cli_preconditioners(dev):
+    """Phase 17: the new command-line options as subprocesses."""
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = str(Path(tmp) / "box")
+        subprocess.run([sys.executable, "-m", "pfemfort_tpu_torch",
+                        "genmesh", "tet", "0", "1", "32", "0", "1", "32",
+                        "0", "1", "32", "-o", prefix], cwd=ROOT, check=True,
+                       capture_output=True, timeout=600)
+        opts = Path(tmp) / "petsc_options.dat"
+        opts.write_text("-ksp_type cg\n-pc_type gamg\n-ksp_rtol 1e-8\n")
+        files = [prefix + s for s in ("-nodes.dat", "-elems.dat",
+                                      "-DirichBC.dat")]
+        for extra in (["--bc-mode", "full", "--precond", "mg"],
+                      ["--refine"], ["--options-file", str(opts)]):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "pfemfort_tpu_torch", "poisson",
+                 *files, "--device", dev.type, *extra], cwd=ROOT,
+                capture_output=True, text=True, timeout=600)
+            out = proc.stdout.strip().splitlines()
+            _phase("cli", subcommand="poisson " + " ".join(extra[:2]),
+                   seconds=time.perf_counter() - t0, exit=proc.returncode,
+                   output=out)
+            _check(proc.returncode == 0
+                   and any("Convergence in" in ln for ln in out),
+                   f"CLI poisson {extra}: {proc.stdout}{proc.stderr}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -806,6 +1156,7 @@ def main():
     _check(nodal_err <= NODAL_ERR_MAX, f"recovered nodal error {nodal_err}")
     counted = {name: launches_dia[name] + launches_ell[name]
                + launches_rec[name] for name in KERNELS}
+    _guard_plain_spmv()
 
     # 7.-10. elasticity, explicit dynamics and the command line
     A_el3, A_el3_ell, el3 = _elasticity3d(dev, counted, errs, rng)
@@ -813,6 +1164,22 @@ def main():
                                                        rng)
     _explicit(dev)
     _cli(dev)
+
+    # 11.-17. preconditioners, the full system, refinement at 48M elements
+    pc_runs = {"mg": _mg(dev, counted)}
+    for pc, (r, _) in _cheby_ic0(dev, counted, solve_dia).items():
+        pc_runs[pc] = r
+    amg_runs = _amg(dev, counted)
+    pc_runs["amg"], pc_runs["jacobi (amg system)"] = (
+        amg_runs["amg"][0], amg_runs["jacobi"][0])
+    pc_runs["elasticity_mg"] = _elasticity_mg(dev, counted, el3)[0]
+    large = _large(dev, counted)
+    pc_runs["large f32"], pc_runs["large refined"] = (large["f32"][0],
+                                                      large["refined"][0])
+    del large
+    torch.cuda.empty_cache()
+    blocks = _preconditioner_blocks(dev, errs, rng, A_ord)
+    _cli_preconditioners(dev)
 
     # 11. timing on the n=96 matrix: B1 in lattice order; B2 in the solve's
     # row order, in lattice order (lex, the numbering B1 runs in) and
@@ -865,6 +1232,26 @@ def main():
             nbytes[label] = A.n_rows * (A.k * (4 + size) + 2 * size)
     widths = {"dia_el3d": len(A_el3.offsets), "ell_el3d": A_el3_ell.k,
               "dia_el2d": len(A_el2.offsets), "ell_el2d": A_el2_ell.k}
+    # the phase-16 blocks, in float32 as their solves run them
+    for label, A in blocks.items():
+        xb = torch.ones(A.n_rows if isinstance(A, DIAMatrix) else A.n_cols,
+                        dtype=A.vals.dtype, device=dev)
+        size = A.vals.element_size()
+        if isinstance(A, DIAMatrix):
+            off = torch.tensor(A.offsets, dtype=torch.int32, device=dev)
+            ms[label], runs[label] = _timed_pairs(
+                lambda A=A, xb=xb: spmv_dia(A, xb),
+                lambda A=A, xb=xb, off=off: dia_spmv_cuda.dia_spmv(A, xb,
+                                                                   off))
+            nbytes[label] = (len(A.offsets) + 2) * A.n_rows * size
+            widths[label] = len(A.offsets)
+        else:
+            ms[label], runs[label] = _timed_pairs(
+                lambda A=A, xb=xb: spmv_ell(A, xb),
+                lambda A=A, xb=xb: ell_spmv_cuda.ell_spmv(A, xb))
+            nbytes[label] = (A.n_rows * (A.k * (4 + size) + size)
+                             + A.n_cols * size)
+            widths[label] = A.k
     for label in ms:
         gbps = {k: nbytes[label] / (v * 1e-3) / 1e9
                 for k, v in ms[label].items()}
@@ -890,6 +1277,16 @@ def main():
         _phase("timing", stages=label, card=smi, cg_iters=r.stats.iters,
                cg_ms_per_iter=1e3 * r.timings["solve_s"]
                / max(r.stats.iters, 1), **r.timings)
+    for label, r in pc_runs.items():
+        _phase("timing", stages=label, card=smi, cg_iters=r.stats.iters,
+               cg_ms_per_iter=1e3 * r.timings["solve_s"]
+               / max(r.stats.iters, 1),
+               time_to_solution_s=_stage_seconds(r), **r.timings)
+
+    def cases(name):
+        return [{"case": case, "dtype": str(dtype)[6:], "max_abs_err": err}
+                for (kname, case, dtype), err in errs.items()
+                if kname == name]
 
     print(json.dumps({"kernels": [
         {"name": "dia_spmv", "route": "cuda",
@@ -897,14 +1294,16 @@ def main():
          "replaces": "pfemfort_tpu/sparse/pallas_spmv.py:48",
          "launches": counted["dia_spmv"],
          "max_abs_err": errs[("dia_spmv", "flagship", torch.float32)],
-         "ms": ms["dia"]["kernel"], "plain_ms": ms["dia"]["plain"]},
+         "ms": ms["dia"]["kernel"], "plain_ms": ms["dia"]["plain"],
+         "cases": cases("dia_spmv")},
         {"name": "ell_spmv", "route": "cuda",
          "source": "pfemfort_tpu_torch/csrc/ell_spmv.cu",
          "replaces": "pfemfort_tpu/sparse/slotgather.py:403",
          "launches": counted["ell_spmv"],
          "max_abs_err": errs[("ell_spmv", "ordered", torch.float32)],
          "ms": ms["ell_ordered"]["kernel"],
-         "plain_ms": ms["ell_ordered"]["plain"]}]}), flush=True)
+         "plain_ms": ms["ell_ordered"]["plain"],
+         "cases": cases("ell_spmv")}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

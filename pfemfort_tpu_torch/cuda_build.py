@@ -1,12 +1,17 @@
-"""Build and load the port's hand-written CUDA kernels (csrc/*.cu).
+"""Build and load the port's native libraries.
 
-Each source has a plain C interface: every entry point launches on the
-stream it is given, allocates nothing, does not synchronise and returns
-cudaGetLastError(); `<name>_error_string` turns that code into text.  A
-source is compiled with nvcc for sm_90a at first use (never at import),
-into pfemfort_tpu_torch/_build/ under a name keyed by a hash of the source
-and the flags, and loaded with ctypes: no PyTorch headers, so a build takes
-seconds.
+Two kinds, each with a plain C interface, compiled at first use (never at
+import) into pfemfort_tpu_torch/_build/ under a name keyed by a hash of the
+source and the flags, and loaded with ctypes.  No PyTorch headers, so a
+build takes seconds.
+
+* `CudaKernel`: the hand-written CUDA kernels (csrc/*.cu), built with nvcc
+  for sm_90a.  Every entry point launches on the stream it is given,
+  allocates nothing, does not synchronise and returns cudaGetLastError();
+  `<name>_error_string` turns that code into text.
+* `HostLibrary`: host C++ (csrc/*.cpp), built with the host compiler (c++ or
+  g++): the preconditioners' set-up loops (csrc/host_native.cpp).  A
+  missing compiler raises; there is no Python loop in its place.
 """
 
 from __future__ import annotations
@@ -17,13 +22,14 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Callable, Dict, Sequence, Tuple
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-shared")
 
 
 def nvcc() -> str:
@@ -40,21 +46,32 @@ def nvcc() -> str:
     return path
 
 
-class CudaKernel:
-    """One csrc/<name>.cu library: its build, its entry points and the
-    count of kernel launches made through `launch`."""
+def host_compiler() -> str:
+    for name in ("c++", "g++"):
+        found = shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError("no host C++ compiler (c++ or g++) on PATH: the "
+                       "host library csrc/host_native.cpp cannot be built")
 
-    def __init__(self, name: str, entries: Dict[str, Sequence]):
-        """entries: entry point name -> ctypes argtypes (each returns int)."""
+
+class _SharedLibrary:
+    """One csrc/<name><suffix> source, its build and its loaded entries."""
+
+    suffix = ""
+    flags: Tuple[str, ...] = ()
+    compiler: Callable[[], str]      # returns the compiler's path
+
+    def __init__(self, name: str, entries: Dict[str, Tuple[Sequence, type]]):
+        """entries: entry point name -> (ctypes argtypes, ctypes restype)."""
         self.name = name
-        self.source = CSRC / f"{name}.cu"
+        self.source = CSRC / f"{name}{self.suffix}"
         self.entries = dict(entries)
-        self.launches = 0
         self._lib = None
 
     def library_path(self) -> Path:
         key = hashlib.sha256(self.source.read_bytes()
-                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                             + " ".join(self.flags).encode()).hexdigest()[:16]
         return BUILD_DIR / f"{self.name}-{key}.so"
 
     def build(self) -> Path:
@@ -66,26 +83,40 @@ class CudaKernel:
             return path
         path.parent.mkdir(parents=True, exist_ok=True)
         tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
+        cmd = [self.compiler(), *self.flags, "-o", str(tmp), str(self.source)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+            raise RuntimeError(f"{Path(cmd[0]).name} failed "
+                               f"({proc.returncode}): {' '.join(cmd)}\n"
+                               f"{proc.stdout}{proc.stderr}")
         os.replace(tmp, path)
         return path
 
     def lib(self) -> ctypes.CDLL:
         if self._lib is None:
             lib = ctypes.CDLL(str(self.build()))
-            for entry, argtypes in self.entries.items():
+            for entry, (argtypes, restype) in self.entries.items():
                 fn = getattr(lib, entry)
                 fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
-            err = getattr(lib, f"{self.name}_error_string")
-            err.argtypes = [ctypes.c_int]
-            err.restype = ctypes.c_char_p
+                fn.restype = restype
             self._lib = lib
         return self._lib
+
+
+class CudaKernel(_SharedLibrary):
+    """One csrc/<name>.cu library: its build, its entry points and the
+    count of kernel launches made through `launch`."""
+
+    suffix = ".cu"
+    flags = NVCC_FLAGS
+    compiler = staticmethod(nvcc)
+
+    def __init__(self, name: str, entries: Dict[str, Sequence]):
+        """entries: entry point name -> ctypes argtypes (each returns int)."""
+        table = {e: (a, ctypes.c_int) for e, a in entries.items()}
+        table[f"{name}_error_string"] = ([ctypes.c_int], ctypes.c_char_p)
+        super().__init__(name, table)
+        self.launches = 0
 
     def launch(self, entry: str, *args) -> None:
         """Call one entry point; raise if the launch was refused, else count
@@ -96,3 +127,11 @@ class CudaKernel:
             msg = getattr(lib, f"{self.name}_error_string")(err).decode()
             raise RuntimeError(f"{self.name} kernel launch failed: {msg}")
         self.launches += 1
+
+
+class HostLibrary(_SharedLibrary):
+    """One csrc/<name>.cpp library of host functions."""
+
+    suffix = ".cpp"
+    flags = HOST_FLAGS
+    compiler = staticmethod(host_compiler)

@@ -90,7 +90,7 @@ def _solver_opts(args):
         if o.ksp_type in ("cg", "bicgstab", "gmres"):
             args.ksp = o.ksp_type
         if hasattr(args, "precond") and o.pc_type != "jacobi":
-            # -pc_type ilu/icc -> ic0, -pc_type hypre/gamg -> mg (config.py
+            # -pc_type ilu/icc -> ic0, gamg -> amg, hypre -> mg (config.py
             # aliases); block_jacobi -> the sharded bjacobi route
             args.precond = {"block_jacobi": "bjacobi"}.get(o.pc_type,
                                                            o.pc_type)
@@ -265,14 +265,16 @@ def build_parser():
     sp.add_argument("--bc-mode", choices=["reduced", "full"],
                     default="reduced",
                     help="reduced = BC-eliminated system (impl1/2); "
-                         "full = MatZeroRows identity rows (impl3; "
-                         "ROADMAP A.6)")
+                         "full = MatZeroRows identity rows (impl3)")
     sp.add_argument("--precond",
                     choices=["jacobi", "cheby", "ic0", "amg", "mg"],
                     default="jacobi",
-                    help="only jacobi is ported (the rest: ROADMAP A.6)")
+                    help="cheby = Chebyshev polynomial, ic0 = IC(0), amg = "
+                         "smoothed aggregation (reduced mode); mg = "
+                         "geometric multigrid (structured meshes, "
+                         "--bc-mode full)")
     sp.add_argument("--refine", action="store_true",
-                    help="refinement to TRUE f64 rtol (ROADMAP A.7)")
+                    help="float32 inner CG refined to a TRUE float64 rtol")
     sp.add_argument("--matrix-free", action="store_true",
                     help="assembly-free operator (ROADMAP A.8)")
     sp.set_defaults(fn=cmd_poisson)
@@ -295,7 +297,7 @@ def build_parser():
                     help="sharded-solve preconditioner; a single-device "
                          "solve uses Jacobi")
     sp.add_argument("--refine", action="store_true",
-                    help="refinement to TRUE f64 rtol (ROADMAP A.7)")
+                    help="float32 inner CG refined to a TRUE float64 rtol")
     sp.set_defaults(fn=cmd_elasticity)
 
     sp = sub.add_parser("explicit", help="explicit central-difference dynamics")

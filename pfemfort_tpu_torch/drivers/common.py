@@ -1,10 +1,10 @@
-# Ported from pfemfort_tpu/drivers/common.py (reduced-system Jacobi paths).
+# Ported from pfemfort_tpu/drivers/common.py (single device).
 """Shared implicit-solve pipeline: dofmap -> pattern -> assemble -> Krylov.
 
 This is the skeleton every reference driver re-implements inline
 (read files -> DOF maps -> preallocate -> assemble -> solve -> gather;
 PFEMFort src/triapoissonserialimpl1.F and 14 siblings).  Three
-paths, chosen from the mesh:
+paths for the reduced (BC-eliminated) system, chosen from the mesh:
 
   * generated box-tet and rect-tria meshes whose free nodes form a box
     (ndof = 1): scatter-free structured slice-add assembly of the reduced
@@ -17,8 +17,15 @@ paths, chosen from the mesh:
     order through the ELL SpMV kernel.
 
 Every SpMV goes through sparse/ops.py:operator_and_diag (kernels B1 and B2
-on the card, their plain versions on the CPU); the Krylov method is
-Jacobi-preconditioned CG, BiCGStab or GMRES.
+on the card, their plain versions on the CPU); the Krylov method is CG,
+BiCGStab or GMRES, preconditioned by Jacobi, Chebyshev (solve/precond.py),
+IC(0) (solve/ic0.py) or smoothed-aggregation AMG (solve/amg.py), the last
+two with their products routed by solve/amg_device.py.
+
+`solve_implicit_fullsystem` keeps every node-dof with identity Dirichlet
+rows (bc_mode='full'), preconditioned by Jacobi or geometric multigrid
+(solve/multigrid.py); `refine=True` solves the reduced system to a true
+float64 residual with float32 inner CG (solve/refine.py).
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import numpy as np
 import torch
 
 from pfemfort_tpu_torch.assembly import structured as st
+from pfemfort_tpu_torch.assembly.fullsystem import zero_dirichlet_rows
 from pfemfort_tpu_torch.assembly.assemble import (
     assemble_matrix,
     assemble_rhs,
@@ -44,9 +52,19 @@ from pfemfort_tpu_torch.dofs.dofmap import build_dofmap, full_lattice, \
 from pfemfort_tpu_torch.elements.geometry import to_element_minor
 from pfemfort_tpu_torch.mesh.core import Mesh
 from pfemfort_tpu_torch.mesh.reorder import recover_structure
+from pfemfort_tpu_torch.solve.amg import build_samg
+from pfemfort_tpu_torch.solve.amg_device import build_ic0_device, \
+    build_samg_device, ic0_device_preconditioner, permute_csr, \
+    samg_device_preconditioner
 from pfemfort_tpu_torch.solve.cg import SolveStats, bicgstab_solve, \
     cg_solve, jacobi_preconditioner
 from pfemfort_tpu_torch.solve.gmres import gmres_solve
+from pfemfort_tpu_torch.solve.ic0 import _csr_from_matrix, \
+    build_ic0_from_csr
+from pfemfort_tpu_torch.solve.multigrid import build_gmg, \
+    gmg_preconditioner
+from pfemfort_tpu_torch.solve.precond import chebyshev_preconditioner
+from pfemfort_tpu_torch.solve.refine import cg_with_refinement
 from pfemfort_tpu_torch.sparse.formats import ELLMatrix
 from pfemfort_tpu_torch.sparse.ops import operator_and_diag
 from pfemfort_tpu_torch.sparse.ordering import coord_lex_order, \
@@ -83,6 +101,18 @@ def _structured_box(mesh: Mesh, dofmap):
     return reduced_box(mesh, dofmap)
 
 
+def _structured_plan(mesh: Mesh, ndof: int):
+    """(plan, matrix assembler, rhs assembler) of the structured slice-add
+    assembly of a generated box_tet or rect_tria mesh's full system."""
+    s = mesh.structure
+    if s["kind"] == "box_tet":
+        return (st.build_structured_plan(s["nex"], s["ney"], s["nez"],
+                                         ndof=ndof),
+                st.assemble_dia_structured, st.assemble_rhs_structured)
+    return (st.build_structured_plan_2d(s["nex"], s["ney"], ndof=ndof),
+            st.assemble_dia_structured_2d, st.assemble_rhs_structured_2d)
+
+
 def build_reduced_assembler(mesh: Mesh, ndof: int, dofmap, element_fn,
                             dtype: torch.dtype, device: torch.device):
     """Return assemble(coords_em) -> (A, b_reduced).
@@ -93,22 +123,14 @@ def build_reduced_assembler(mesh: Mesh, ndof: int, dofmap, element_fn,
     (assembly/structured.py:reduce_structured_system).
     Every other mesh takes the pattern path, which needs `dofmap` built
     with `with_elem=True`; its assembler carries the pattern as
-    `assemble.pattern`.  Both give the same reduced system.
+    `assemble.pattern`.  Both give the same reduced system.  A box_tet mesh
+    of more than _CHUNK_ABOVE_ELEMS elements is assembled in
+    `assemble.n_chunks` z-slab chunks.
     """
     red_box = _structured_box(mesh, dofmap)
     if red_box is None:
         return _pattern_assembler(mesh, dofmap, element_fn, dtype, device)
-    if mesh.structure["kind"] == "box_tet":
-        plan = st.build_structured_plan(
-            mesh.structure["nex"], mesh.structure["ney"],
-            mesh.structure["nez"], ndof=ndof)
-        asm_mat, asm_rhs = (st.assemble_dia_structured,
-                            st.assemble_rhs_structured)
-    else:
-        plan = st.build_structured_plan_2d(
-            mesh.structure["nex"], mesh.structure["ney"], ndof=ndof)
-        asm_mat, asm_rhs = (st.assemble_dia_structured_2d,
-                            st.assemble_rhs_structured_2d)
+    plan, asm_mat, asm_rhs = _structured_plan(mesh, ndof)
     shape = full_lattice(mesh)
     bc_vals_full = torch.as_tensor(dofmap.bc_values_full, dtype=dtype,
                                    device=device)
@@ -134,6 +156,7 @@ def build_reduced_assembler(mesh: Mesh, ndof: int, dofmap, element_fn,
         return st.reduce_structured_system(
             A_full, b_full, red_box, shape, bc_vals_full)
 
+    assemble.n_chunks = n_chunks
     return assemble
 
 
@@ -189,17 +212,23 @@ class EllOrdering:
             b[self.order]
 
 
-def _column_span(pattern: AssemblyPattern, order: np.ndarray) -> int:
-    """Sum over rows of the span (max - min) of the row's valid columns
-    once rows and columns are renumbered by `order`."""
+def _order_costs(pattern: AssemblyPattern, order: np.ndarray,
+                 fill: float = 0.2) -> Tuple[int, int]:
+    """(entries off the dense diagonals, sum of row column spans) once rows
+    and columns are renumbered by `order`.  A diagonal is dense when at
+    least `fill` of the rows populate it (the JAX package's hybrid
+    threshold, sparse/hybrid.py)."""
     N = pattern.n_rows
     inv = np.empty(N, np.int64)
     inv[order] = np.arange(N)
     valid = pattern.ell_cols < N
     cols = inv[np.where(valid, pattern.ell_cols, 0)]
+    offs = (cols - inv[:, None])[valid]
+    cnt = np.bincount(offs + N, minlength=2 * N)
+    off_dense = int(cnt[cnt < max(int(fill * N), 1)].sum())
     hi = np.where(valid, cols, -1).max(axis=1)
     lo = np.where(valid, cols, N).min(axis=1)
-    return int(np.maximum(hi - lo, 0).sum())
+    return off_dense, int(np.maximum(hi - lo, 0).sum())
 
 
 def build_ell_ordering(pattern: AssemblyPattern, coords_rows: np.ndarray,
@@ -207,17 +236,21 @@ def build_ell_ordering(pattern: AssemblyPattern, coords_rows: np.ndarray,
     """Pick the row ordering of an ELL pattern and lay it out on `device`.
 
     The candidates are the geometric (z, y, x) order of the rows' nodes and
-    reverse Cuthill-McKee.  The JAX package picked the one with fewer
-    slot-gather virtual rows, a cost of its TPU kernel.  The ELL kernel on
-    the card is served best when the rows of one thread block read x from
-    a narrow window (shared cache lines), so the rule here is the smaller
-    sum over rows of the column span; on a tie lex wins, since it restores
-    a permuted lattice's own numbering exactly.
+    reverse Cuthill-McKee.  The JAX package's TPU path took the one whose
+    DIA + slot-gather split left the least work off the dense diagonals,
+    which is lex on every near-lattice mesh (it restores a permuted
+    lattice's own numbering).  The rule here keeps that first criterion,
+    the count of entries off the dense diagonals, without the TPU kernel's
+    cost constants; on a tie the smaller sum over rows of the column span
+    wins (the ELL kernel is served best when the rows of one thread block
+    read x from a narrow window), then lex.  The row order matters beyond
+    the SpMV: IC(0) and SA-AMG are set up in this row space, and their
+    quality depends on it (ROADMAP C).
     """
     cands = [("lex", coord_lex_order(coords_rows, comp)),
              ("rcm", rcm_order(pattern.indptr, pattern.indices,
                                pattern.n_rows))]
-    name, order = min(cands, key=lambda c: _column_span(pattern, c[1]))
+    name, order = min(cands, key=lambda c: _order_costs(pattern, c[1]))
     cols, src, inv = permuted_sorted_cols(pattern.ell_cols, pattern.n_rows,
                                           order, pattern.n_rows)
     device = torch.device(device)
@@ -227,6 +260,32 @@ def build_ell_ordering(pattern: AssemblyPattern, coords_rows: np.ndarray,
         inv=torch.as_tensor(inv, device=device),
         cols=torch.as_tensor(cols.astype(np.int32), device=device),
         src=torch.as_tensor(src.reshape(-1), device=device))
+
+
+_PRECONDS = ("jacobi", "cheby", "ic0", "amg", "mg")
+
+
+def _host_preconditioner(precond, A, pattern, ordering, operator, ndof,
+                         dtype, device):
+    """IC(0) or SA-AMG built from the assembled values on the host, in the
+    solve's row space (the EllOrdering's on the ELL path).  Returns the
+    preconditioner, or None when SA-AMG cannot coarsen this system; and the
+    hierarchy's level sizes (AMG) for the timings."""
+    indptr, indices, vals, n = _csr_from_matrix(A, pattern)
+    if ordering is not None:
+        indptr, indices, vals = permute_csr(indptr, indices, vals,
+                                            ordering.order.cpu().numpy())
+    if precond == "ic0":
+        arrs = build_ic0_from_csr(indptr, indices, vals, n, dtype=dtype)
+        return ic0_device_preconditioner(
+            build_ic0_device(arrs, dtype=dtype, device=device)), None
+    built = build_samg(indptr, indices, vals, n, ndof=ndof, dtype=dtype)
+    if built is None:
+        return None, None
+    arrs, meta = built
+    dev = build_samg_device(arrs, meta.sizes, dtype=dtype, device=device,
+                            external_fine_op=True)
+    return samg_device_preconditioner(dev, meta, operator), list(meta.sizes)
 
 
 def solve_implicit(
@@ -241,6 +300,7 @@ def solve_implicit(
     atol: float = 0.0,
     maxiter: Optional[int] = None,
     method: str = "cg",
+    refine: bool = False,
     recover: bool = True,
     precond: str = "jacobi",
 ) -> ImplicitResult:
@@ -257,26 +317,40 @@ def solve_implicit(
                   'bicgstab' or 'gmres'.
       device, dtype: where and in what precision assembly and solve run;
                   dtype None means torch.get_default_dtype().
+      refine:     mixed-precision iterative refinement: float32 inner CG
+                  (Jacobi) with a float64 residual loop reaching rtol in
+                  the TRUE float64 residual (solve/refine.py).  Ignores
+                  dtype, method and precond, and skips recovery.
       recover:    when a structure-less mesh's diagonal census fails the
                   DIA threshold, try the geometric lexicographic
                   renumbering (mesh/reorder.py) that restores the DIA
                   operator for permuted lattice meshes; the solution is
                   mapped back to the caller's numbering and
                   timings["structure_recovered"] is True.
-    Timings: pattern_s (host set-up), order_s (ELL row ordering, ELL path
-    only), assemble_s and solve_s (each ends in a device synchronise).
+      precond:    'jacobi'; 'cheby' (Chebyshev polynomial of D^-1 A
+                  around the solve's own operator); 'ic0' or 'amg' (set up
+                  on the host from the assembled values, in the solve's row
+                  space; 'amg' falls back to Jacobi when the system cannot
+                  be coarsened); 'mg' is the full system's
+                  (solve_implicit_fullsystem) and gives Jacobi here.
+                  For any of them but 'jacobi', timings["precond_used"]
+                  says which one ran.
+    Timings: pattern_s (host set-up), order_s and ordering (ELL row
+    ordering and its name, ELL path only), assemble_s, ic0_setup_s /
+    amg_setup_s (host set-up of those preconditioners) and solve_s (each
+    ends in a device synchronise); amg_levels (rows per AMG level) and
+    assembly_chunks (when the structured assembly runs in z-slabs) where
+    they apply; refine=True adds outer_iters.
     """
     if method not in _SOLVERS:
         raise ValueError(f"method={method!r}: one of {sorted(_SOLVERS)}")
-    if precond != "jacobi":
-        raise NotImplementedError(
-            f"precond={precond!r}: only 'jacobi' is ported; the other "
-            "preconditioners wait for ROADMAP A.6")
+    if precond not in _PRECONDS:
+        raise ValueError(f"precond={precond!r}: one of {list(_PRECONDS)}")
     device = torch.device(device)
     if dtype is None:
         dtype = torch.get_default_dtype()
 
-    if recover and mesh.structure is None:
+    if recover and mesh.structure is None and not refine:
         rec = recover_structure(mesh, ndof, dirichlet, force_bc)
         if rec is not None:
             mesh2, dbc2, fbc2, perm, dofmap0 = rec
@@ -292,6 +366,10 @@ def solve_implicit(
                                           dtype=dtype, device=device),
                 stats=res.stats,
                 timings=dict(res.timings, structure_recovered=True))
+    if refine:
+        return _solve_implicit_refined(mesh, ndof, dirichlet, element_fn,
+                                       force_bc=force_bc, device=device,
+                                       rtol=rtol, maxiter=maxiter)
 
     t0 = time.perf_counter()
     dofmap = build_dofmap(mesh, ndof, dirichlet, with_elem=False)
@@ -305,6 +383,8 @@ def solve_implicit(
                            device=device)
     _sync(device)
     timings = dict(pattern_s=time.perf_counter() - t0)
+    if getattr(assemble_reduced, "n_chunks", 1) > 1:
+        timings["assembly_chunks"] = assemble_reduced.n_chunks
 
     ordering = None
     pattern = getattr(assemble_reduced, "pattern", None)
@@ -314,29 +394,203 @@ def solve_implicit(
             pattern, mesh.coords[dofmap.assy_for_soln // ndof],
             dofmap.assy_for_soln % ndof, device)
         _sync(device)
-        timings["order_s"] = time.perf_counter() - t0
+        timings.update(order_s=time.perf_counter() - t0,
+                       ordering=ordering.name)
 
     if maxiter is None:
         maxiter = max(10 * dofmap.total_dof, 1000)
 
     t0 = time.perf_counter()
-    A, b = assemble_reduced(coords_em)
+    A0, b = assemble_reduced(coords_em)
     b = b + fvec
+    A = A0
     if ordering is not None:
-        A, b = ordering.system(A, b)
+        A, b = ordering.system(A0, b)
     operator, diag = operator_and_diag(A)
     _sync(device)
     timings["assemble_s"] = time.perf_counter() - t0
 
+    used = precond
+    pc = None
+    if precond in ("ic0", "amg"):
+        t0 = time.perf_counter()
+        pc, levels = _host_preconditioner(precond, A0, pattern, ordering,
+                                          operator, ndof, dtype, device)
+        _sync(device)
+        timings[f"{precond}_setup_s"] = time.perf_counter() - t0
+        if levels is not None:
+            timings["amg_levels"] = levels
+    elif precond == "cheby":
+        pc = chebyshev_preconditioner(operator, diag)
+    if pc is None:
+        used = "jacobi"
+        pc = jacobi_preconditioner(diag)
+
     t0 = time.perf_counter()
-    u, stats = _SOLVERS[method](
-        operator, b, precond=jacobi_preconditioner(diag), rtol=rtol,
-        atol=atol, maxiter=maxiter)
+    u, stats = _SOLVERS[method](operator, b, precond=pc, rtol=rtol,
+                                atol=atol, maxiter=maxiter)
     if ordering is not None:
         u = u[ordering.inv]
     _sync(device)
     timings["solve_s"] = time.perf_counter() - t0
+    if precond != "jacobi":
+        timings.update(precond_requested=precond, precond_used=used)
 
     u_full = dofmap.expand_solution(u.cpu().to(torch.float64).numpy())
     return ImplicitResult(u_full=u_full, u_reduced=u, stats=stats,
+                          timings=timings)
+
+
+def solve_implicit_fullsystem(
+    mesh: Mesh,
+    ndof: int,
+    dirichlet: np.ndarray,
+    element_fn: Callable,
+    force_bc: Optional[np.ndarray] = None,
+    device="cpu",
+    dtype: Optional[torch.dtype] = None,
+    rtol: float = 1e-8,
+    maxiter: Optional[int] = None,
+    method: str = "cg",
+    precond: str = "jacobi",
+) -> ImplicitResult:
+    """serialimpl3-parity path: full-size DOF system + MatZeroRows BCs
+    (PFEMFort src/triapoissonserialimpl3.F:351-359, 557-558).
+
+    No reduced renumbering: generated box_tet and rect_tria meshes (ndof <=
+    3) keep their lattice and take the structured slice-add assembly; every
+    other mesh takes the pattern assembly of all node-dofs.  The solve
+    starts from x0 = the BC values, so the BC components of the residual
+    vanish (the property that lets the reference run CG on this mildly
+    nonsymmetric system).
+
+    precond: 'jacobi' or 'mg' (geometric multigrid V-cycle on structured
+    lattices, solve/multigrid.py; falls back to Jacobi on other meshes).
+    Any other name gives Jacobi, as in the JAX package.
+    timings["precond_used"] says which one ran; mg_setup_s is the
+    hierarchy's build and mg_levels its rows per level.
+    """
+    if method not in _SOLVERS:
+        raise ValueError(f"method={method!r}: one of {sorted(_SOLVERS)}")
+    device = torch.device(device)
+    if dtype is None:
+        dtype = torch.get_default_dtype()
+    n_full = mesh.n_node * ndof
+    t0 = time.perf_counter()
+    kind = (mesh.structure or {}).get("kind")
+    structured = kind in ("box_tet", "rect_tria") and ndof <= 3
+    dofmap = build_dofmap(mesh, ndof, dirichlet, with_elem=not structured)
+    if structured:
+        plan, asm_mat, asm_rhs = _structured_plan(mesh, ndof)
+    else:
+        # full system: every element slot keeps its global node-dof row
+        plan = build_assembly_plan(
+            build_pattern(dofmap.elem_nodedof, n_full), device)
+        asm_mat, asm_rhs = assemble_matrix, assemble_rhs
+
+    coords_em = torch.as_tensor(to_element_minor(mesh.elem_coords()),
+                                dtype=dtype, device=device)
+    bc_mask_np = ~dofmap.free_mask_full()
+    bc_mask = torch.as_tensor(bc_mask_np, device=device)
+    bc_vals = torch.as_tensor(dofmap.bc_values_full, dtype=dtype,
+                              device=device)
+    fvec = np.zeros(n_full, dtype=np.float64)
+    if force_bc is not None and len(force_bc):
+        idx = (force_bc[:, 0].astype(np.int64) * ndof
+               + force_bc[:, 1].astype(np.int64))
+        np.add.at(fvec, idx, force_bc[:, 2])
+    fvec = torch.as_tensor(fvec, dtype=dtype, device=device)
+    _sync(device)
+    timings = dict(pattern_s=time.perf_counter() - t0)
+
+    if maxiter is None:
+        maxiter = max(10 * n_full, 1000)
+
+    mg = None
+    if precond == "mg" and structured:
+        t0 = time.perf_counter()
+        mg = build_gmg(mesh, ndof, bc_mask_np, element_fn, dtype=dtype,
+                       device=device)
+        _sync(device)
+        timings["mg_setup_s"] = time.perf_counter() - t0
+        if mg is not None:
+            timings["mg_levels"] = [A.n_rows for A in mg[0].mats]
+
+    t0 = time.perf_counter()
+    Ke, Fe_src = element_fn(coords_em)
+    A = asm_mat(Ke, plan)
+    b = asm_rhs(Fe_src, plan) + fvec
+    del Ke, Fe_src
+    A, b = zero_dirichlet_rows(A, b, bc_mask, bc_vals)
+    operator, diag = operator_and_diag(A)
+    _sync(device)
+    timings["assemble_s"] = time.perf_counter() - t0
+
+    if mg is not None:
+        pc, used = gmg_preconditioner(*mg), "mg"
+    else:
+        pc, used = jacobi_preconditioner(diag), "jacobi"
+    t0 = time.perf_counter()
+    # start from the BC values so BC residual components vanish
+    x0 = torch.where(bc_mask, bc_vals, 0.0)
+    u, stats = _SOLVERS[method](operator, b, x0=x0, precond=pc, rtol=rtol,
+                                maxiter=maxiter)
+    _sync(device)
+    timings["solve_s"] = time.perf_counter() - t0
+    timings.update(precond_requested=precond, precond_used=used)
+
+    return ImplicitResult(u_full=u.cpu().to(torch.float64).numpy(),
+                          u_reduced=u, stats=stats, timings=timings)
+
+
+def _solve_implicit_refined(mesh, ndof, dirichlet, element_fn, force_bc,
+                            device, rtol, maxiter) -> ImplicitResult:
+    """Mixed-precision path to the reference's f64 1e-8 target.
+
+    The float64 reduced system is assembled once on the device (float64 is
+    native on the card); its float32 cast serves the inner Jacobi-CG.  Both
+    operators go through kernel B1 (DIA) or B2 (ELL, in the pattern's own
+    row order, as in the JAX package), so the outer residual is the TRUE
+    float64 one."""
+    t0 = time.perf_counter()
+    dofmap = build_dofmap(mesh, ndof, dirichlet, with_elem=False)
+    if _structured_box(mesh, dofmap) is None:
+        dofmap = build_dofmap(mesh, ndof, dirichlet)
+    f64 = torch.float64
+    assemble64 = build_reduced_assembler(mesh, ndof, dofmap, element_fn, f64,
+                                         device)
+    coords64 = torch.as_tensor(to_element_minor(mesh.elem_coords()),
+                               dtype=f64, device=device)
+    fvec = torch.as_tensor(_point_loads(dofmap, force_bc), dtype=f64,
+                           device=device)
+    _sync(device)
+    timings = dict(pattern_s=time.perf_counter() - t0)
+    if getattr(assemble64, "n_chunks", 1) > 1:
+        timings["assembly_chunks"] = assemble64.n_chunks
+
+    if maxiter is None:
+        maxiter = max(10 * dofmap.total_dof, 1000)
+
+    t0 = time.perf_counter()
+    A64, b64 = assemble64(coords64)
+    del coords64
+    b64 = b64 + fvec
+    A32 = dataclasses.replace(A64, vals=A64.vals.to(torch.float32))
+    op64, _ = operator_and_diag(A64)
+    op32, diag32 = operator_and_diag(A32)
+    _sync(device)
+    timings["assemble_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    x64, rstats = cg_with_refinement(
+        op64, op32, b64, precond32=jacobi_preconditioner(diag32), rtol=rtol,
+        inner_maxiter=maxiter)
+    _sync(device)
+    timings.update(solve_s=time.perf_counter() - t0,
+                   outer_iters=rstats.outer_iters)
+
+    stats = SolveStats(iters=rstats.total_inner_iters, relres=rstats.relres,
+                       converged=rstats.converged)
+    u_full = dofmap.expand_solution(x64.cpu().numpy())
+    return ImplicitResult(u_full=u_full, u_reduced=x64, stats=stats,
                           timings=timings)

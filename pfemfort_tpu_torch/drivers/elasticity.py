@@ -1,4 +1,4 @@
-# Ported from pfemfort_tpu/drivers/elasticity.py (reduced BCs).
+# Ported from pfemfort_tpu/drivers/elasticity.py.
 """Implicit linear-elasticity drivers: the port's
 triaelasticityparallelimpl1 (2D, plane stress) and
 tetraelasticityparallelimpl1 (3D)."""
@@ -10,7 +10,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from pfemfort_tpu_torch.drivers.common import ImplicitResult, solve_implicit
+from pfemfort_tpu_torch.drivers.common import ImplicitResult, \
+    solve_implicit, solve_implicit_fullsystem
 from pfemfort_tpu_torch.elements.elasticity import (
     dmat_3d,
     dmat_plane_strain,
@@ -46,14 +47,15 @@ def solve_elasticity(
     law.  3D uses the standard isotropic D
     (PFEMFort src/elementutilitieselasticity3D.F:287-296).
     device, dtype: as in drivers/common.py:solve_implicit.
+
+    bc_mode='full' solves the full node-dof system with identity Dirichlet
+    rows, preconditioned by `precond` ('jacobi' or 'mg').  The reduced
+    system is always Jacobi-preconditioned: `precond` is not passed on
+    there, as in the JAX package (pfemfort_tpu/drivers/elasticity.py:65-68).
+    refine: float32-inner / float64-outer refinement of the reduced system.
     """
-    if refine:
-        raise NotImplementedError(
-            "refine=True waits for ROADMAP A.7 (precision)")
-    if bc_mode != "reduced":
-        raise NotImplementedError(
-            f"bc_mode={bc_mode!r}: only 'reduced' is ported; the full "
-            "system waits for ROADMAP A.6")
+    if bc_mode not in ("reduced", "full"):
+        raise ValueError(f"bc_mode={bc_mode!r}: 'reduced' or 'full'")
     ndim = mesh.ndim
     if ndim == 2:
         D = dmat_plane_stress(E, nu) if plane == "stress" \
@@ -67,7 +69,12 @@ def solve_elasticity(
             thickness=thickness if ndim == 2 else 1.0,
             bforce=bforce)
 
+    if bc_mode == "full":
+        return solve_implicit_fullsystem(
+            mesh, ndim, dirichlet, element_fn, force_bc=force_bc,
+            device=device, dtype=dtype, rtol=rtol, maxiter=maxiter,
+            method=method, precond=precond)
     return solve_implicit(
         mesh, ndim, dirichlet, element_fn, force_bc=force_bc, device=device,
         dtype=dtype, rtol=rtol, maxiter=maxiter, method=method,
-        precond=precond)
+        refine=refine)

@@ -14,6 +14,9 @@ import torch
 
 from pfemfort_tpu_torch.assembly.pattern import AssemblyPattern
 from pfemfort_tpu_torch.mesh.core import Mesh
+from pfemfort_tpu_torch.solve.amg import SAMGArrays, SAMGMeta
+from pfemfort_tpu_torch.solve.ic0 import IC0Arrays
+from pfemfort_tpu_torch.solve.multigrid import GMGArrays, GMGMeta
 from pfemfort_tpu_torch.sparse.dia import DIAMatrix
 from pfemfort_tpu_torch.sparse.formats import ELLMatrix
 
@@ -73,3 +76,72 @@ def mesh_from_numpy(etype: str, coords: np.ndarray, conn: np.ndarray,
     return Mesh(etype, np.array(coords, dtype=np.float64),
                 np.array(conn, dtype=np.int32),
                 structure=None if structure is None else dict(structure))
+
+
+def _tensor(a, device, dtype):
+    return torch.tensor(np.asarray(a), dtype=dtype or torch.get_default_dtype(),
+                        device=device)
+
+
+def samg_from_numpy(arrays, meta, device="cpu",
+                    dtype: Optional[torch.dtype] = None):
+    """(SAMGArrays, SAMGMeta) of the port from a JAX SA-AMG hierarchy:
+    `arrays` with the fields of pfemfort_tpu.solve.amg.SAMGArrays (the
+    a/p/pt/p0/p0t cols and vals per level, omegas, inv_diags, coarse_inv;
+    numpy or anything np.asarray takes) and `meta` with sizes, nu and
+    omega_smooth."""
+    def ells(cols, vals, n_cols):
+        return tuple(ell_from_numpy(c, v, nc, device=device, dtype=dtype)
+                     for c, v, nc in zip(cols, vals, n_cols))
+
+    sizes = tuple(int(s) for s in meta.sizes)
+    a = ells(arrays.a_cols, arrays.a_vals, sizes)
+    out = SAMGArrays(
+        a=a,
+        p=ells(arrays.p_cols, arrays.p_vals, sizes[1:]),
+        pt=ells(arrays.pt_cols, arrays.pt_vals, sizes[:-1]),
+        p0=ells(arrays.p0_cols, arrays.p0_vals, sizes[1:]),
+        p0t=ells(arrays.p0t_cols, arrays.p0t_vals, sizes[:-1]),
+        omegas=tuple(float(o) for o in arrays.omegas),
+        inv_diags=tuple(_tensor(d, device, dtype) for d in arrays.inv_diags),
+        coarse_inv=_tensor(arrays.coarse_inv, device, dtype))
+    return out, SAMGMeta(sizes=sizes, nu=int(meta.nu),
+                         omega_smooth=float(meta.omega_smooth))
+
+
+def gmg_from_numpy(arrays, meta, device="cpu",
+                   dtype: Optional[torch.dtype] = None):
+    """(GMGArrays, GMGMeta) of the port from a JAX geometric-multigrid
+    hierarchy: `arrays` with the fields of
+    pfemfort_tpu.solve.multigrid.GMGArrays (mats as DIA matrices with vals,
+    offsets, n_rows and lattice; inv_diags, masks, coarse_inv) and `meta`
+    with shapes, ndof, nu, omega and coarse_cheby."""
+    mats = tuple(dia_from_numpy(A.vals, A.offsets, A.n_rows, A.lattice,
+                                device=device, dtype=dtype)
+                 for A in arrays.mats)
+    out = GMGArrays(
+        mats=mats,
+        inv_diags=tuple(_tensor(d, device, dtype) for d in arrays.inv_diags),
+        masks=tuple(_tensor(m, device, dtype) for m in arrays.masks),
+        coarse_inv=_tensor(arrays.coarse_inv, device, dtype))
+    cheby = None if meta.coarse_cheby is None else (
+        float(meta.coarse_cheby[0]), float(meta.coarse_cheby[1]),
+        int(meta.coarse_cheby[2]))
+    return out, GMGMeta(
+        shapes=tuple(tuple(int(a) for a in s) for s in meta.shapes),
+        ndof=int(meta.ndof), nu=int(meta.nu), omega=float(meta.omega),
+        coarse_cheby=cheby)
+
+
+def ic0_from_numpy(arrays, device="cpu",
+                   dtype: Optional[torch.dtype] = None) -> IC0Arrays:
+    """The port's IC0Arrays from a JAX IC(0) factor: `arrays` with the
+    fields of pfemfort_tpu.solve.ic0.IC0Arrays (t_cols, t_vals, tt_cols,
+    tt_vals, dinv); the sentinel column is n = len(dinv)."""
+    n = int(np.asarray(arrays.dinv).shape[0])
+    return IC0Arrays(
+        t=ell_from_numpy(arrays.t_cols, arrays.t_vals, n, device=device,
+                         dtype=dtype),
+        tt=ell_from_numpy(arrays.tt_cols, arrays.tt_vals, n, device=device,
+                          dtype=dtype),
+        dinv=_tensor(arrays.dinv, device, dtype))

@@ -1,4 +1,4 @@
-# Copied from pfemfort_tpu/mesh/generate.py (all but box_tet_coords_em_device).
+# Copied from pfemfort_tpu/mesh/generate.py (box_tet_coords_em_device ported to torch).
 """Structured mesh generators (host-side numpy).
 
 Re-creates the reference's offline mesh tools as vectorized numpy:
@@ -20,6 +20,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
 
 from pfemfort_tpu_torch.mesh.core import Mesh
 
@@ -135,6 +136,35 @@ def box_tet_coords_em(x0, x1, nex, y0, y1, ney, z0, z1, nez,
             view[i, 1, :, :, :, c] = ys[by:by + ney][None, :, None]
             view[i, 2, :, :, :, c] = zs[bz:bz + nez][:, None, None]
     return out
+
+
+def box_tet_coords_em_device(x0, x1, nex, y0, y1, ney, z0, z1, nez,
+                             dtype=torch.float32, device="cpu"
+                             ) -> torch.Tensor:
+    """`box_tet_coords_em` built on `device` from three aranges: lattice
+    coordinates are affine in the cell index, so the (4, 3, E) tensor is
+    broadcast multiply-adds, with no host build and no host-to-device copy.
+    Values differ from the linspace build by rounding of the working
+    dtype."""
+    hx = (x1 - x0) / nex
+    hy = (y1 - y0) / ney
+    hz = (z1 - z0) / nez
+    ar = lambda m: torch.arange(m, dtype=dtype, device=device)
+    kk = ar(nez)[:, None, None, None]
+    jj = ar(ney)[None, :, None, None]
+    ii = ar(nex)[None, None, :, None]
+    shape = (nez, ney, nex, 6)
+    cst = lambda v: torch.tensor(v, dtype=dtype, device=device)
+    rows = []
+    for i in range(4):
+        bits = [int(_TET_SPLIT[c, i]) for c in range(6)]
+        bx, by, bz = (cst([(k >> s) & 1 for k in bits]) for s in range(3))
+        rows.append(torch.stack([
+            (cst(x0) + cst(hx) * (ii + bx)).expand(shape),
+            (cst(y0) + cst(hy) * (jj + by)).expand(shape),
+            (cst(z0) + cst(hz) * (kk + bz)).expand(shape),
+        ]))
+    return torch.stack(rows).reshape(4, 3, -1)
 
 
 def rect_tria(x0, x1, nex, y0, y1, ney) -> Mesh:

@@ -9,8 +9,9 @@ BiCGStab on the elasticity system is the exception: its count moves by up
 to 2 when b changes by a relative 1e-15, in the JAX package alone (dense
 against DIA operator, or b perturbed: 84 to 87 iterations at rtol 1e-8),
 so the two counts may differ by 2.
-Options and subcommands the port does not carry raise NotImplementedError
-naming their ROADMAP item.  One run goes through a fresh process that
+The preconditioners, the full system (`--bc-mode full`) and `--refine` run
+like the JAX CLI; options and subcommands the port does not carry raise
+NotImplementedError naming their ROADMAP item.  One run goes through a fresh process that
 never imports JAX.
 """
 
@@ -193,10 +194,65 @@ def test_vtktovtu_matches_jax(tet_prefix, tmp_path, capsys):
     (["elasticity", "--refine"], "A.7"),
     (["cfd"], "A.8"),
 ])
-def test_options_outside_the_slice_raise(tet_prefix, argv, item):
+def test_options_outside_the_slice_raise(tet_prefix, cantilever, tmp_path,
+                                         capsys, argv, item):
+    """Options still outside the port raise naming their ROADMAP item; those
+    of A.6 and A.7, ported since, now run like the JAX CLI (Poisson on the
+    box, elasticity on the cantilever).  The refined elasticity count is a
+    sum of float32 inner CG counts, which move with the order of the sums,
+    so it may differ by 10%."""
     cmd, opts = argv[0], argv[1:]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        t_main([cmd, *_files(tet_prefix), *opts, *CPU])
+    if item not in ("A.6", "A.7"):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            t_main([cmd, *_files(tet_prefix), *opts, *CPU])
+        return
+    files = _files(cantilever, force=True) if cmd == "elasticity" \
+        else _files(tet_prefix)
+    vj, vt = str(tmp_path / "j.vtk"), str(tmp_path / "t.vtk")
+    out_j, out_t = _run_both(capsys, [cmd, *files, *opts, "-o", vj],
+                             [cmd, *files, *opts, "-o", vt, *CPU])
+    slack = int(0.1 * _iters(out_j)) if cmd == "elasticity" else 0
+    assert abs(_iters(out_t) - _iters(out_j)) <= slack
+    assert np.abs(_vtk_solution(vt) - _vtk_solution(vj)).max() <= VTK_TOL
+
+
+@pytest.mark.parametrize("extra", [
+    ["--bc-mode", "full", "--precond", "mg"],
+    ["--bc-mode", "full", "--ksp", "gmres"],
+    ["--precond", "cheby"], ["--precond", "ic0"], ["--precond", "amg"],
+    ["--refine"], ["--refine", "--rtol", "1e-11"]])
+def test_poisson_preconditioners_match_jax(tmp_path, capsys, extra):
+    """The preconditioners, the full system and refinement through the
+    command line, on a box large enough for SA-AMG and for two multigrid
+    levels (17^3 nodes: the dense coarsest level holds at most 4,096)."""
+    prefix = str(tmp_path / "box")
+    assert t_main(["genmesh", "tet", "0", "1", "16", "0", "1", "16",
+                   "0", "1", "16", "-o", prefix]) == 0
+    vj, vt = str(tmp_path / "j.vtk"), str(tmp_path / "t.vtk")
+    out_j, out_t = _run_both(
+        capsys, ["poisson", *_files(prefix), "-o", vj, *extra],
+        ["poisson", *_files(prefix), "-o", vt, *extra, *CPU])
+    assert _iters(out_t) == _iters(out_j)
+    assert np.abs(_vtk_solution(vt) - _vtk_solution(vj)).max() <= VTK_TOL
+
+
+@pytest.mark.parametrize("pc_type,precond", [("gamg", "amg"), ("ilu", "ic0"),
+                                             ("hypre", "mg")])
+def test_options_file_pc_type_matches_jax(tet_prefix, tmp_path, capsys,
+                                          pc_type, precond):
+    """-pc_type in a PETSc options file maps as in the JAX package (gamg ->
+    amg, ilu -> ic0, hypre -> mg) and the solve follows it."""
+    from pfemfort_tpu.config import SolverOptions as JOpts
+    from pfemfort_tpu_torch.config import SolverOptions as TOpts
+
+    text = f"-ksp_type cg\n-pc_type {pc_type}\n-ksp_rtol 1e-10\n"
+    assert TOpts.from_options(text).pc_type == precond
+    assert JOpts.from_options(text).pc_type == precond
+    opts = tmp_path / "petsc_options.dat"
+    opts.write_text(text)
+    argv = ["poisson", *_files(tet_prefix), "--options-file", str(opts)]
+    out_j, out_t = _run_both(capsys, argv, [*argv, *CPU])
+    assert _iters(out_t) == _iters(out_j)
 
 
 @pytest.mark.parametrize("argv,item", [

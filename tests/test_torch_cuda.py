@@ -340,3 +340,155 @@ def test_explicit_on_the_card_matches_the_cpu_in_float64(cuda):
         r_cpu.disp).max()
     assert np.abs(r_gpu.probe_history - r_cpu.probe_history).max() <= \
         1e-12 * np.abs(r_cpu.probe_history).max()
+
+
+# ---------------------------------------------------------------------------
+# the preconditioners' blocks (B1 and B2 at the shapes they take there)
+# ---------------------------------------------------------------------------
+
+def _ordered_csr(n):
+    """Host CSR of the ordered ELL system of `_ordered_ell_system`."""
+    assemble, ordering, coords = _ordered_ell_system(n, "cpu",
+                                                     torch.float64)
+    A, b = ordering.system(*assemble(coords))
+    cols, vals = A.cols.numpy(), A.vals.numpy()
+    valid = cols < A.n_cols
+    indptr = np.zeros(A.n_rows + 1, np.int64)
+    np.cumsum(valid.sum(1), out=indptr[1:])
+    return indptr, cols[valid], vals[valid], A.n_rows
+
+
+def _on(A, device, dtype):
+    if isinstance(A, DIAMatrix):
+        return DIAMatrix(vals=A.vals.to(device, dtype), offsets=A.offsets,
+                         n_rows=A.n_rows, lattice=A.lattice)
+    return ELLMatrix(cols=A.cols.to(device), vals=A.vals.to(device, dtype),
+                     n_cols=A.n_cols)
+
+
+def _kernel_vs_plain(A, device, dtype, seed=0):
+    A = _on(A, device, dtype)
+    n = A.n_rows if isinstance(A, DIAMatrix) else A.n_cols
+    x = torch.as_tensor(np.random.default_rng(seed).standard_normal(n),
+                        dtype=dtype, device=device)
+    if isinstance(A, DIAMatrix):
+        kern, y = dia_spmv_cuda.kernel, None
+        before = kern.launches
+        y = dia_operator(A)(x)
+        ref = spmv_dia(A, x)
+    else:
+        kern = ell_spmv_cuda.kernel
+        before = kern.launches
+        y = ell_spmv_cuda.ell_spmv(A, x)
+        ref = spmv_ell(A, x)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    assert _rel_err(y, ref) <= REL_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ell_kernel_on_amg_transfers_and_ic0_triangles(cuda, dtype):
+    """B2 on rectangular P0 (n_f x n_c) and P0^T (n_c x n_f) blocks of every
+    level, and on IC(0)'s strictly triangular T and T^T (rows of sentinels
+    only included)."""
+    from pfemfort_tpu_torch.solve.amg import build_samg
+    from pfemfort_tpu_torch.solve.ic0 import build_ic0_from_csr
+
+    indptr, indices, vals, n = _ordered_csr(16)
+    arrs, meta = build_samg(indptr, indices, vals, n, dtype=torch.float64,
+                            coarsest_max=100)
+    assert len(meta.sizes) >= 3
+    for P in (*arrs.p0, *arrs.p0t, *arrs.p, *arrs.pt, *arrs.a):
+        _kernel_vs_plain(P, cuda, dtype)
+    ic0 = build_ic0_from_csr(indptr, indices, vals, n, dtype=torch.float64)
+    assert bool((ic0.t.cols >= n).all(1).any())      # the first row
+    for T in (ic0.t, ic0.tt):
+        _kernel_vs_plain(T, cuda, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_dia_kernel_on_multigrid_levels_and_the_full_system(cuda, dtype):
+    """B1 on every GMG level down to 3^3 nodes, on the full-system DIA with
+    identity Dirichlet rows, and on a one-diagonal matrix."""
+    from pfemfort_tpu_torch.assembly import structured as st
+    from pfemfort_tpu_torch.assembly.fullsystem import zero_dirichlet_rows
+    from pfemfort_tpu_torch.elements.geometry import to_element_minor
+    from pfemfort_tpu_torch.elements.poisson import poisson_element_matrices
+    from pfemfort_tpu_torch.solve.multigrid import build_gmg
+
+    fn = lambda c: poisson_element_matrices(c, "tetra4", source=-6.0)
+    mesh, dbc = generate.box_tet(0, 1, 16, 0, 1, 16, 0, 1, 16)
+    bc = np.zeros(mesh.n_node, bool)
+    bc[dbc[:, 0].astype(np.int64)] = True
+    arrays, meta = build_gmg(mesh, 1, bc, fn, dtype=dtype, device=cuda,
+                             coarsest_max_dof=27)
+    assert meta.shapes[-1] == (3, 3, 3)
+    for A in arrays.mats:
+        _kernel_vs_plain(A, cuda, dtype)
+    plan = st.build_structured_plan(16, 16, 16)
+    Ke, Fe = fn(torch.as_tensor(to_element_minor(mesh.elem_coords()),
+                                dtype=dtype, device=cuda))
+    A, _ = zero_dirichlet_rows(st.assemble_dia_structured(Ke, plan),
+                               st.assemble_rhs_structured(Fe, plan),
+                               torch.as_tensor(bc, device=cuda),
+                               torch.zeros(mesh.n_node, dtype=dtype,
+                                           device=cuda))
+    _kernel_vs_plain(A, cuda, dtype)
+    _kernel_vs_plain(DIAMatrix(vals=torch.rand(1, 2197, dtype=dtype),
+                               offsets=(0,), n_rows=2197), cuda, dtype)
+
+
+def test_routed_blocks_on_the_card_match_the_cpu(cuda):
+    """Each form of solve/amg_device.py (B1, B2, dense) on the card gives
+    the CPU's product."""
+    from pfemfort_tpu_torch.solve.amg_device import build_device_ell, \
+        device_ell_apply
+
+    rng = np.random.default_rng(3)
+    n = 20_000
+    band = np.arange(n)[:, None] + np.array([-150, -1, 0, 1, 150])[None, :]
+    cases = [(np.where((band >= 0) & (band < n), band, n), n, "dia"),
+             (np.sort(rng.integers(0, n, (n, 8)), 1), n, "ell"),
+             (rng.integers(0, 700, (n, 1)), 700, "ell"),
+             (np.tile(np.arange(64), (64, 1)), 64, "dense")]
+    for cols, n_cols, kind in cases:
+        vals = rng.standard_normal(cols.shape)
+        x = rng.standard_normal(n_cols)
+        for dtype in (torch.float32, torch.float64):
+            d_gpu = build_device_ell(cols, vals, n_cols, dtype=dtype,
+                                     device=cuda)
+            d_cpu = build_device_ell(cols, vals, n_cols, dtype=dtype)
+            assert d_gpu.kind == d_cpu.kind == kind
+            y = device_ell_apply(d_gpu, torch.as_tensor(x, dtype=dtype,
+                                                        device=cuda))
+            ref = device_ell_apply(d_cpu, torch.as_tensor(x, dtype=dtype))
+            assert _rel_err(y.cpu(), ref) <= REL_TOL[dtype]
+
+
+@pytest.mark.parametrize("case", ["cheby", "ic0", "amg", "mg", "refine",
+                                  "amg_ell"])
+def test_preconditioned_solves_on_the_card_match_the_cpu(cuda, case):
+    """float64 solves on the card against the same solves on the CPU."""
+    from pfemfort_tpu_torch.drivers.common import solve_implicit
+    from pfemfort_tpu_torch.elements.poisson import poisson_element_matrices
+
+    n = 16 if case in ("mg", "amg_ell") else 12
+    if case == "amg_ell":
+        mesh, dbc = _permuted_box(n)
+        fn = lambda c: poisson_element_matrices(c, "tetra4", source=-6.0)
+        run = lambda d: solve_implicit(mesh, 1, dbc, fn, device=d,
+                                       dtype=torch.float64, rtol=1e-10,
+                                       recover=False, precond="amg")
+    else:
+        mesh, dbc = generate.box_tet(0, 1, n, 0, 1, n, 0, 1, n)
+        kw = dict(refine=True) if case == "refine" else \
+            dict(precond=case, bc_mode="full" if case == "mg" else "reduced")
+        run = lambda d: solve_poisson(mesh, dbc, device=d,
+                                      dtype=torch.float64, rtol=1e-10, **kw)
+    r_cpu, r_gpu = run("cpu"), run(cuda)
+    assert r_gpu.stats.converged
+    slack = 0 if case in ("mg", "refine") else 1
+    assert abs(r_gpu.stats.iters - r_cpu.stats.iters) <= slack
+    assert np.abs(r_gpu.u_full - r_cpu.u_full).max() <= 1e-9
+    assert r_gpu.timings.get("precond_used") == r_cpu.timings.get(
+        "precond_used")
