@@ -24,9 +24,11 @@ of JAX.  Phases, one JSON line each:
                      1e-6, 271 +- 10 iterations, nodal error <= 2e-4 against
                      u = x^2+y^2+z^2, B1 launches >= iterations;
   5. solve_ell       solve_implicit on the renumbered n=96 mesh with
-                     recover=False (the ELL path, kernel B2): the same bars,
-                     B2 launches >= iterations, B1 launches = 0; and the ELL
-                     assembly repeated bit for bit;
+                     recover=False (the ELL path, float32, so the hybrid
+                     operator: lex order, 15 dense diagonals, no remainder):
+                     the same bars, B1 launches = iterations + 1, B2
+                     launches = 0; the ELL assembly repeated bit for bit;
+                     and the host pattern build's seconds;
   6. solve_recovered solve_poisson on box_tet n=48 with its nodes renumbered:
                      the structure is recovered, B1 launches >= iterations,
                      B2 launches = 0, iterations = the lattice solve's +- 1;
@@ -64,8 +66,9 @@ of JAX.  Phases, one JSON line each:
  13. amg             solve_implicit on box_tet n=96 renumbered by
                      default_rng(2), recover=False, float32, rtol 1e-6,
                      precond='amg' (the JAX bench's amg stage): <= 20
-                     iterations, B2 launched on the rectangular transfers;
-                     beside it Jacobi on the same system, time to solution;
+                     iterations, the fine operator the hybrid (B1), B2
+                     launched on the rectangular transfers; beside it
+                     Jacobi on the same system (B1 only), time to solution;
  14. elasticity_mg   the elasticity3d system with bc_mode='full',
                      precond='mg', float32: under half the float32 Jacobi
                      count of phase 7 and within 2e-3 of its float64
@@ -80,25 +83,60 @@ of JAX.  Phases, one JSON line each:
                      each against its plain version (float32 and float64);
  17. cli             poisson --bc-mode full --precond mg, --refine and an
                      options file with -pc_type gamg, as subprocesses;
- 18. timing          kernel and plain SpMV times (plain, kernel, kernel,
-                     plain) of B1 on the n=96 lattice system and of B2 on the
-                     same matrix in the solve's row order, in lattice order
-                     and unordered; of B1 (59 diagonals) and B2 (the same
+ 18. pattern_native  the host library's ELL pattern builder against the numpy
+                     builder on the renumbered n=32 box, every array bit for
+                     bit; the n=96 ELL solves' pattern_s (rng 0 and 2);
+ 19. hybrid          scrambled Delaunay n=60 (205,379 rows), float32, rtol
+                     1e-6: dense diagonals and a remainder, so the solve
+                     launches B1 and B2 (each >= iterations + 1); the hybrid
+                     product against the plain ELL product of the ordered
+                     system (<= 1e-5), each part against its plain version;
+ 20. matfree         solve_poisson(matrix_free=True), float32, rtol 1e-6, on
+                     box_tet n=96 (271 +- 10 iterations, nodal error <=
+                     2e-4) and n=200 (546 +- 15): no SpMV launch, ms per
+                     iteration and peak device memory;
+ 21. highprec        solve_box_poisson_1e8 on box_tet n=96 and n=200: true
+                     float64 relres <= 1e-8, <= 6 outer iterations, nodal
+                     error <= 1e-7 (n=96) / 1e-6 (n=200); B1 in float32 on
+                     every smoothing level and in float64 on the outer
+                     residual; stage seconds and peak device memory;
+ 22. cfd             fractional_step_ns in float32: the lid-driven cavity on
+                     rect_tria 512x512 (nu 0.01, dt 5e-5 under the viscous
+                     bound h^2/(4 nu), 100 steps; B1), the 3D Taylor-Green
+                     vortex on box_tet 64x64x32 of [0,pi]^2 x [0,pi/2]
+                     (free slip, 250 steps; energy within 30% of
+                     exp(-4 nu t); B1) and a renumbered 64x64 cavity (B2);
+                     ms per step, CG iterations and launches per step;
+ 23. cli             partition (rcb, greedy), poisson --matrix-free and cfd
+                     on a renumbered cavity's .dat files, as subprocesses;
+ 24. timing          kernel, plain and library SpMV times (plain, kernel,
+                     library, kernel, plain; the library call is
+                     torch.sparse_csr_tensor(...) @ x, i.e. cuSPARSE, built
+                     from the same matrix and checked against the kernel) of
+                     B1 on the n=96 lattice system and of B2 on the same
+                     matrix in the solve's row order, in lattice order and
+                     unordered; of B1 (59 diagonals) and B2 (the same
                      matrix as ELL) on the 3D elasticity system, of B1 (17
                      diagonals) and B2 (K = 16, renumbered, the solve's row
-                     order) on the 2D one; of the phase-16 blocks; the GB/s
-                     they imply, and each solve's seconds by stage, launches
-                     and ms per iteration.
+                     order) on the 2D one; of the phase-16 blocks and the
+                     hybrid's two parts on the Delaunay matrix; each timed
+                     twice: back to back (host cost per call included) and
+                     queued behind a sleep kernel (device time only); bytes,
+                     the bound at the card's data-sheet memory rate,
+                     launches per solve, the GB/s they imply, and each
+                     solve's seconds by stage, launches and ms per
+                     iteration.
 
 Every launch count is set to 0 just before its path is driven and read just
-after; in phases 11-15 a plain SpMV called on a card tensor would also be
+after; from phase 11 on, a plain SpMV called on a card tensor would also be
 counted, and none may be.  Then one JSON line describing the kernels
-(launches summed over the counted paths; times on the n=96 matrix; the
-errors of every case), and the result line {"ok": true, "device": {...}}
-last.  Any failed check raises.
+(launches summed over the counted paths; times, bound and library time on
+the n=96 matrix; the errors of every case), and the result line
+{"ok": true, "device": {...}} last.  Any failed check raises.
 """
 
 import collections
+import contextlib
 import json
 import subprocess
 import sys
@@ -111,8 +149,10 @@ import numpy as np
 import torch
 
 from pfemfort_tpu_torch import Mesh, build_dofmap, explicit_dynamics, \
-    generate, mesh_io, solve_elasticity, solve_poisson
+    generate, host_native, mesh_io, solve_elasticity, solve_poisson
+from pfemfort_tpu_torch.assembly import pattern as pattern_mod
 from pfemfort_tpu_torch.assembly import structured
+from pfemfort_tpu_torch.cfd import fractional_step_ns
 from pfemfort_tpu_torch.assembly.fullsystem import zero_dirichlet_rows
 from pfemfort_tpu_torch.drivers import presets
 from pfemfort_tpu_torch.drivers.common import build_ell_ordering, \
@@ -125,9 +165,10 @@ from pfemfort_tpu_torch.elements.geometry import to_element_minor
 from pfemfort_tpu_torch.elements.poisson import poisson_element_matrices
 from pfemfort_tpu_torch.solve import amg_device
 from pfemfort_tpu_torch.solve.amg import build_samg
+from pfemfort_tpu_torch.solve.highprec import solve_box_poisson_1e8
 from pfemfort_tpu_torch.solve.ic0 import build_ic0_from_csr
 from pfemfort_tpu_torch.solve.multigrid import build_gmg
-from pfemfort_tpu_torch.sparse import dia_spmv_cuda, ell_spmv_cuda
+from pfemfort_tpu_torch.sparse import dia_spmv_cuda, ell_spmv_cuda, hybrid
 from pfemfort_tpu_torch.sparse import ops as sparse_ops
 from pfemfort_tpu_torch.sparse.dia import DIAMatrix, spmv_dia
 from pfemfort_tpu_torch.sparse.formats import ELLMatrix
@@ -145,6 +186,8 @@ KERNELS = {"dia_spmv": dia_spmv_cuda.kernel, "ell_spmv": ell_spmv_cuda.kernel}
 # Data-sheet HBM peaks in GB/s; an unknown card is measured against the SXM
 # part's.
 PEAK_GBPS = {"H100 PCIe": 2000.0, "H100 NVL": 3900.0, "H100": 3350.0}
+# Data-sheet peaks of the H100 SXM outside the tensor cores, FLOP/s.
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 ROOT = Path(__file__).resolve().parent
 
 # Implicit elasticity (the tetra preset).  The JAX package's counts for the
@@ -180,9 +223,31 @@ AMG_ITERS_MAX = 20
 EL_MG_FRACTION = 0.5        # of the elasticity3d phase's float32 count
 N_LARGE, LARGE_ITERS, LARGE_SLACK = 200, 546, 15
 LARGE_RELRES, LARGE_NODAL_ERR = 1e-8, 1e-5
+# The host pattern build of the renumbered n=96 ELL solves with the numpy
+# builder (PERF.md, PR 4's chip run), default_rng(0) and (2).
+PR4_PATTERN_S = {0: 28.28, 2: 27.70}
+N_DELAUNAY_F32 = 60         # 59^3 = 205,379 free rows
+# Matrix-free: (iterations, slack, nodal error bound or None) per box size;
+# the counts of the assembled float32 Jacobi-CG solves.
+MATFREE_BARS = {N_FLAGSHIP: (ITERS_BAR, ITERS_SLACK, NODAL_ERR_MAX),
+                N_LARGE: (LARGE_ITERS, LARGE_SLACK, None)}
+# solve_box_poisson_1e8: the JAX package's bars (tests/test_highprec.py) and
+# its 48M run (round 5: 2 outer, 13 inner iterations).
+HIGHPREC_NODAL = {N_FLAGSHIP: 1e-7, N_LARGE: 1e-6}
+HIGHPREC_MAX_OUTER = 6
+JAX_48M_OUTER_INNER = (2, 13)
+# CFD: (cells per side, steps, dt, nu); the cavity's dt is half the viscous
+# bound h^2 / (4 nu) = 9.5e-5; Taylor-Green as the JAX test
+# (tests/test_cfd.py:86) at 64x64x32 cells.
+CFD_CAVITY = (512, 100, 5e-5, 0.01)
+CFD_TG3D = (64, 250, 2e-3, 0.05)
+CFD_RENUMBERED = (64, 20, 1e-3, 0.05)
+CFD_RTOL_P = 1e-6           # pressure CG, as every float32 solve here
 # Plain SpMV calls made on a card tensor (the kernel wrappers route card
 # tensors to their kernels, so this must stay empty).
 PLAIN_ON_CARD = collections.Counter()
+# Launches by kernel, dtype and shape of each labelled counted path.
+SOLVE_SHAPES = {}
 
 
 def _phase(name, **fields):
@@ -326,15 +391,97 @@ def _time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def _timed_pairs(plain, kernel, reps=200):
-    """Mean ms of (plain, kernel, kernel, plain) runs, and each run."""
-    run = {"plain": plain, "kernel": kernel}
+def _timed_pairs(plain, kernel, library, reps=200):
+    """Mean ms of (plain, kernel, library, kernel, plain) runs, and each
+    run."""
+    run = {"plain": plain, "kernel": kernel, "library": library}
     for fn in run.values():
         _time_ms(fn, 10)
     times = {k: [] for k in run}
-    for k in ("plain", "kernel", "kernel", "plain"):
+    for k in ("plain", "kernel", "library", "kernel", "plain"):
         times[k].append(_time_ms(run[k], reps))
     return {k: float(np.mean(v)) for k, v in times.items()}, times
+
+
+def _device_ms(fn, reps=100, sleep_cycles=200_000_000):
+    """Device ms per call with the host's cost per call hidden: a sleep
+    kernel holds the stream while the host queues `reps` calls, which then
+    run back to back.  Also returns whether the queueing ended before the
+    sleep did (else host time leaks into the figure)."""
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    events[0].record()
+    torch.cuda._sleep(sleep_cycles)
+    events[1].record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    queued_ms = 1e3 * (time.perf_counter() - t0)
+    events[2].record()
+    events[2].synchronize()
+    slept_ms = events[0].elapsed_time(events[1])
+    return events[1].elapsed_time(events[2]) / reps, queued_ms < slept_ms
+
+
+def _timed_device(plain, kernel, library):
+    """_device_ms of each, in the order plain, kernel, library, kernel,
+    plain: means, and for each whether all its runs hid the host."""
+    run = {"plain": plain, "kernel": kernel, "library": library}
+    times = {k: [] for k in run}
+    hidden = {k: True for k in run}
+    for k in ("plain", "kernel", "library", "kernel", "plain"):
+        ms, ok = _device_ms(run[k])
+        times[k].append(ms)
+        hidden[k] = hidden[k] and ok
+    return {k: float(np.mean(v)) for k, v in times.items()}, hidden
+
+
+def _csr_library(A):
+    """torch.sparse_csr_tensor of a DIA (its nonzero in-range entries) or
+    ELL (its non-sentinel slots) matrix, int32 indices: its product with x
+    is one cuSPARSE SpMV.  Returns (csr, nnz)."""
+    dev = A.vals.device
+    if isinstance(A, DIAMatrix):
+        N = A.n_rows
+        rows = torch.arange(N, device=dev)
+        offs = torch.tensor(A.offsets, dtype=torch.int64, device=dev)
+        cols = rows[:, None] + offs[None, :]
+        vals = A.vals.t()
+        keep = (cols >= 0) & (cols < N) & (vals != 0)
+        n_cols = N
+    else:
+        cols, vals = A.cols.to(torch.int64), A.vals
+        keep = cols < A.n_cols
+        n_cols = A.n_cols
+    counts = keep.sum(1)
+    crow = torch.zeros(A.n_rows + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum(counts, 0)
+    csr = torch.sparse_csr_tensor(crow.to(torch.int32),
+                                  cols[keep].to(torch.int32), vals[keep],
+                                  size=(A.n_rows, n_cols))
+    return csr, int(crow[-1])
+
+
+def _spmv_work(A, nnz):
+    """(bytes, flops) that y = A x needs with this matrix's entries: each
+    nonzero's value (and, for ELL, its int32 column) read once, x read
+    once, y written once (DIA: its int32 offsets, no column per entry);
+    2 flops per nonzero.  Padding a layout adds (DIA's out-of-band slots,
+    ELL's sentinel slots) is work the data does not need, so it is not
+    counted."""
+    size = A.vals.element_size()
+    if isinstance(A, DIAMatrix):
+        return nnz * size + 2 * A.n_rows * size + 4 * len(A.offsets), \
+            2 * nnz
+    return nnz * (4 + size) + (A.n_cols + A.n_rows) * size, 2 * nnz
+
+
+def _bound(A, nnz, peak_gbps):
+    """(bound ms, 'bytes' or 'operations', bytes) of one y = A x."""
+    nbytes, flops = _spmv_work(A, nnz)
+    t_bytes = nbytes / (peak_gbps * 1e9) * 1e3
+    t_ops = flops / PEAK_FLOPS[A.vals.dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes
 
 
 def _check_solve(label, res, u_exact):
@@ -441,14 +588,19 @@ def _kernel_errors(label, A, errs, rng):
                f"{name} {label} {dtype}: rel err {rel_err}")
 
 
-def _counted(fn, counted):
+def _counted(fn, counted, label=None):
     """Run one path with every launch count set to 0 just before it and
-    read just after; add the counts to `counted`."""
+    read just after; add the counts to `counted`.  With a label, the
+    path's launches by kernel, dtype and shape go to SOLVE_SHAPES[label]."""
+    shapes = collections.Counter()
     _reset_launches()
-    out = fn()
+    with _shapes_recorded(shapes):
+        out = fn()
     launches = _launches()
     for k, v in launches.items():
         counted[k] += v
+    if label is not None:
+        SOLVE_SHAPES[label] = shapes
     return out, launches
 
 
@@ -478,10 +630,10 @@ def _elasticity3d(dev, counted, errs, rng):
     _kernel_errors("elasticity3d n=48 as ELL", A_ell, errs, rng)
     res = {}
     for dtype in (torch.float32, torch.float64):
+        label = f"elasticity3d {dtype}"
         r, launches = _counted(lambda: solve_elasticity(
             mesh, dbc, E_EL, NU_EL, bforce=(0.1, 0.0, 0.0), device=dev,
-            dtype=dtype, rtol=1e-6), counted)
-        label = f"elasticity3d {dtype}"
+            dtype=dtype, rtol=1e-6), counted, label)
         _check_elastic(label, r, launches, "dia_spmv")
         jax_iters = EL3D_JAX_ITERS[dtype]
         _phase("elasticity3d", n=n, dtype=str(dtype), elements=mesh.n_elem,
@@ -529,7 +681,7 @@ def _elasticity2d(dev, counted, errs, rng):
            f"2D DIA is {A_dia.n_rows} rows x {len(A_dia.offsets)}")
     r_dia, l_dia = _counted(lambda: solve_elasticity(
         mesh, dbc, E_EL, NU_EL, force_bc=fbc, device=dev, dtype=dtype,
-        rtol=1e-6), counted)
+        rtol=1e-6), counted, "elasticity2d dia f64")
     _check_elastic("elasticity2d dia", r_dia, l_dia, "dia_spmv")
     _phase("elasticity2d", path="dia", cells=[nx, ny], nodes=mesh.n_node,
            elements=mesh.n_elem, dofs=int(r_dia.u_reduced.numel()),
@@ -545,7 +697,8 @@ def _elasticity2d(dev, counted, errs, rng):
     _kernel_errors("elasticity2d renumbered, ordered", A_ell, errs, rng)
     r_ell, l_ell = _counted(lambda: solve_implicit(
         pmesh, 2, pdbc, _elastic_fn("tria3", D), force_bc=pfbc, device=dev,
-        dtype=dtype, rtol=1e-6, recover=False), counted)
+        dtype=dtype, rtol=1e-6, recover=False), counted,
+        "elasticity2d ell f64")
     _check_elastic("elasticity2d ell", r_ell, l_ell, "ell_spmv")
     u_back = r_ell.u_full.reshape(-1, 2)[perm].reshape(-1)
     rel = float(np.abs(u_back - r_dia.u_full).max()
@@ -712,6 +865,35 @@ def _per_iter(r, launches):
                 time_to_solution_s=_stage_seconds(r))
 
 
+@contextlib.contextmanager
+def _shapes_recorded(into):
+    """Count the kernels' launches by shape into the Counter `into` while
+    the block runs, keyed as _shape_key keys a matrix.  Each launch still
+    counts in its kernel's own total, once."""
+    for name, k in KERNELS.items():
+        def launch(entry, *args, name=name, inner=k.launch):
+            # dia: (vals, offsets, D, n, ...); ell: (vals, cols, n, K,
+            # n_cols, ...); the entry's suffix is the dtype
+            key = ((entry, int(args[3]), int(args[2])) if name == "dia_spmv"
+                   else (entry, int(args[2]), int(args[4]), int(args[3])))
+            into[key] += 1
+            return inner(entry, *args)
+        k.launch = launch
+    try:
+        yield into
+    finally:
+        for k in KERNELS.values():
+            del k.launch
+
+
+def _shape_key(A):
+    """The launch key of one product with A (see _shapes_recorded)."""
+    suffix = {torch.float32: "f32", torch.float64: "f64"}[A.vals.dtype]
+    if isinstance(A, DIAMatrix):
+        return (f"dia_spmv_{suffix}", A.n_rows, len(A.offsets))
+    return (f"ell_spmv_{suffix}", A.n_rows, A.n_cols, A.k)
+
+
 def _check_pc(label, r, launches, on):
     _check(r.timings.get("precond_used") == r.timings.get(
         "precond_requested"), f"{label}: precond {r.timings}")
@@ -740,7 +922,7 @@ def _mg(dev, counted):
                                 precond="mg")
     sparse_ops.dia_spmv = recorded
     try:
-        r, launches = _counted(run, counted)
+        r, launches = _counted(run, counted, "box_tet n=96 full f32 mg")
     finally:
         sparse_ops.dia_spmv = launch
     # a second run times the cycle once its kernels are loaded
@@ -773,7 +955,7 @@ def _cheby_ic0(dev, counted, jacobi):
         amg_device.route_calls.clear()
         r, launches = _counted(lambda: solve_poisson(
             mesh, dbc, device=dev, dtype=torch.float32, rtol=1e-6,
-            precond=pc), counted)
+            precond=pc), counted, f"box_tet n=96 f32 {pc}")
         nodal_err = float(np.abs(r.u_full - (mesh.coords ** 2).sum(1)).max())
         _phase(pc, n=n, iters=r.stats.iters, relres=r.stats.relres,
                jacobi_iters=jacobi.stats.iters, jax_cpu_f64_iters=jax_iters,
@@ -804,7 +986,8 @@ def _amg(dev, counted):
         amg_device.route_calls.clear()
         r, launches = _counted(lambda: solve_implicit(
             pmesh, 1, pdbc, _poisson_fn, device=dev, dtype=torch.float32,
-            rtol=1e-6, recover=False, precond=pc), counted)
+            rtol=1e-6, recover=False, precond=pc), counted,
+            f"renumbered n=96 rng(2) f32 {pc}")
         routes = dict(amg_device.route_calls)
         nodal_err = float(np.abs(r.u_full - u_exact).max())
         _phase("amg", precond=pc, iters=r.stats.iters,
@@ -814,9 +997,15 @@ def _amg(dev, counted):
                **_per_iter(r, launches), **r.timings)
         _check(r.stats.converged and r.stats.relres <= 1e-6
                and nodal_err <= NODAL_ERR_MAX, f"amg phase {pc}: {r.stats}")
-        _check(launches["ell_spmv"] >= r.stats.iters and not PLAIN_ON_CARD,
-               f"amg phase {pc}: launches {launches}")
+        # the float32 fine operator is the hybrid: lex order, 15 dense
+        # diagonals, no remainder, so B1 carries every fine-level product
+        _check(launches["dia_spmv"] >= r.stats.iters + 1
+               and r.timings.get("hybrid_diagonals") == 15
+               and r.timings.get("hybrid_nnz_rem") == 0 and not PLAIN_ON_CARD,
+               f"amg phase {pc}: launches {launches}, {r.timings}")
         out[pc] = (r, launches, routes)
+    _check(out["jacobi"][1]["ell_spmv"] == 0,
+           f"amg phase jacobi: B2 launched {out['jacobi'][1]}")
     r, launches, routes = out["amg"]
     _check_pc("amg", r, launches, "ell_spmv")
     _check(r.stats.iters <= AMG_ITERS_MAX,
@@ -838,7 +1027,7 @@ def _elasticity_mg(dev, counted, el3):
     r, launches = _counted(lambda: solve_elasticity(
         mesh, dbc, E_EL, NU_EL, bforce=(0.1, 0.0, 0.0), device=dev,
         dtype=torch.float32, rtol=1e-6, bc_mode="full", precond="mg"),
-        counted)
+        counted, "elasticity3d full f32 mg")
     u64 = el3[torch.float64].u_full
     rel = float(np.abs(r.u_full - u64).max() / np.abs(u64).max())
     bar = EL_MG_FRACTION * el3[torch.float32].stats.iters
@@ -869,7 +1058,8 @@ def _large(dev, counted):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         r, launches = _counted(lambda: solve_poisson(mesh, dbc, device=dev,
-                                                     **kw), counted)
+                                                     **kw), counted,
+                               f"box_tet n=200 {label}")
         peak = torch.cuda.max_memory_allocated()
         nodal_err = float(np.abs(r.u_full - u_exact).max())
         _phase("large", run=label, n=n, elements=mesh.n_elem,
@@ -890,7 +1080,7 @@ def _large(dev, counted):
     _check(r64.stats.relres <= LARGE_RELRES
            and float(np.abs(r64.u_full - u_exact).max()) <= LARGE_NODAL_ERR,
            f"large refined: relres {r64.stats.relres}")
-    return out
+    return out, mesh, dbc
 
 
 def _csr_of_ell(A: ELLMatrix):
@@ -915,10 +1105,11 @@ def _preconditioner_blocks(dev, errs, rng, A_ord):
     indptr, indices, vals = _csr_of_ell(A_ord)
     n = A_ord.n_rows
     arrs, meta = build_samg(indptr, indices, vals, n, ndof=1,
-                            dtype=torch.float32)
+                            dtype=torch.float32, device="cpu")
     amg_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    ic0 = build_ic0_from_csr(indptr, indices, vals, n, dtype=torch.float32)
+    ic0 = build_ic0_from_csr(indptr, indices, vals, n, dtype=torch.float32,
+                             device="cpu")
     ic0_s = time.perf_counter() - t0
     blocks = {"amg P0": _to(arrs.p0[0], dev), "amg P0^T": _to(arrs.p0t[0], dev),
               "ic0 T": _to(ic0.t, dev)}
@@ -979,6 +1170,304 @@ def _cli_preconditioners(dev):
                    f"CLI poisson {extra}: {proc.stdout}{proc.stderr}")
 
 
+def _pattern_native():
+    """Phase 18, first part: the host library's ELL pattern builder against
+    the numpy builder on the renumbered n=32 box, every array bit for bit."""
+    mesh, dbc = _permuted_box(32)
+    dm = build_dofmap(mesh, 1, dbc)
+    t0 = time.perf_counter()
+    a = pattern_mod.build_pattern(dm.elem_dof, dm.total_dof, layout="ell")
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b = pattern_mod._ell_pattern_numpy(dm.elem_dof, dm.total_dof, 8,
+                                       a.rhs_dest)
+    numpy_s = time.perf_counter() - t0
+    fields = ("indptr", "indices", "ell_cols", "mat_perm", "mat_segids")
+    same = all(np.array_equal(getattr(a, f), getattr(b, f))
+               and getattr(a, f).dtype == getattr(b, f).dtype
+               for f in fields) \
+        and (a.ell_k, a.nnz, a.mat_nsegs) == (b.ell_k, b.nnz, b.mat_nsegs)
+    _phase("pattern_native", case="renumbered box_tet n=32", rows=dm.total_dof,
+           nnz=a.nnz, k=a.ell_k, entries=len(a.mat_perm),
+           bit_identical_to_numpy=same, native_s=native_s, numpy_s=numpy_s)
+    _check(same, "the native ELL pattern differs from the numpy builder")
+
+
+def _delaunay_f32(dev, counted, errs, rng):
+    """Phase 19: the scrambled Delaunay mesh at 205,379 rows in float32:
+    the hybrid has dense diagonals and a remainder, so the solve launches
+    B1 and B2; the hybrid against the plain ELL product of the same ordered
+    system, and each part against its plain version."""
+    t0 = time.perf_counter()
+    md, dd = _scrambled_delaunay(N_DELAUNAY_F32)
+    mesh_s = time.perf_counter() - t0
+    r, launches = _counted(lambda: solve_poisson(
+        md, dd, device=dev, dtype=torch.float32, rtol=1e-6), counted,
+        f"Delaunay n={N_DELAUNAY_F32} f32 hybrid")
+    t = r.timings
+    nodal_err = float(np.abs(r.u_full - (md.coords ** 2).sum(1)).max())
+    _phase("hybrid", case=f"scrambled Delaunay n={N_DELAUNAY_F32} f32 Jacobi",
+           nodes=md.n_node, elements=md.n_elem,
+           rows=int(r.u_reduced.numel()), iters=r.stats.iters,
+           relres=r.stats.relres, nodal_err=nodal_err, launches=launches,
+           mesh_s=mesh_s, **_per_iter(r, launches), **t)
+    _check(r.stats.converged and r.stats.relres <= 1e-6
+           and bool(np.isfinite(r.u_full).all()), f"delaunay f32: {r.stats}")
+    _check(r.u_reduced.numel() >= 200_000 and t.get("hybrid_diagonals", 0) > 0
+           and t.get("hybrid_nnz_rem", 0) > 0
+           and launches["dia_spmv"] == r.stats.iters + 1
+           and launches["ell_spmv"] == r.stats.iters + 1,
+           f"delaunay f32 did not run both parts: {launches} {t}")
+
+    # the same system: ordered ELL, its hybrid split, their products
+    dofmap = build_dofmap(md, 1, dd)
+    assemble = build_reduced_assembler(md, 1, dofmap, _poisson_fn,
+                                       torch.float32, dev)
+    A0, b0 = assemble(torch.as_tensor(to_element_minor(md.elem_coords()),
+                                      dtype=torch.float32, device=dev))
+    ordering = build_ell_ordering(assemble.pattern,
+                                  md.coords[dofmap.assy_for_soln],
+                                  dofmap.assy_for_soln % 1, dev, hybrid=True)
+    A_ord, _ = ordering.system(A0, b0)
+    H = ordering.hybrid.pack(A0.vals)
+    x = torch.as_tensor(rng.standard_normal(A_ord.n_rows),
+                        dtype=torch.float32, device=dev)
+    abs_err, rel_err = _errors(hybrid.apply_hybrid(H, x), spmv_ell(A_ord, x))
+    errs[("hybrid", "delaunay f32", torch.float32)] = abs_err
+    _phase("kernel", kernel="hybrid (B1 + B2)", case=f"scrambled Delaunay "
+           f"n={N_DELAUNAY_F32} in its solve's row order", rows=A_ord.n_rows,
+           diagonals=len(H.dia.offsets), k_rem=H.rem.k, k=A_ord.k,
+           ordering=ordering.name, max_abs_err=abs_err, max_rel_err=rel_err,
+           bound=REL_ERR_MAX[torch.float32])
+    _check(rel_err <= REL_ERR_MAX[torch.float32],
+           f"hybrid vs plain ELL: rel err {rel_err}")
+    _kernel_errors("delaunay hybrid dense diagonals", H.dia, errs, rng)
+    _kernel_errors("delaunay hybrid remainder", H.rem, errs, rng)
+    return r, launches, {"delaunay hybrid B1 part": H.dia,
+                         "delaunay hybrid B2 part": H.rem,
+                         "delaunay ordered ELL": A_ord}
+
+
+def _matfree(dev, counted, mesh, dbc, assembled):
+    """Phase 20: solve_poisson(matrix_free=True) in float32: iterations,
+    nodal error, ms per iteration and peak device memory; the assembled
+    Jacobi solve of the same mesh (B1) beside it."""
+    n = mesh.structure["nex"]
+    iters, slack, nodal_bar = MATFREE_BARS[n]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    r, launches = _counted(lambda: solve_poisson(
+        mesh, dbc, device=dev, dtype=torch.float32, rtol=1e-6,
+        matrix_free=True), counted)
+    peak = torch.cuda.max_memory_allocated()
+    nodal_err = float(np.abs(r.u_full - (mesh.coords ** 2).sum(1)).max())
+    diff = float(np.abs(r.u_full - assembled.u_full).max())
+    _phase("matfree", n=n, elements=mesh.n_elem, iters=r.stats.iters,
+           relres=r.stats.relres, nodal_err=nodal_err, nodal_bar=nodal_bar,
+           assembled_iters=assembled.stats.iters,
+           assembled_ms_per_iter=1e3 * assembled.timings["solve_s"]
+           / assembled.stats.iters, u_vs_assembled=diff,
+           peak_device_bytes=peak, launches=launches,
+           **_per_iter(r, launches), **r.timings)
+    _check(r.stats.converged and r.stats.relres <= 1e-6
+           and bool(np.isfinite(r.u_full).all())
+           and abs(r.stats.iters - iters) <= slack,
+           f"matfree n={n}: {r.stats}, not {iters} +- {slack}")
+    _check(nodal_bar is None or nodal_err <= nodal_bar,
+           f"matfree n={n}: nodal error {nodal_err}")
+    _check(sum(launches.values()) == 0 and not PLAIN_ON_CARD,
+           f"matfree n={n}: SpMV launches {launches}")
+    return r
+
+
+def _highprec(dev, counted, mesh, dbc):
+    """Phase 21: solve_box_poisson_1e8 (float64 full system on the card,
+    MG-preconditioned float32 inner CG, float64 outer residual on B1); the
+    rows and dtype of every B1 launch are recorded."""
+    n = mesh.structure["nex"]
+    rows = collections.Counter()
+    launch = sparse_ops.dia_spmv
+
+    def recorded(A, x, offsets):
+        rows[(A.n_rows, str(x.dtype)[6:])] += 1
+        return launch(A, x, offsets)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sparse_ops.dia_spmv = recorded
+    try:
+        (u, st, timings), launches = _counted(
+            lambda: solve_box_poisson_1e8(mesh, dbc, device=dev), counted,
+            f"box_tet n={n} solve_box_poisson_1e8")
+    finally:
+        sparse_ops.dia_spmv = launch
+    peak = torch.cuda.max_memory_allocated()
+    nodal_err = float(np.abs(u - (mesh.coords ** 2).sum(1)).max())
+    levels = timings["mg_levels"]
+    _phase("highprec", n=n, elements=mesh.n_elem, dofs=mesh.n_node,
+           outer_iters=st.outer_iters, inner_iters=st.total_inner_iters,
+           jax_48m_outer_inner=JAX_48M_OUTER_INNER,
+           relres_true_f64=st.relres, converged=st.converged,
+           nodal_err=nodal_err, nodal_bar=HIGHPREC_NODAL[n],
+           b1_launches_by_rows_and_dtype={f"{k[0]} {k[1]}": v for k, v in
+                                          sorted(rows.items())},
+           peak_device_bytes=peak, launches=launches, **timings)
+    _check(st.converged and st.relres <= 1e-8
+           and st.outer_iters <= HIGHPREC_MAX_OUTER, f"highprec n={n}: {st}")
+    _check(nodal_err <= HIGHPREC_NODAL[n],
+           f"highprec n={n}: nodal error {nodal_err}")
+    # B1 in float32 on every smoothing level (the coarsest too when it is
+    # above the dense-inverse cap, 4096 rows, and smoothed by Chebyshev),
+    # in float64 on the outer residual (once per outer iteration and once
+    # before the first)
+    smoothed = levels if levels[-1] > 4096 else levels[:-1]
+    _check(all(rows[(m, "float32")] > 0 for m in smoothed)
+           and rows[(levels[0], "float64")] == st.outer_iters + 1
+           and launches["ell_spmv"] == 0 and not PLAIN_ON_CARD,
+           f"highprec n={n}: B1 launches {dict(rows)}, {launches}")
+    return st, timings
+
+
+def _cavity_bcs(mesh, lid=1.0):
+    """Lid-driven cavity on [0,1]^2: u = (lid, 0) on y = 1 (its corners
+    0), no slip on the other walls."""
+    x, y = mesh.coords[:, 0], mesh.coords[:, 1]
+    wall = np.isclose(x, 0) | np.isclose(x, 1) | np.isclose(y, 0)
+    top = np.isclose(y, 1) & ~wall
+    nodes = np.nonzero(wall | top)[0]
+    vals = np.stack([np.where(top[nodes], lid, 0.0), np.zeros(len(nodes))], 1)
+    return np.stack([np.repeat(nodes, 2), np.tile([0, 1], len(nodes)),
+                     vals.reshape(-1)], 1).astype(np.float64)
+
+
+def _free_slip_bcs(mesh):
+    """u_d = 0 on the two faces normal to axis d, for every d."""
+    X = mesh.coords
+    rows = []
+    for d in range(mesh.ndim):
+        for v in (X[:, d].min(), X[:, d].max()):
+            nodes = np.nonzero(np.isclose(X[:, d], v))[0]
+            rows.append(np.stack([nodes, np.full(len(nodes), d),
+                                  np.zeros(len(nodes))], 1))
+    return np.concatenate(rows).astype(np.float64)
+
+
+def _cfd(dev, counted):
+    """Phase 22: fractional_step_ns on the card in float32: the 2D
+    lid-driven cavity and the 3D Taylor-Green vortex on lattice numbering
+    (pressure CG on B1), a renumbered cavity (B2)."""
+    def run(label, mesh, bcs, nu, dt, steps, **kw):
+        t0 = time.perf_counter()
+        r, launches = _counted(lambda: fractional_step_ns(
+            mesh, bcs, nu_visc=nu, dt=dt, nsteps=steps, rtol_p=CFD_RTOL_P,
+            dtype=torch.float32, device=dev, **kw), counted, f"cfd {label}")
+        secs = time.perf_counter() - t0
+        cg = int(r.cg_iters.sum())
+        fields = dict(case=label, nodes=mesh.n_node, elements=mesh.n_elem,
+                      nu=nu, dt=dt, steps=steps, rtol_p=CFD_RTOL_P,
+                      seconds=secs,
+                      ms_per_step=1e3 * secs / steps,
+                      cg_iters_per_step=cg / steps,
+                      cg_iters_first_last=[int(r.cg_iters[0]),
+                                           int(r.cg_iters[-1])],
+                      launches=launches,
+                      launches_per_step={k: v / steps
+                                         for k, v in launches.items()},
+                      div_first=float(r.div_history[0]),
+                      div_last=float(r.div_history[-1]))
+        _check(bool(np.isfinite(r.velocity).all()
+                    and np.isfinite(r.pressure).all()
+                    and np.isfinite(r.div_history).all()),
+               f"cfd {label}: non-finite state")
+        # one CG per step, each iters + 1 products
+        on = "ell_spmv" if "renumbered" in label else "dia_spmv"
+        off = "dia_spmv" if on == "ell_spmv" else "ell_spmv"
+        _check(launches[on] == cg + steps and launches[off] == 0
+               and not PLAIN_ON_CARD,
+               f"cfd {label}: launches {launches}, {cg} CG iterations")
+        return r, fields
+
+    nx, steps, dt, nu = CFD_CAVITY
+    mesh = generate.rect_tria(0, 1, nx, 0, 1, nx)
+    dt_bound = (1.0 / nx) ** 2 / (4 * nu)
+    r, fields = run(f"lid-driven cavity rect_tria {nx}x{nx}", mesh,
+                    _cavity_bcs(mesh), nu, dt, steps)
+    speed = float(np.linalg.norm(r.velocity, axis=1).max())
+    d = r.div_history
+    _phase("cfd", dt_viscous_bound=dt_bound, max_speed=speed, **fields)
+    _check(dt <= dt_bound and speed <= 1.5 and d[-1] <= 1.5 * d[0],
+           f"cfd cavity: speed {speed}, div {d[0]} -> {d[-1]}")
+    out = {"cavity": fields}
+
+    nx3, steps3, dt3, nu3 = CFD_TG3D
+    mesh3, _ = generate.box_tet(0, np.pi, nx3, 0, np.pi, nx3,
+                                0, np.pi / 2, nx3 // 2)
+    x, y = mesh3.coords[:, 0], mesh3.coords[:, 1]
+    u0 = np.stack([np.sin(x) * np.cos(y), -np.cos(x) * np.sin(y),
+                   np.zeros_like(x)], axis=1)
+    r3, fields = run(f"Taylor-Green box_tet {nx3}x{nx3}x{nx3 // 2}", mesh3,
+                     _free_slip_bcs(mesh3), nu3, dt3, steps3, u0=u0)
+    ratio = float((r3.velocity ** 2).sum() / (u0 ** 2).sum())
+    expect = float(np.exp(-4 * nu3 * steps3 * dt3))
+    w_max = float(np.abs(r3.velocity[:, 2]).max())
+    _phase("cfd", energy_ratio=ratio, exp_minus_4_nu_t=expect, w_max=w_max,
+           **fields)
+    _check(0.7 * expect < ratio < 1.3 * expect and w_max < 0.05,
+           f"cfd Taylor-Green energy ratio {ratio}, expected {expect}, "
+           f"w_max {w_max}")
+    out["taylor_green"] = fields
+
+    nr, steps_r, dt_r, nu_r = CFD_RENUMBERED
+    cm = generate.rect_tria(0, 1, nr, 0, 1, nr)
+    _, (pm, pbc) = _renumber(cm, _cavity_bcs(cm), seed=3)
+    rr, fields = run(f"renumbered cavity rect_tria {nr}x{nr}", pm, pbc, nu_r,
+                     dt_r, steps_r)
+    _phase("cfd", **fields)
+    out["renumbered"] = fields
+    return out
+
+
+def _cli_ported(dev):
+    """Phase 23: partition (rcb, greedy), poisson --matrix-free and cfd on a
+    renumbered cavity's .dat files (pressure on B2), as subprocesses."""
+    def run(label, *argv):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "pfemfort_tpu_torch",
+                               *argv], cwd=ROOT, capture_output=True,
+                              text=True, timeout=600)
+        out = proc.stdout.strip().splitlines()
+        _phase("cli", subcommand=label, seconds=time.perf_counter() - t0,
+               exit=proc.returncode, output=out)
+        _check(proc.returncode == 0,
+               f"CLI {label}: {proc.stdout}{proc.stderr}")
+        return proc.stdout
+
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = str(Path(tmp) / "box")
+        run("genmesh", "genmesh", "tet", "0", "1", "32", "0", "1", "32", "0",
+            "1", "32", "-o", prefix)
+        files = [prefix + s for s in ("-nodes.dat", "-elems.dat",
+                                      "-DirichBC.dat")]
+        for method in ("rcb", "greedy"):
+            out = run(f"partition --method {method}", "partition",
+                      *files[:2], "--nparts", "8", "--method", method,
+                      "-o", str(Path(tmp) / f"{method}.vtk"))
+            _check("into 8 parts" in out, f"CLI partition {method}: {out}")
+        out = run("poisson --matrix-free", "poisson", *files,
+                  "--device", dev.type, "--matrix-free")
+        _check("Convergence in" in out, f"CLI matrix-free: {out}")
+        cm = generate.rect_tria(0, 1, 64, 0, 1, 64)
+        _, (pm, pbc) = _renumber(cm, _cavity_bcs(cm), seed=4)
+        cav = str(Path(tmp) / "cavity")
+        mesh_io.write_dat(cav, pm, dirichlet=pbc)
+        out = run("cfd (renumbered cavity)", "cfd", cav + "-nodes.dat",
+                  cav + "-elems.dat", cav + "-DirichBC.dat", "--nsteps",
+                  "50", "--dt", "1e-3", "--device", dev.type,
+                  "-o", str(Path(tmp) / "cfd.vtk"))
+        _check("50 steps in" in out and "max|div u|" in out,
+               f"CLI cfd: {out}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -997,20 +1486,22 @@ def main():
     _phase("device", kind=kind, count=torch.cuda.device_count(),
            nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
-    # 2. build: one nvcc per source, started together
-    def build(kern):
+    # 2. build: one compiler process per source (nvcc for the kernels, the
+    # host C++ compiler for the host library), started together
+    def build(lib):
         t0 = time.perf_counter()
-        kern.build()
+        lib.build()
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        builds = {name: pool.submit(build, k) for name, k in KERNELS.items()}
+    libs = dict(KERNELS, host_native=host_native.library)
+    with ThreadPoolExecutor(len(libs)) as pool:
+        builds = {name: pool.submit(build, k) for name, k in libs.items()}
         for name, fut in builds.items():
             seconds = fut.result()
-            KERNELS[name].lib()
-            _phase("build", kernel=name,
-                   library=KERNELS[name].library_path().name,
-                   seconds=seconds)
+            libs[name].lib()
+            _phase("build", **{"kernel" if name in KERNELS else "host": name},
+                   library=libs[name].library_path().name, seconds=seconds)
+    _pattern_native()
 
     # 3. kernels vs plain
     errs = {}
@@ -1092,9 +1583,10 @@ def main():
     n = N_FLAGSHIP
     mesh, dbc = generate.box_tet(0, 1, n, 0, 1, n, 0, 1, n)
     u_exact = (mesh.coords ** 2).sum(axis=1)
-    _reset_launches()
-    res = solve_poisson(mesh, dbc, device=dev, dtype=torch.float32, rtol=1e-6)
-    launches_dia = _launches()
+    counted = collections.Counter()
+    res, launches_dia = _counted(lambda: solve_poisson(
+        mesh, dbc, device=dev, dtype=torch.float32, rtol=1e-6), counted,
+        "box_tet n=96 f32 jacobi")
     nodal_err = _check_solve("solve", res, u_exact)
     st = res.stats
     _phase("solve", n=n, elements=mesh.n_elem, dofs=int(res.u_reduced.numel()),
@@ -1106,12 +1598,12 @@ def main():
            f"lattice solve launches {launches_dia} vs {st.iters} iters")
     solve_dia = res
 
-    # 5. the ELL path, counted
+    # 5. the ELL path, counted: float32, so the hybrid operator, which in
+    # lex order is the 15 lattice diagonals on B1 and no remainder
     pmesh, pdbc = _permuted_box(N_FLAGSHIP)
-    _reset_launches()
-    res = solve_implicit(pmesh, 1, pdbc, _poisson_fn, device=dev,
-                         dtype=torch.float32, rtol=1e-6, recover=False)
-    launches_ell = _launches()
+    res, launches_ell = _counted(lambda: solve_implicit(
+        pmesh, 1, pdbc, _poisson_fn, device=dev, dtype=torch.float32,
+        rtol=1e-6, recover=False), counted, "renumbered n=96 f32 jacobi")
     nodal_err = _check_solve("solve_ell", res, (pmesh.coords ** 2).sum(1))
     st = res.stats
     (A1, b1), (A2, b2) = (ordering.system(*assemble(coords))
@@ -1122,10 +1614,18 @@ def main():
            dofs=int(res.u_reduced.numel()), iters=st.iters,
            relres=st.relres, converged=st.converged, nodal_err=nodal_err,
            launches=launches_ell, assembly_bit_identical=repeat,
-           **res.timings)
+           pr4_pattern_s=PR4_PATTERN_S[0], **res.timings)
+    _phase("hybrid", case="renumbered box_tet n=96 f32 Jacobi",
+           iters=st.iters, launches=launches_ell,
+           **{k: v for k, v in res.timings.items()
+              if k.startswith("hybrid_") or k == "ordering"})
     _check("order_s" in res.timings, "solve_ell did not take the ELL path")
-    _check(launches_ell["ell_spmv"] >= st.iters and
-           launches_ell["dia_spmv"] == 0,
+    _check(res.timings.get("ordering") == "lex"
+           and res.timings.get("hybrid_diagonals") == 15
+           and res.timings.get("hybrid_nnz_rem") == 0,
+           f"solve_ell: the hybrid is not the lattice stencil {res.timings}")
+    _check(launches_ell["dia_spmv"] == st.iters + 1 and
+           launches_ell["ell_spmv"] == 0,
            f"ELL solve launches {launches_ell} vs {st.iters} iters")
     _check(repeat, "ELL assembly on the card is not bit-for-bit repeatable")
     solve_ell = res
@@ -1136,10 +1636,9 @@ def main():
     lattice = solve_poisson(lm, ld, device=dev, dtype=torch.float32,
                             rtol=1e-6)
     rmesh, rdbc = _permuted_box(nr)
-    _reset_launches()
-    res = solve_poisson(rmesh, rdbc, device=dev, dtype=torch.float32,
-                        rtol=1e-6)
-    launches_rec = _launches()
+    res, launches_rec = _counted(lambda: solve_poisson(
+        rmesh, rdbc, device=dev, dtype=torch.float32, rtol=1e-6), counted,
+        "recovered n=48 f32 jacobi")
     st = res.stats
     nodal_err = float(np.abs(res.u_full - (rmesh.coords ** 2).sum(1)).max())
     _phase("solve_recovered", n=nr, iters=st.iters, relres=st.relres,
@@ -1154,8 +1653,6 @@ def main():
            launches_rec["ell_spmv"] == 0,
            f"recovered solve launches {launches_rec} vs {st.iters} iters")
     _check(nodal_err <= NODAL_ERR_MAX, f"recovered nodal error {nodal_err}")
-    counted = {name: launches_dia[name] + launches_ell[name]
-               + launches_rec[name] for name in KERNELS}
     _guard_plain_spmv()
 
     # 7.-10. elasticity, explicit dynamics and the command line
@@ -1165,7 +1662,7 @@ def main():
     _explicit(dev)
     _cli(dev)
 
-    # 11.-17. preconditioners, the full system, refinement at 48M elements
+    # 11.-14. preconditioners and the full system
     pc_runs = {"mg": _mg(dev, counted)}
     for pc, (r, _) in _cheby_ic0(dev, counted, solve_dia).items():
         pc_runs[pc] = r
@@ -1173,27 +1670,50 @@ def main():
     pc_runs["amg"], pc_runs["jacobi (amg system)"] = (
         amg_runs["amg"][0], amg_runs["jacobi"][0])
     pc_runs["elasticity_mg"] = _elasticity_mg(dev, counted, el3)[0]
-    large = _large(dev, counted)
+    _phase("pattern_native", case="renumbered box_tet n=96, the ELL solves' "
+           "host pattern build", card=smi,
+           pattern_s={"rng(0) jacobi": solve_ell.timings["pattern_s"],
+                      "rng(2) amg": amg_runs["amg"][0].timings["pattern_s"],
+                      "rng(2) jacobi":
+                      amg_runs["jacobi"][0].timings["pattern_s"]},
+           pr4_numpy_pattern_s={f"rng({k})": v
+                                for k, v in PR4_PATTERN_S.items()})
+
+    # 19.-21. the hybrid with both parts; matrix-free and the 1e-8 float64
+    # solve at n=96
+    pc_runs["delaunay f32 hybrid"], _, hybrid_blocks = _delaunay_f32(
+        dev, counted, errs, rng)
+    pc_runs["matfree n=96"] = _matfree(dev, counted, mesh, dbc, solve_dia)
+    highprec = {N_FLAGSHIP: _highprec(dev, counted, mesh, dbc)}
+
+    # 15., 20., 21. the 48M-element box: assembled, matrix-free, 1e-8
+    large, lmesh, ldbc = _large(dev, counted)
     pc_runs["large f32"], pc_runs["large refined"] = (large["f32"][0],
                                                       large["refined"][0])
-    del large
+    pc_runs["matfree n=200"] = _matfree(dev, counted, lmesh, ldbc,
+                                        large["f32"][0])
+    highprec[N_LARGE] = _highprec(dev, counted, lmesh, ldbc)
+    del large, lmesh, ldbc
     torch.cuda.empty_cache()
+
+    # 16.-17. the preconditioners' blocks, the command-line options
     blocks = _preconditioner_blocks(dev, errs, rng, A_ord)
     _cli_preconditioners(dev)
 
-    # 11. timing on the n=96 matrix: B1 in lattice order; B2 in the solve's
-    # row order, in lattice order (lex, the numbering B1 runs in) and
-    # unordered
+    # 22.-23. Navier-Stokes, the ported subcommands
+    _cfd(dev, counted)
+    _cli_ported(dev)
+
+    # 24. timing: plain, kernel and library SpMV on every B1/B2 shape: B1
+    # on the n=96 lattice system; B2 on the same matrix in the solve's row
+    # order, in lattice order (lex, the numbering B1 runs in) and
+    # unordered; the elasticity matrices (3D in float32: B1 59 diagonals,
+    # B2 the same matrix as ELL; 2D in float64, the dtype of its solves:
+    # B1 17 diagonals, B2 K = 16 renumbered in the solve's row order); the
+    # phase-16 blocks and the Delaunay hybrid's parts in float32
     peak = next((v for k, v in PEAK_GBPS.items() if k in kind),
                 PEAK_GBPS["H100"])
     N = A32.n_rows
-    x = torch.ones(N, dtype=torch.float32, device=dev)
-    offsets = torch.tensor(A32.offsets, dtype=torch.int32, device=dev)
-    ms = {}
-    runs = {}
-    ms["dia"], runs["dia"] = _timed_pairs(
-        lambda: spmv_dia(A32, x),
-        lambda: dia_spmv_cuda.dia_spmv(A32, x, offsets))
     cols, src, _ = permuted_sorted_cols(assemble.pattern.ell_cols, N, lex, N)
     A_lex = ELLMatrix(
         cols=torch.as_tensor(cols.astype(np.int32), device=dev),
@@ -1201,67 +1721,57 @@ def main():
                                                    device=dev)
                                    ].reshape(A_un.vals.shape),
         n_cols=N)
-    for label, A in (("ell_ordered", A_ord), ("ell_lex", A_lex),
-                     ("ell_unordered", A_un)):
-        ms[label], runs[label] = _timed_pairs(
-            lambda A=A: spmv_ell(A, x),
-            lambda A=A: ell_spmv_cuda.ell_spmv(A, x))
-    nbytes = {"dia": (len(A32.offsets) + 2) * N * 4,
-              "ell_ordered": (2 * A_ord.k * N + 2 * N) * 4,
-              "ell_lex": (2 * A_lex.k * N + 2 * N) * 4,
-              "ell_unordered": (2 * A_un.k * N + 2 * N) * 4}
-    # the elasticity matrices: 3D in f32 (B1 59 diagonals, B2 the same
-    # matrix as ELL in lattice order), 2D in f64, the dtype of its solves
-    # (B1 17 diagonals; B2 K = 16 on the renumbered mesh in the solve's
-    # row order)
-    for label, A in (("dia_el3d", A_el3), ("ell_el3d", A_el3_ell),
-                     ("dia_el2d", A_el2), ("ell_el2d", A_el2_ell)):
-        xe = torch.ones(A.n_rows, dtype=A.vals.dtype, device=dev)
-        size = A.vals.element_size()
-        if label.startswith("dia"):
+    mats = {"dia": A32, "ell_ordered": A_ord, "ell_lex": A_lex,
+            "ell_unordered": A_un, "dia_el3d": A_el3, "ell_el3d": A_el3_ell,
+            "dia_el2d": A_el2, "ell_el2d": A_el2_ell, **blocks,
+            **hybrid_blocks}
+    ms, device, bounds = {}, {}, {}
+    for label, A in mats.items():
+        is_dia = isinstance(A, DIAMatrix)
+        x = torch.as_tensor(rng.standard_normal(A.n_rows if is_dia
+                                                else A.n_cols),
+                            dtype=A.vals.dtype, device=dev)
+        csr, nnz = _csr_library(A)
+        if is_dia:
             off = torch.tensor(A.offsets, dtype=torch.int32, device=dev)
-            ms[label], runs[label] = _timed_pairs(
-                lambda A=A, xe=xe: spmv_dia(A, xe),
-                lambda A=A, xe=xe, off=off: dia_spmv_cuda.dia_spmv(A, xe,
-                                                                   off))
-            nbytes[label] = (len(A.offsets) + 2) * A.n_rows * size
+            plain = lambda A=A, x=x: spmv_dia(A, x)
+            kern = lambda A=A, x=x, off=off: dia_spmv_cuda.dia_spmv(A, x, off)
         else:
-            ms[label], runs[label] = _timed_pairs(
-                lambda A=A, xe=xe: spmv_ell(A, xe),
-                lambda A=A, xe=xe: ell_spmv_cuda.ell_spmv(A, xe))
-            nbytes[label] = A.n_rows * (A.k * (4 + size) + 2 * size)
-    widths = {"dia_el3d": len(A_el3.offsets), "ell_el3d": A_el3_ell.k,
-              "dia_el2d": len(A_el2.offsets), "ell_el2d": A_el2_ell.k}
-    # the phase-16 blocks, in float32 as their solves run them
-    for label, A in blocks.items():
-        xb = torch.ones(A.n_rows if isinstance(A, DIAMatrix) else A.n_cols,
-                        dtype=A.vals.dtype, device=dev)
-        size = A.vals.element_size()
-        if isinstance(A, DIAMatrix):
-            off = torch.tensor(A.offsets, dtype=torch.int32, device=dev)
-            ms[label], runs[label] = _timed_pairs(
-                lambda A=A, xb=xb: spmv_dia(A, xb),
-                lambda A=A, xb=xb, off=off: dia_spmv_cuda.dia_spmv(A, xb,
-                                                                   off))
-            nbytes[label] = (len(A.offsets) + 2) * A.n_rows * size
-            widths[label] = len(A.offsets)
-        else:
-            ms[label], runs[label] = _timed_pairs(
-                lambda A=A, xb=xb: spmv_ell(A, xb),
-                lambda A=A, xb=xb: ell_spmv_cuda.ell_spmv(A, xb))
-            nbytes[label] = (A.n_rows * (A.k * (4 + size) + size)
-                             + A.n_cols * size)
-            widths[label] = A.k
-    for label in ms:
-        gbps = {k: nbytes[label] / (v * 1e-3) / 1e9
-                for k, v in ms[label].items()}
-        _phase("timing", matrix=label, card=smi, spmv_bytes=nbytes[label],
-               width=widths.get(label),
-               kernel_ms=ms[label]["kernel"], plain_ms=ms[label]["plain"],
-               kernel_ms_runs=runs[label]["kernel"],
-               plain_ms_runs=runs[label]["plain"],
-               kernel_gbps=gbps["kernel"], plain_gbps=gbps["plain"],
-               peak_gbps=peak, kernel_peak_share=gbps["kernel"] / peak)
+            plain = lambda A=A, x=x: spmv_ell(A, x)
+            kern = lambda A=A, x=x: ell_spmv_cuda.ell_spmv(A, x)
+        lib = lambda csr=csr, x=x: csr @ x
+        _, lib_rel = _errors(lib(), kern())
+        _check(lib_rel <= REL_ERR_MAX[A.vals.dtype],
+               f"timing {label}: the library product differs by {lib_rel}")
+        ms[label], runs = _timed_pairs(plain, kern, lib)
+        device[label], hidden = _timed_device(plain, kern, lib)
+        dev_ms = device[label]
+        bound_ms, bound_by, nbytes = _bound(A, nnz, peak)
+        bounds[label] = (bound_ms, bound_by)
+        key = _shape_key(A)
+        per_solve = {path: shapes[key] for path, shapes in SOLVE_SHAPES.items()
+                     if shapes[key]}
+        _phase("timing", matrix=label, card=smi, dtype=str(A.vals.dtype)[6:],
+               rows=A.n_rows, n_cols=A.n_rows if is_dia else A.n_cols,
+               width=len(A.offsets) if is_dia else A.k, nnz=nnz,
+               spmv_bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by,
+               peak_gbps=peak, kernel_ms=ms[label]["kernel"],
+               plain_ms=ms[label]["plain"], library_ms=ms[label]["library"],
+               kernel_ms_runs=runs["kernel"], plain_ms_runs=runs["plain"],
+               library_ms_runs=runs["library"],
+               kernel_share_of_bound=bound_ms / ms[label]["kernel"],
+               kernel_over_library=ms[label]["kernel"]
+               / ms[label]["library"],
+               device_kernel_ms=dev_ms["kernel"],
+               device_plain_ms=dev_ms["plain"],
+               device_library_ms=dev_ms["library"],
+               device_host_hidden=hidden,
+               device_kernel_share_of_bound=bound_ms / dev_ms["kernel"],
+               device_kernel_over_library=dev_ms["kernel"]
+               / dev_ms["library"], library_rel_err=lib_rel,
+               kernel_gbps=nbytes / (ms[label]["kernel"] * 1e-3) / 1e9,
+               launches_per_solve=per_solve)
+        del csr
     _phase("timing", matrix="b2_over_b1",
            ordering=ordering.name,
            ordered=ms["ell_ordered"]["kernel"] / ms["dia"]["kernel"],
@@ -1282,28 +1792,34 @@ def main():
                cg_ms_per_iter=1e3 * r.timings["solve_s"]
                / max(r.stats.iters, 1),
                time_to_solution_s=_stage_seconds(r), **r.timings)
+    for n, (st, timings) in highprec.items():
+        _phase("timing", stages=f"highprec n={n}", card=smi,
+               outer_iters=st.outer_iters, inner_iters=st.total_inner_iters,
+               time_to_solution_s=sum(v for k, v in timings.items()
+                                      if k.endswith("_s")), **timings)
 
     def cases(name):
         return [{"case": case, "dtype": str(dtype)[6:], "max_abs_err": err}
                 for (kname, case, dtype), err in errs.items()
                 if kname == name]
 
+    def entry(name, source, replaces, label, err_case):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": counted[name],
+                "max_abs_err": errs[(name, err_case, torch.float32)],
+                "ms": ms[label]["kernel"], "plain_ms": ms[label]["plain"],
+                "bound_ms": bounds[label][0], "bound_by": bounds[label][1],
+                "library_ms": ms[label]["library"],
+                "device_ms": device[label]["kernel"],
+                "device_library_ms": device[label]["library"], "shape": label,
+                "cases": cases(name)}
+
     print(json.dumps({"kernels": [
-        {"name": "dia_spmv", "route": "cuda",
-         "source": "pfemfort_tpu_torch/csrc/dia_spmv.cu",
-         "replaces": "pfemfort_tpu/sparse/pallas_spmv.py:48",
-         "launches": counted["dia_spmv"],
-         "max_abs_err": errs[("dia_spmv", "flagship", torch.float32)],
-         "ms": ms["dia"]["kernel"], "plain_ms": ms["dia"]["plain"],
-         "cases": cases("dia_spmv")},
-        {"name": "ell_spmv", "route": "cuda",
-         "source": "pfemfort_tpu_torch/csrc/ell_spmv.cu",
-         "replaces": "pfemfort_tpu/sparse/slotgather.py:403",
-         "launches": counted["ell_spmv"],
-         "max_abs_err": errs[("ell_spmv", "ordered", torch.float32)],
-         "ms": ms["ell_ordered"]["kernel"],
-         "plain_ms": ms["ell_ordered"]["plain"],
-         "cases": cases("ell_spmv")}]}), flush=True)
+        entry("dia_spmv", "pfemfort_tpu_torch/csrc/dia_spmv.cu",
+              "pfemfort_tpu/sparse/pallas_spmv.py:48", "dia", "flagship"),
+        entry("ell_spmv", "pfemfort_tpu_torch/csrc/ell_spmv.cu",
+              "pfemfort_tpu/sparse/slotgather.py:403", "ell_ordered",
+              "ordered")]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

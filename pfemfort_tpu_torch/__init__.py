@@ -10,18 +10,24 @@ Ported so far: Poisson and linear elasticity on any mesh through
 `solve_poisson` and `solve_elasticity` (nodal point loads; CG, BiCGStab or
 GMRES; reduced BCs with Jacobi, Chebyshev, IC(0) or smoothed-aggregation
 AMG, or the full system with identity BC rows and Jacobi or geometric
-multigrid; float32-inner / float64-outer refinement), explicit
-central-difference dynamics through `explicit_dynamics` (with
-checkpoint/resume), VTK output, and the command line
-`python -m pfemfort_tpu_torch`.  Generated box_tet and
-rect_tria Poisson meshes take the structured slice-add assembly of the
-reduced DIA system; every other system (read with `mesh_io`, renumbered,
-unstructured, ndof > 1) takes the pattern assembly, first trying a
-geometric renumbering that recovers a DIA structure, else solving the ELL
-system in a bandwidth-reducing row order.  Every SpMV on a CUDA tensor,
-the preconditioners' own products included, is launched as a hand-written
-kernel: csrc/dia_spmv.cu for DIA, csrc/ell_spmv.cu for ELL.  The host
-set-up loops of IC(0) and SA-AMG are host C++ (csrc/host_native.cpp),
+multigrid; float32-inner / float64-outer refinement; matrix-free
+Jacobi-CG), the float64 1e-8 box solve `solve/highprec.py:
+solve_box_poisson_1e8`, incompressible Navier-Stokes
+`cfd.fractional_step_ns`, explicit central-difference dynamics through
+`explicit_dynamics` (with checkpoint/resume), mesh partitioning
+(`parallel`), VTK output, and the command line
+`python -m pfemfort_tpu_torch`.  Every entry point runs on the card
+unless the caller passes device="cpu", and raises without a card.
+Generated box_tet and rect_tria Poisson meshes take the structured
+slice-add assembly of the reduced DIA system; every other system (read
+with `mesh_io`, renumbered, unstructured, ndof > 1) takes the pattern
+assembly, first trying a geometric renumbering that recovers a DIA
+structure, else solving the ELL system in a bandwidth-reducing row order
+(float32 through the hybrid DIA + ELL operator).  Every SpMV on a CUDA
+tensor, the preconditioners' own products included, is launched as a
+hand-written kernel: csrc/dia_spmv.cu for DIA, csrc/ell_spmv.cu for ELL.
+The host loops that are sequential by nature (the ELL pattern, IC(0),
+SA aggregation, the partitioners) are host C++ (csrc/host_native.cpp),
 built at first use like the kernels.
 """
 

@@ -1,4 +1,4 @@
-# Copied from pfemfort_tpu/assembly/pattern.py (numpy builders only).
+# Copied from pfemfort_tpu/assembly/pattern.py (no pytree, no JAX-CPU census).
 """Static sparsity pattern + scatter plan (host-side, numpy, built once).
 
 Replacement for the reference's two-pass MatSetValues flow (sparsity
@@ -13,7 +13,10 @@ Two layouts:
     and every element entry maps to the flat slot d*N + row of a (D, N)
     diagonal value array.
   * 'ell' (general fallback): unique (row, col) pairs -> CSR -> padded ELL,
-    with a stable-sorted scatter plan.
+    with a stable-sorted scatter plan, built by the host library's
+    row-bucket sort (csrc/host_native.cpp:pfem_ell_pattern) or, when an
+    index would overflow int32, by one numpy stable argsort; both give the
+    same arrays bit for bit.
 
 Dropped contributions (elem_dof == -1, the BC sentinel) map to a trailing
 segment, exactly like PETSc's VEC_IGNORE_NEGATIVE_INDICES trick
@@ -28,6 +31,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from pfemfort_tpu_torch import host_native
 from pfemfort_tpu_torch.sparse.formats import round_up
 
 
@@ -55,6 +59,9 @@ class AssemblyPattern:
     @property
     def n_offsets(self) -> int:
         return len(self.dia_offsets) if self.dia_offsets else 0
+
+
+CENSUS_HEAD_ELEMS = 65_536
 
 
 def _entry_arrays(elem_dof: np.ndarray):
@@ -101,7 +108,12 @@ def build_pattern(elem_dof: np.ndarray, n_rows: int, lane_pad: int = 8,
         lattice = None
 
     if layout in ("auto", "dia"):
-        uniq = _offset_census(elem_dof, n_rows)
+        # The offsets of the first elements are a subset of all offsets:
+        # when they alone exceed max_offsets the whole census would too,
+        # so a scrambled mesh skips the full O(nnz) pass.
+        uniq = _offset_census(elem_dof[:CENSUS_HEAD_ELEMS], n_rows)
+        if len(uniq) <= max_offsets:
+            uniq = _offset_census(elem_dof, n_rows)
         if len(uniq) <= max_offsets and len(uniq) > 0:
             return AssemblyPattern(
                 layout="dia",
@@ -117,6 +129,29 @@ def build_pattern(elem_dof: np.ndarray, n_rows: int, lane_pad: int = 8,
                 f"{max_offsets}; pattern is not DIA-structured")
 
     # ---- general ELL path -------------------------------------------------
+    # The host library's row-bucket sort; the numpy builder only where an
+    # index would overflow int32 (as in the JAX package).
+    res = host_native.ell_pattern(elem_dof, n_rows, lane_pad)
+    if res is None:
+        return _ell_pattern_numpy(elem_dof, n_rows, lane_pad, rhs_dest)
+    mat_perm, mat_segids, indptr, indices, ell_k, nnz = res
+    row_deg = np.diff(indptr)
+    ell_cols = np.full((n_rows, ell_k), n_rows, dtype=np.int32)
+    within = (np.arange(nnz, dtype=np.int64)
+              - np.repeat(indptr[:-1], row_deg))
+    csr_row = np.repeat(np.arange(n_rows, dtype=np.int64), row_deg)
+    ell_cols[csr_row, within] = indices
+    return AssemblyPattern(
+        layout="ell", n_rows=n_rows, rhs_dest=rhs_dest, nnz=nnz,
+        indptr=indptr, indices=indices, ell_k=ell_k, ell_cols=ell_cols,
+        mat_perm=mat_perm, mat_segids=mat_segids,
+        mat_nsegs=n_rows * ell_k + 1)
+
+
+def _ell_pattern_numpy(elem_dof: np.ndarray, n_rows: int, lane_pad: int,
+                       rhs_dest: np.ndarray) -> AssemblyPattern:
+    """The ELL pattern by one numpy stable argsort (the builder of the
+    native one's results, kept for patterns past int32 indexing)."""
     # ONE stable (radix) argsort of the packed (row, col) entry keys yields
     # everything in O(nnz) passes: the unique keys (= CSR), the padded-ELL
     # layout, AND the sorted scatter plan.  The ELL-flat destination

@@ -197,6 +197,23 @@ def assemble_rhs_structured(Fe: torch.Tensor,
     return rhs.reshape(-1)
 
 
+# Above this many elements the one-shot Ke + geometry temporaries are
+# assembled in z-slab chunks.  The threshold was sized for a 16 GB TPU v5e
+# (21 GB needed at 48M elements); on the 80 GB card it is not binding.
+CHUNK_ABOVE_ELEMS = 12_000_000
+CHUNK_ELEMS = 6_000_000
+
+
+def chunk_count(nez: int, n_elem: int) -> int:
+    """z-slab chunks for `assemble_structured_chunked`: 1 up to
+    CHUNK_ABOVE_ELEMS elements, else the least divisor of nez that keeps a
+    chunk under CHUNK_ELEMS elements."""
+    if n_elem <= CHUNK_ABOVE_ELEMS:
+        return 1
+    want = -(-n_elem // CHUNK_ELEMS)
+    return next((c for c in range(want, nez + 1) if nez % c == 0), 1)
+
+
 def assemble_structured_chunked(element_fn: Callable, coords_em: torch.Tensor,
                                 plan: StructuredPlan, n_chunks: int):
     """Memory-bounded structured assembly: elements are processed in z-slab

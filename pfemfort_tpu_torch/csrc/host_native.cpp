@@ -1,17 +1,311 @@
-// Copied from pfemfort_tpu/native/src/pfem_native.cpp (pfem_samg_aggregate, pfem_ic0).
+// Copied from pfemfort_tpu/native/src/pfem_native.cpp (pfem_rcb_partition, pfem_greedy_partition, pfem_edge_cut, pfem_ell_pattern, pfem_samg_aggregate, pfem_ic0).
 //
-// Host-side set-up loops of the port's algebraic preconditioners, the two
-// that are sequential by nature: greedy smoothed-aggregation (solve/amg.py)
-// and the IC(0) factorization (solve/ic0.py).  Built with the host C++
-// compiler at first use (cuda_build.py:HostLibrary) and called through
-// ctypes (host_native.py).  The functions are the JAX package's, unchanged,
-// so both packages give the same aggregates and the same factor bit for bit.
+// The port's host-side loops that are sequential by nature: mesh
+// partitioning (parallel/partition.py: coordinate RCB, greedy dual-graph
+// k-way, edge cut), the ELL pattern + sorted scatter plan
+// (assembly/pattern.py), greedy smoothed-aggregation (solve/amg.py) and the
+// IC(0) factorization (solve/ic0.py).  Built with the host C++ compiler at
+// first use (cuda_build.py:HostLibrary) and called through ctypes
+// (host_native.py).  The functions are the JAX package's, unchanged, so both
+// packages give the same partitions, patterns, aggregates and factor bit
+// for bit.
 
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
+#include <cstring>
+#include <numeric>
+#include <queue>
+#include <thread>
+#include <vector>
 
 extern "C" {
+
+// ---------------------------------------------------------------------------
+// Recursive coordinate bisection.  centroids: n x dim row-major.  Splits at
+// the median of the longest axis; supports non-power-of-two nparts by
+// proportional splits.  Writes part ids into out[n].
+// ---------------------------------------------------------------------------
+static void rcb_rec(const double* c, int dim, std::vector<int64_t>& idx,
+                    int64_t lo, int64_t hi, int k, int first, int32_t* out) {
+  if (k == 1) {
+    for (int64_t i = lo; i < hi; ++i) out[idx[i]] = first;
+    return;
+  }
+  int k_left = k / 2;
+  // longest axis over [lo, hi)
+  int axis = 0;
+  double best = -1.0;
+  for (int d = 0; d < dim; ++d) {
+    double mn = 1e300, mx = -1e300;
+    for (int64_t i = lo; i < hi; ++i) {
+      double v = c[idx[i] * dim + d];
+      mn = std::min(mn, v);
+      mx = std::max(mx, v);
+    }
+    if (mx - mn > best) { best = mx - mn; axis = d; }
+  }
+  int64_t n = hi - lo;
+  int64_t n_left = (int64_t)((double)k_left / k * n + 0.5);
+  std::nth_element(idx.begin() + lo, idx.begin() + lo + n_left,
+                   idx.begin() + hi, [&](int64_t a, int64_t b) {
+                     return c[a * dim + axis] < c[b * dim + axis];
+                   });
+  rcb_rec(c, dim, idx, lo, lo + n_left, k_left, first, out);
+  rcb_rec(c, dim, idx, lo + n_left, hi, k - k_left, first + k_left, out);
+}
+
+void pfem_rcb_partition(const double* centroids, int64_t n, int dim,
+                        int nparts, int32_t* out) {
+  std::vector<int64_t> idx(n);
+  std::iota(idx.begin(), idx.end(), 0);
+  rcb_rec(centroids, dim, idx, 0, n, nparts, 0, out);
+}
+
+// ---------------------------------------------------------------------------
+// Dual graph (elements adjacent iff sharing >= ncommon nodes) + greedy BFS
+// k-way growth.  conn: n_elem x npe row-major, 0-based.
+// ---------------------------------------------------------------------------
+void pfem_greedy_partition(const int32_t* conn, int64_t n_elem, int npe,
+                           int64_t n_node, int ncommon, int nparts,
+                           int32_t* out) {
+  // node -> elements CSR
+  std::vector<int64_t> cnt(n_node + 1, 0);
+  for (int64_t i = 0; i < n_elem * npe; ++i) cnt[conn[i] + 1]++;
+  for (int64_t i = 0; i < n_node; ++i) cnt[i + 1] += cnt[i];
+  std::vector<int32_t> node_elems(n_elem * npe);
+  {
+    std::vector<int64_t> pos(cnt.begin(), cnt.end() - 1);
+    for (int64_t e = 0; e < n_elem; ++e)
+      for (int p = 0; p < npe; ++p)
+        node_elems[pos[conn[e * npe + p]]++] = (int32_t)e;
+  }
+  // adjacency via shared-node counting per element
+  std::vector<std::vector<int32_t>> adj(n_elem);
+  std::vector<int16_t> shared(n_elem, 0);
+  std::vector<int32_t> touched;
+  for (int64_t e = 0; e < n_elem; ++e) {
+    touched.clear();
+    for (int p = 0; p < npe; ++p) {
+      int32_t nd = conn[e * npe + p];
+      for (int64_t k = cnt[nd]; k < cnt[nd + 1]; ++k) {
+        int32_t o = node_elems[k];
+        if (o == (int32_t)e) continue;
+        if (shared[o]++ == 0) touched.push_back(o);
+      }
+    }
+    for (int32_t o : touched) {
+      if (shared[o] >= ncommon) adj[e].push_back(o);
+      shared[o] = 0;
+    }
+  }
+  // greedy BFS growth; when a part's frontier dries up before reaching its
+  // target size, reseed from the next unassigned element so parts stay
+  // balanced even across disconnected pockets.
+  int64_t target = (n_elem + nparts - 1) / nparts;
+  std::fill(out, out + n_elem, -1);
+  int64_t seed_scan = 0;
+  for (int p = 0; p < nparts; ++p) {
+    std::queue<int32_t> q;
+    int64_t size = 0;
+    while (size < target) {
+      if (q.empty()) {
+        while (seed_scan < n_elem && out[seed_scan] != -1) ++seed_scan;
+        if (seed_scan >= n_elem) break;
+        q.push((int32_t)seed_scan);
+      }
+      int32_t e = q.front();
+      q.pop();
+      if (out[e] != -1) continue;
+      out[e] = p;
+      ++size;
+      for (int32_t o : adj[e])
+        if (out[o] == -1) q.push(o);
+    }
+  }
+  for (int64_t e = 0; e < n_elem; ++e)
+    if (out[e] == -1) out[e] = nparts - 1;
+}
+
+// Edge-cut of an element partition (quality metric, like METIS's objval).
+int64_t pfem_edge_cut(const int32_t* conn, int64_t n_elem, int npe,
+                      int64_t n_node, int ncommon, const int32_t* part) {
+  std::vector<int64_t> cnt(n_node + 1, 0);
+  for (int64_t i = 0; i < n_elem * npe; ++i) cnt[conn[i] + 1]++;
+  for (int64_t i = 0; i < n_node; ++i) cnt[i + 1] += cnt[i];
+  std::vector<int32_t> node_elems(n_elem * npe);
+  {
+    std::vector<int64_t> pos(cnt.begin(), cnt.end() - 1);
+    for (int64_t e = 0; e < n_elem; ++e)
+      for (int p = 0; p < npe; ++p)
+        node_elems[pos[conn[e * npe + p]]++] = (int32_t)e;
+  }
+  std::vector<int16_t> shared(n_elem, 0);
+  std::vector<int32_t> touched;
+  int64_t cut = 0;
+  for (int64_t e = 0; e < n_elem; ++e) {
+    touched.clear();
+    for (int p = 0; p < npe; ++p) {
+      int32_t nd = conn[e * npe + p];
+      for (int64_t k = cnt[nd]; k < cnt[nd + 1]; ++k) {
+        int32_t o = node_elems[k];
+        if (o <= (int32_t)e) continue;
+        if (shared[o]++ == 0) touched.push_back(o);
+      }
+    }
+    for (int32_t o : touched) {
+      if (shared[o] >= ncommon && part[e] != part[o]) ++cut;
+      shared[o] = 0;
+    }
+  }
+  return cut;
+}
+
+// ---------------------------------------------------------------------------
+// ELL sparsity pattern + sorted scatter plan from element DOF rows.
+//
+// Native counterpart of the reference's MatSetValues sparsity pre-pass
+// (triapoissonparallelimpl1.F:814-825): dedupe the E*ns*ns element entry
+// (row, col) pairs into CSR + padded ELL, and emit the stable sorted
+// scatter permutation/segment ids the device segment-sum assembly uses.
+// Row-bucket counting sort over packed (col << 32 | entry) keys replaces
+// the earlier 3-pass LSD radix: ONE histogram stream over elem_dof + ONE
+// bucketed scatter + per-row local sorts (rows hold ~K entries, cache
+// resident).  On this 2-core box the radix spent 3 full scattered passes
+// over 12 B/entry; this does one pass over 8 B/entry (80 s -> ~25 s at
+// the 393M-entry 24.6M-element stage).  Entry index within the packed
+// key makes plain sort() reproduce the stable order exactly (ties in
+// (row, col) keep ascending entry order, byte-identical to numpy's
+// kind="stable" argsort of row*n+col keys).
+//
+// Entry t = (i*ns + j)*n_elem + e matches the (ns, ns, E) element-minor Ke
+// flattening (assembly/pattern.py:_entry_arrays).  Invalid entries (either
+// DOF eliminated, sentinel -1) land in a final bucket in entry order and
+// map to segment n_rows*K.
+//
+// Outputs (caller-allocated): mat_perm[n_ent] i32, mat_segids[n_ent] i32
+// (non-decreasing), indptr[n_rows+1] i64, indices[>=nnz] i32, k_out = ELL
+// slot count.  Returns nnz, or -1 when int32 ranges would overflow
+// (callers fall back to the numpy builder).
+// ---------------------------------------------------------------------------
+int64_t pfem_ell_pattern(const int32_t* elem_dof, int64_t n_elem, int32_t ns,
+                         int64_t n_rows, int32_t lane_pad, int32_t* mat_perm,
+                         int32_t* mat_segids, int64_t* indptr,
+                         int32_t* indices, int32_t* k_out) {
+  const int64_t n_ent = n_elem * (int64_t)ns * ns;
+  if (n_ent >= (int64_t)INT32_MAX) return -1;
+  if (n_rows >= (int64_t)INT32_MAX) return -1;
+
+  // pass 1: per-row entry counts (bucket n_rows = invalid), 2 threads on
+  // disjoint (i, j) halves with private histograms
+  std::vector<int64_t> h0(n_rows + 1, 0), h1(n_rows + 1, 0);
+  auto count = [&](std::vector<int64_t>& h, int32_t p0, int32_t p1) {
+    for (int32_t p = p0; p < p1; ++p) {
+      const int32_t i = p / ns, j = p % ns;
+      for (int64_t e = 0; e < n_elem; ++e) {
+        const int32_t r = elem_dof[e * ns + i];
+        const int32_t c = elem_dof[e * ns + j];
+        h[(r >= 0 && c >= 0) ? r : n_rows]++;
+      }
+    }
+  };
+  {
+    const int32_t np = ns * ns;
+    std::thread th(count, std::ref(h0), 0, np / 2);
+    count(h1, np / 2, np);
+    th.join();
+  }
+  std::vector<int64_t> startv(n_rows + 2);
+  startv[0] = 0;
+  for (int64_t r = 0; r <= n_rows; ++r)
+    startv[r + 1] = startv[r] + h0[r] + h1[r];
+
+  // pass 2: bucketed scatter of packed (col << 32 | t) keys, SINGLE
+  // thread (cursor array is shared; entry order within a bucket must be
+  // ascending t for stability)
+  std::vector<uint64_t> pk(n_ent);
+  std::vector<int64_t> cur(startv.begin(), startv.begin() + n_rows + 2);
+  for (int32_t p = 0; p < ns * ns; ++p) {
+    const int32_t i = p / ns, j = p % ns;
+    const int64_t tbase = (int64_t)p * n_elem;
+    for (int64_t e = 0; e < n_elem; ++e) {
+      const int32_t r = elem_dof[e * ns + i];
+      const int32_t c = elem_dof[e * ns + j];
+      const int64_t row = (r >= 0 && c >= 0) ? r : n_rows;
+      const uint32_t col = (row == n_rows) ? 0xFFFFFFFFu : (uint32_t)c;
+      pk[cur[row]++] = ((uint64_t)col << 32) | (uint32_t)(tbase + e);
+    }
+  }
+
+  // pass 3: per-row sorts (plain sort: the entry id in the low bits makes
+  // equal-(row,col) runs keep ascending entry order), 2 threads on row
+  // halves; the invalid bucket stays in entry order (all "keys" equal)
+  {
+    auto sort_rows = [&](int64_t r0, int64_t r1) {
+      for (int64_t r = r0; r < r1; ++r)
+        std::sort(pk.begin() + startv[r], pk.begin() + startv[r + 1]);
+    };
+    const int64_t rh = n_rows / 2;
+    std::thread th(sort_rows, 0, rh);
+    sort_rows(rh, n_rows);
+    th.join();
+  }
+
+  const int64_t nvalid = startv[n_rows];
+
+  // pass 4: unique (row, col) -> indices + per-row degrees
+  std::memset(indptr, 0, sizeof(int64_t) * (n_rows + 1));
+  int64_t nnz = 0;
+  for (int64_t r = 0; r < n_rows; ++r) {
+    uint32_t prev = 0xFFFFFFFFu;
+    bool first = true;
+    for (int64_t t = startv[r]; t < startv[r + 1]; ++t) {
+      const uint32_t c = (uint32_t)(pk[t] >> 32);
+      if (first || c != prev) {
+        first = false;
+        prev = c;
+        indptr[r + 1]++;
+        indices[nnz++] = (int32_t)c;
+      }
+    }
+  }
+  int64_t max_deg = 0;
+  for (int64_t r = 0; r < n_rows; ++r) {
+    max_deg = std::max(max_deg, indptr[r + 1]);
+    indptr[r + 1] += indptr[r];
+  }
+  const int64_t K =
+      ((std::max(max_deg, (int64_t)1)) + lane_pad - 1) / lane_pad * lane_pad;
+  if (n_rows * K + 1 >= (int64_t)INT32_MAX) return -1;
+  *k_out = (int32_t)K;
+
+  // pass 5: sorted segment ids (ELL-flat, monotone) + permutation
+  const int32_t dropped = (int32_t)(n_rows * K);
+  {
+    int64_t t = 0;
+    for (int64_t r = 0; r < n_rows; ++r) {
+      uint32_t prev = 0xFFFFFFFFu;
+      bool first = true;
+      int64_t within = -1;
+      for (int64_t q = startv[r]; q < startv[r + 1]; ++q, ++t) {
+        const uint32_t c = (uint32_t)(pk[q] >> 32);
+        if (first || c != prev) {
+          first = false;
+          prev = c;
+          ++within;
+        }
+        mat_segids[t] = (int32_t)(r * K + within);
+        mat_perm[t] = (int32_t)(uint32_t)pk[q];
+      }
+    }
+    for (int64_t q = nvalid; q < n_ent; ++q, ++t) {
+      mat_segids[t] = dropped;
+      mat_perm[t] = (int32_t)(uint32_t)pk[q];
+    }
+  }
+  return nnz;
+}
+
 
 // ---------------------------------------------------------------------------
 // Smoothed-aggregation greedy root aggregation (solve/amg.py host setup):

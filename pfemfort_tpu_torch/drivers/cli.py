@@ -10,15 +10,17 @@ options and the same printed milestones as the JAX package's CLI:
   python -m pfemfort_tpu_torch poisson     <nodes> <elems> <dbc> [-o out.vtk]
   python -m pfemfort_tpu_torch elasticity  <nodes> <elems> <dbc> [fbc] ...
   python -m pfemfort_tpu_torch explicit    <nodes> <elems> <dbc> [fbc] --preset tria
+  python -m pfemfort_tpu_torch cfd         <nodes> <elems> <velocityBC> [-o out.vtk]
   python -m pfemfort_tpu_torch genmesh     tet x0 x1 nex y0 y1 ney z0 z1 nez -o prefix
+  python -m pfemfort_tpu_torch partition   <nodes> <elems> --nparts 4 [-o part.vtk]
   python -m pfemfort_tpu_torch vtktovtu    in.vtk out.vtu
 
 The solving subcommands add two options of their own: `--device` (default
 cuda; without a card the run fails, pass `--device cpu` to run on the
 CPU) and `--dtype` (float32 by default, as the JAX CLI without x64; the
 port's counterpart of `jax_enable_x64` is `--dtype float64`).  The
-`partition`, `cfd` and `bench` subcommands and `--shards > 1` are not
-ported yet: they raise NotImplementedError naming their ROADMAP item.
+`bench` subcommand and `--shards > 1` are not ported yet: they raise
+NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -195,6 +197,35 @@ def cmd_explicit(args):
     return 0
 
 
+def cmd_cfd(args):
+    """Lid-driven-cavity style incompressible NS (the working version of the
+    reference's abandoned cfdexplicittria6node)."""
+    import numpy as np
+
+    from pfemfort_tpu_torch.cfd.navierstokes import fractional_step_ns
+
+    device, dtype = _device(args)
+    mesh, vbc, _ = _read(args)
+    t0 = time.perf_counter()
+    res = fractional_step_ns(mesh, vbc, nu_visc=args.nu_visc, dt=args.dt,
+                             nsteps=args.nsteps, device=device, dtype=dtype)
+    print(f" {args.nsteps} steps in {time.perf_counter() - t0:.3f} seconds; "
+          f"final max|div u| = {float(res.div_history[-1]):.3e}")
+    if args.output:
+        from pfemfort_tpu_torch.io.vtk import write_vtk
+        if mesh.ndim == 2:
+            # 2D: pack (u, v, p) as a 3-vector (ParaView-friendly)
+            sol = np.concatenate(
+                [res.velocity, res.pressure[:, None]], axis=1).reshape(-1)
+            write_vtk(args.output, mesh, sol, 3)
+            print(f" Wrote {args.output} (vector = u,v,p)")
+        else:
+            write_vtk(args.output, mesh, res.velocity.reshape(-1),
+                      mesh.ndim)
+            print(f" Wrote {args.output} (vector = u,v,w)")
+    return 0
+
+
 def cmd_genmesh(args):
     from pfemfort_tpu_torch.mesh import generate
     from pfemfort_tpu_torch.mesh import io as mesh_io
@@ -210,6 +241,26 @@ def cmd_genmesh(args):
         mesh_io.write_dat(args.out, mesh)
     print(f" Wrote {args.out}-nodes.dat / -elems.dat"
           + (" / -DirichBC.dat" if args.shape == "tet" else ""))
+    return 0
+
+
+def cmd_partition(args):
+    import numpy as np
+
+    from pfemfort_tpu_torch.mesh import io as mesh_io
+    from pfemfort_tpu_torch.parallel.partition import partition_elements
+
+    mesh = mesh_io.read_mesh(args.nodes, args.elems)
+    part = partition_elements(mesh, args.nparts, method=args.method)
+    counts = np.bincount(part, minlength=args.nparts)
+    print(f" Partitioned {mesh.n_elem} elements into {args.nparts} parts; "
+          f"sizes {counts.tolist()}")
+    if args.output:
+        from pfemfort_tpu_torch.io.vtk import write_vtk
+
+        write_vtk(args.output, mesh, np.zeros(mesh.n_node), 1,
+                  elem_procid=part)
+        print(f" Wrote {args.output}")
     return 0
 
 
@@ -276,7 +327,7 @@ def build_parser():
     sp.add_argument("--refine", action="store_true",
                     help="float32 inner CG refined to a TRUE float64 rtol")
     sp.add_argument("--matrix-free", action="store_true",
-                    help="assembly-free operator (ROADMAP A.8)")
+                    help="assembly-free operator (Jacobi-CG)")
     sp.set_defaults(fn=cmd_poisson)
 
     sp = sub.add_parser("elasticity", help="implicit linear elasticity")
@@ -314,13 +365,12 @@ def build_parser():
                          "reference's Elasticity-soln-NNNNN.vtk series)")
     sp.set_defaults(fn=cmd_explicit)
 
-    sp = sub.add_parser("cfd", help="incompressible NS fractional step "
-                                    "(ROADMAP A.8)")
+    sp = sub.add_parser("cfd", help="incompressible NS fractional step")
     add_files(sp)
     sp.add_argument("--nu-visc", type=float, default=0.05)
     sp.add_argument("--dt", type=float, default=2e-3)
     sp.add_argument("--nsteps", type=int, default=500)
-    sp.set_defaults(fn=_not_ported("A.8 (CFD)"))
+    sp.set_defaults(fn=cmd_cfd)
 
     sp = sub.add_parser("genmesh", help="generate structured meshes")
     sp.add_argument("shape", choices=["tet", "tria"])
@@ -336,13 +386,13 @@ def build_parser():
     sp.add_argument("-o", "--out", required=True, help="output prefix")
     sp.set_defaults(fn=cmd_genmesh)
 
-    sp = sub.add_parser("partition", help="partition a mesh (ROADMAP A.9)")
+    sp = sub.add_parser("partition", help="partition a mesh")
     sp.add_argument("nodes")
     sp.add_argument("elems")
     sp.add_argument("--nparts", type=int, required=True)
     sp.add_argument("--method", choices=["rcb", "greedy"], default="rcb")
     sp.add_argument("-o", "--output", default=None)
-    sp.set_defaults(fn=_not_ported("A.9 (distributed)"))
+    sp.set_defaults(fn=cmd_partition)
 
     sp = sub.add_parser("vtktovtu", help="legacy VTK -> XML .vtu")
     sp.add_argument("input")

@@ -14,7 +14,10 @@ paths for the reduced (BC-eliminated) system, chosen from the mesh:
     whose numbering is not DIA-able is first renumbered geometrically
     (mesh/reorder.py:recover_structure); one that stays off the DIA
     census is assembled as ELL and solved in a bandwidth-reducing row
-    order through the ELL SpMV kernel.
+    order: float32 systems through the hybrid operator
+    (sparse/hybrid.py: dense diagonals on the DIA kernel, the remainder on
+    the ELL kernel), float64 ones through the ELL kernel alone, as in the
+    JAX package.
 
 Every SpMV goes through sparse/ops.py:operator_and_diag (kernels B1 and B2
 on the card, their plain versions on the CPU); the Krylov method is CG,
@@ -66,27 +69,19 @@ from pfemfort_tpu_torch.solve.multigrid import build_gmg, \
 from pfemfort_tpu_torch.solve.precond import chebyshev_preconditioner
 from pfemfort_tpu_torch.solve.refine import cg_with_refinement
 from pfemfort_tpu_torch.sparse.formats import ELLMatrix
+from pfemfort_tpu_torch.sparse.hybrid import HybridLayout, apply_hybrid, \
+    hybrid_layout, split_sorted
 from pfemfort_tpu_torch.sparse.ops import operator_and_diag
 from pfemfort_tpu_torch.sparse.ordering import coord_lex_order, \
     permuted_sorted_cols, rcm_order
-
-# Above this many elements the one-shot Ke + geometry temporaries are
-# assembled in z-slab chunks.  The threshold was sized for a 16 GB TPU v5e
-# (21 GB needed at 48M elements); it is still to be measured on the card.
-_CHUNK_ABOVE_ELEMS = 12_000_000
-_CHUNK_ELEMS = 6_000_000
-
+from pfemfort_tpu_torch.utils.device import resolve_device, \
+    synchronize as _sync
 
 class ImplicitResult(NamedTuple):
     u_full: np.ndarray          # (n_node*ndof,) solution incl. BC values
     u_reduced: torch.Tensor     # (total_dof,) solution on the device
     stats: SolveStats
     timings: dict
-
-
-def _sync(device: torch.device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 _SOLVERS = {"cg": cg_solve, "bicgstab": bicgstab_solve,
@@ -124,7 +119,7 @@ def build_reduced_assembler(mesh: Mesh, ndof: int, dofmap, element_fn,
     Every other mesh takes the pattern path, which needs `dofmap` built
     with `with_elem=True`; its assembler carries the pattern as
     `assemble.pattern`.  Both give the same reduced system.  A box_tet mesh
-    of more than _CHUNK_ABOVE_ELEMS elements is assembled in
+    of more than st.CHUNK_ABOVE_ELEMS elements is assembled in
     `assemble.n_chunks` z-slab chunks.
     """
     red_box = _structured_box(mesh, dofmap)
@@ -136,14 +131,8 @@ def build_reduced_assembler(mesh: Mesh, ndof: int, dofmap, element_fn,
                                    device=device)
 
     n_chunks = 1
-    if mesh.structure["kind"] == "box_tet" \
-            and mesh.n_elem > _CHUNK_ABOVE_ELEMS:
-        nez = mesh.structure["nez"]
-        want = -(-mesh.n_elem // _CHUNK_ELEMS)
-        for cand in range(want, nez + 1):
-            if nez % cand == 0:
-                n_chunks = cand
-                break
+    if mesh.structure["kind"] == "box_tet":
+        n_chunks = st.chunk_count(mesh.structure["nez"], mesh.n_elem)
 
     def assemble(coords_em):
         if n_chunks > 1:
@@ -195,13 +184,16 @@ def _point_loads(dofmap, force_bc) -> np.ndarray:
 @dataclasses.dataclass(frozen=True)
 class EllOrdering:
     """A row ordering of an ELL system, with the permuted column layout
-    and the source slot of every permuted value on the device."""
+    and the source slot of every permuted value on the device, and the
+    hybrid split of the ordered pattern when one was asked for."""
 
     name: str              # 'lex' or 'rcm'
     order: torch.Tensor    # (N,) int64, ordered row -> original row
     inv: torch.Tensor      # (N,) int64, original row -> ordered row
     cols: torch.Tensor     # (N, K) int32, ascending per row, sentinels last
     src: torch.Tensor      # (N*K,) int64 flat slot of the original values
+    hybrid: Optional[HybridLayout] = None
+    hybrid_stats: Optional[dict] = None   # diagonals, nnz_dia, nnz_rem, k_rem
 
     def system(self, A: ELLMatrix, b: torch.Tensor
                ) -> Tuple[ELLMatrix, torch.Tensor]:
@@ -232,8 +224,11 @@ def _order_costs(pattern: AssemblyPattern, order: np.ndarray,
 
 
 def build_ell_ordering(pattern: AssemblyPattern, coords_rows: np.ndarray,
-                       comp: np.ndarray, device) -> EllOrdering:
-    """Pick the row ordering of an ELL pattern and lay it out on `device`.
+                       comp: np.ndarray, device,
+                       hybrid: bool = False) -> EllOrdering:
+    """Pick the row ordering of an ELL pattern and lay it out on `device`;
+    `hybrid`: also split the ordered pattern into dense diagonals and an ELL
+    remainder (sparse/hybrid.py), in the chosen order.
 
     The candidates are the geometric (z, y, x) order of the rows' nodes and
     reverse Cuthill-McKee.  The JAX package's TPU path took the one whose
@@ -254,12 +249,19 @@ def build_ell_ordering(pattern: AssemblyPattern, coords_rows: np.ndarray,
     cols, src, inv = permuted_sorted_cols(pattern.ell_cols, pattern.n_rows,
                                           order, pattern.n_rows)
     device = torch.device(device)
+    layout = stats = None
+    if hybrid:
+        plan = split_sorted(cols, src, pattern.n_rows)
+        layout = hybrid_layout(plan, device)
+        stats = dict(diagonals=plan.D, nnz_dia=plan.nnz_dia,
+                     nnz_rem=plan.nnz_rem, k_rem=plan.k_rem)
     return EllOrdering(
         name=name,
         order=torch.as_tensor(order, device=device),
         inv=torch.as_tensor(inv, device=device),
         cols=torch.as_tensor(cols.astype(np.int32), device=device),
-        src=torch.as_tensor(src.reshape(-1), device=device))
+        src=torch.as_tensor(src.reshape(-1), device=device),
+        hybrid=layout, hybrid_stats=stats)
 
 
 _PRECONDS = ("jacobi", "cheby", "ic0", "amg", "mg")
@@ -276,10 +278,14 @@ def _host_preconditioner(precond, A, pattern, ordering, operator, ndof,
         indptr, indices, vals = permute_csr(indptr, indices, vals,
                                             ordering.order.cpu().numpy())
     if precond == "ic0":
-        arrs = build_ic0_from_csr(indptr, indices, vals, n, dtype=dtype)
+        # staged on the host: build_ic0_device lays the blocks out on
+        # `device` in their routed forms
+        arrs = build_ic0_from_csr(indptr, indices, vals, n, dtype=dtype,
+                                  device="cpu")
         return ic0_device_preconditioner(
             build_ic0_device(arrs, dtype=dtype, device=device)), None
-    built = build_samg(indptr, indices, vals, n, ndof=ndof, dtype=dtype)
+    built = build_samg(indptr, indices, vals, n, ndof=ndof, dtype=dtype,
+                       device="cpu")
     if built is None:
         return None, None
     arrs, meta = built
@@ -294,7 +300,7 @@ def solve_implicit(
     dirichlet: np.ndarray,
     element_fn: Callable,
     force_bc: Optional[np.ndarray] = None,
-    device="cpu",
+    device="cuda",
     dtype: Optional[torch.dtype] = None,
     rtol: float = 1e-8,
     atol: float = 0.0,
@@ -336,7 +342,9 @@ def solve_implicit(
                   For any of them but 'jacobi', timings["precond_used"]
                   says which one ran.
     Timings: pattern_s (host set-up), order_s and ordering (ELL row
-    ordering and its name, ELL path only), assemble_s, ic0_setup_s /
+    ordering and its name, ELL path only; float32 adds the hybrid split's
+    hybrid_diagonals, hybrid_nnz_dia, hybrid_nnz_rem, hybrid_k_rem),
+    assemble_s, ic0_setup_s /
     amg_setup_s (host set-up of those preconditioners) and solve_s (each
     ends in a device synchronise); amg_levels (rows per AMG level) and
     assembly_chunks (when the structured assembly runs in z-slabs) where
@@ -346,7 +354,7 @@ def solve_implicit(
         raise ValueError(f"method={method!r}: one of {sorted(_SOLVERS)}")
     if precond not in _PRECONDS:
         raise ValueError(f"precond={precond!r}: one of {list(_PRECONDS)}")
-    device = torch.device(device)
+    device = resolve_device(device)
     if dtype is None:
         dtype = torch.get_default_dtype()
 
@@ -390,12 +398,18 @@ def solve_implicit(
     pattern = getattr(assemble_reduced, "pattern", None)
     if pattern is not None and pattern.layout == "ell":
         t0 = time.perf_counter()
+        # float32 ELL systems go through the hybrid operator, as in the
+        # JAX package (drivers/common.py there); float64 ones stay on B2
         ordering = build_ell_ordering(
             pattern, mesh.coords[dofmap.assy_for_soln // ndof],
-            dofmap.assy_for_soln % ndof, device)
+            dofmap.assy_for_soln % ndof, device,
+            hybrid=dtype == torch.float32)
         _sync(device)
         timings.update(order_s=time.perf_counter() - t0,
                        ordering=ordering.name)
+        if ordering.hybrid is not None:
+            timings.update({f"hybrid_{k}": v
+                            for k, v in ordering.hybrid_stats.items()})
 
     if maxiter is None:
         maxiter = max(10 * dofmap.total_dof, 1000)
@@ -403,10 +417,15 @@ def solve_implicit(
     t0 = time.perf_counter()
     A0, b = assemble_reduced(coords_em)
     b = b + fvec
-    A = A0
-    if ordering is not None:
+    if ordering is None:
+        operator, diag = operator_and_diag(A0)
+    elif ordering.hybrid is not None:
+        H = ordering.hybrid.pack(A0.vals)
+        b = b[ordering.order]
+        operator, diag = (lambda x: apply_hybrid(H, x)), H.diagonal()
+    else:
         A, b = ordering.system(A0, b)
-    operator, diag = operator_and_diag(A)
+        operator, diag = operator_and_diag(A)
     _sync(device)
     timings["assemble_s"] = time.perf_counter() - t0
 
@@ -447,7 +466,7 @@ def solve_implicit_fullsystem(
     dirichlet: np.ndarray,
     element_fn: Callable,
     force_bc: Optional[np.ndarray] = None,
-    device="cpu",
+    device="cuda",
     dtype: Optional[torch.dtype] = None,
     rtol: float = 1e-8,
     maxiter: Optional[int] = None,
@@ -472,7 +491,7 @@ def solve_implicit_fullsystem(
     """
     if method not in _SOLVERS:
         raise ValueError(f"method={method!r}: one of {sorted(_SOLVERS)}")
-    device = torch.device(device)
+    device = resolve_device(device)
     if dtype is None:
         dtype = torch.get_default_dtype()
     n_full = mesh.n_node * ndof

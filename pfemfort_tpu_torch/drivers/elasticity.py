@@ -30,7 +30,7 @@ def solve_elasticity(
     bforce: Optional[Sequence[float]] = None,
     thickness: float = 1.0,
     plane: str = "stress",
-    device="cpu",
+    device="cuda",
     dtype: Optional[torch.dtype] = None,
     rtol: float = 1e-8,
     maxiter: Optional[int] = None,

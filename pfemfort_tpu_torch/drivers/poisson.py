@@ -1,8 +1,9 @@
-# Ported from pfemfort_tpu/drivers/poisson.py (all but the matrix-free path).
+# Ported from pfemfort_tpu/drivers/poisson.py.
 """Poisson driver: the port's tetrapoissonparallelimpl1."""
 
 from __future__ import annotations
 
+import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -10,8 +11,14 @@ import torch
 
 from pfemfort_tpu_torch.drivers.common import ImplicitResult, \
     solve_implicit, solve_implicit_fullsystem
+from pfemfort_tpu_torch.dofs.dofmap import build_dofmap
+from pfemfort_tpu_torch.elements.geometry import to_element_minor
 from pfemfort_tpu_torch.elements.poisson import poisson_element_matrices
 from pfemfort_tpu_torch.mesh.core import Mesh
+from pfemfort_tpu_torch.solve.cg import cg_solve, jacobi_preconditioner
+from pfemfort_tpu_torch.solve.matfree import PoissonMatfree
+from pfemfort_tpu_torch.utils.device import resolve_device, \
+    synchronize as _sync
 
 # The reference drivers hard-code the source term: 0 for the 2D problems
 # (elementutilitiespoisson.F:83) and -6 for the 3D manufactured solution
@@ -25,7 +32,7 @@ def solve_poisson(
     kappa: Optional[Sequence[float]] = None,
     source=None,
     af: float = 1.0,
-    device="cpu",
+    device="cuda",
     dtype: Optional[torch.dtype] = None,
     rtol: float = 1e-8,
     maxiter: Optional[int] = None,
@@ -50,14 +57,18 @@ def solve_poisson(
     Jacobi).  timings["precond_used"] says which one ran.
     refine: float32-inner / float64-outer iterative refinement of the
     reduced system (ignored with bc_mode='full', as in the JAX package).
+    matrix_free: assembly-free Jacobi-CG on the reduced system
+    (solve/matfree.py); as in the JAX package it ignores bc_mode, method,
+    precond and refine.
+    device: 'cuda' (the default; raises without a card) or 'cpu'.
     """
-    if matrix_free:
-        raise NotImplementedError(
-            "matrix_free=True waits for ROADMAP A.8 (matrix-free)")
     if bc_mode not in ("reduced", "full"):
         raise ValueError(f"bc_mode={bc_mode!r}: 'reduced' or 'full'")
     if source is None:
         source = _DEFAULT_SOURCE.get(mesh.etype, 0.0)
+    if matrix_free:
+        return _solve_poisson_matfree(mesh, dirichlet, kappa, af, source,
+                                      device, dtype, rtol, maxiter)
 
     def element_fn(coords_em):
         return poisson_element_matrices(
@@ -71,3 +82,46 @@ def solve_poisson(
         mesh, 1, dirichlet, element_fn, device=device, dtype=dtype,
         rtol=rtol, maxiter=maxiter, method=method, refine=refine,
         precond=precond)
+
+
+def _solve_poisson_matfree(mesh, dirichlet, kappa, af, source, device, dtype,
+                           rtol, maxiter) -> ImplicitResult:
+    """Assembly-free CG: no global matrix is ever materialised.  Timings:
+    pattern_s (DOF map, coordinates to the device), assemble_s (element
+    geometry, sorted scatter, diagonal and rhs), solve_s."""
+    device = resolve_device(device)
+    if dtype is None:
+        dtype = torch.get_default_dtype()
+    t0 = time.perf_counter()
+    dofmap = build_dofmap(mesh, 1, dirichlet)
+    coords_em = torch.as_tensor(to_element_minor(mesh.elem_coords()),
+                                dtype=dtype, device=device)
+    ubc_e = torch.as_tensor(dofmap.bc_values_full[dofmap.elem_nodedof].T,
+                            dtype=dtype, device=device)
+    _sync(device)
+    timings = dict(pattern_s=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    operator = PoissonMatfree(coords_em, mesh.etype, dofmap, kappa=kappa,
+                              af=af)
+    diag = operator.diagonal()
+    # rhs: source term + matrix-free Dirichlet elimination
+    _, Fe_src = poisson_element_matrices(coords_em, mesh.etype, kappa=kappa,
+                                         af=af, source=source)
+    del coords_em
+    b = operator.segments.sum(Fe_src - operator.element_apply(ubc_e))
+    del Fe_src, ubc_e
+    _sync(device)
+    timings["assemble_s"] = time.perf_counter() - t0
+
+    n = dofmap.total_dof
+    if maxiter is None:
+        maxiter = max(10 * n, 1000)
+    t0 = time.perf_counter()
+    u, stats = cg_solve(operator, b, precond=jacobi_preconditioner(diag),
+                        rtol=rtol, maxiter=maxiter)
+    _sync(device)
+    timings["solve_s"] = time.perf_counter() - t0
+    u_full = dofmap.expand_solution(u.cpu().to(torch.float64).numpy())
+    return ImplicitResult(u_full=u_full, u_reduced=u, stats=stats,
+                          timings=timings)

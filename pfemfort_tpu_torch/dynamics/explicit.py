@@ -51,6 +51,7 @@ from pfemfort_tpu_torch.elements.elasticity import (
 )
 from pfemfort_tpu_torch.elements.geometry import to_element_minor
 from pfemfort_tpu_torch.mesh.core import Mesh
+from pfemfort_tpu_torch.utils.device import resolve_device
 
 # Quadrature point counts for the lumped mass, matching each reference mass
 # kernel: tria3 1-pt (elasticity2D.F:298), tria6 3-pt (:504), quad4 4-pt
@@ -82,7 +83,7 @@ def explicit_dynamics(
     probe_dofs: Sequence[int] = (),
     thickness: float = 1.0,
     use_hourglass: bool = False,
-    device="cpu",
+    device="cuda",
     dtype: Optional[torch.dtype] = None,
     snapshot_every: int = 0,
     snapshot_cb: Optional[Callable] = None,
@@ -109,7 +110,7 @@ def explicit_dynamics(
       init_state/start_step: resume from a dynamics.checkpoint.ExplicitState
         (run steps [start_step, start_step+nsteps)).
     """
-    device = torch.device(device)
+    device = resolve_device(device)
     if dtype is None:
         dtype = torch.get_default_dtype()
     ndim = mesh.ndim

@@ -77,3 +77,22 @@ def poisson_element_matrices(
     df = dvol * f
     F = sum(df[g][None, :] * Nj[g][:, None] for g in range(G))
     return K, F
+
+
+def poisson_matfree_apply(
+    u_e: torch.Tensor,
+    gradN: torch.Tensor,
+    dvol: torch.Tensor,
+    kappa: torch.Tensor,
+    af: float = 1.0,
+) -> torch.Tensor:
+    """Matrix-free K_e @ u_e for all elements (for assembly-free CG).
+
+    u_e (npe, E); gradN (G, d, npe, E); dvol (G, E); returns (npe, E).
+    """
+    G, pdim, npe, _ = gradN.shape
+    du = sum(gradN[:, :, j, :] * u_e[j][None, None, :]
+             for j in range(npe))                                # grad u
+    flux = du * kappa[None, :, None] * dvol[:, None, :]
+    return af * sum(gradN[g, d] * flux[g, d][None, :]
+                    for g in range(G) for d in range(pdim))

@@ -1,10 +1,13 @@
-# Ported from pfemfort_tpu/native/__init__.py (samg_aggregate, ic0).
+# Ported from pfemfort_tpu/native/__init__.py (rcb_partition, greedy_partition, edge_cut, ell_pattern, samg_aggregate, ic0).
 """ctypes bindings of the host library csrc/host_native.cpp.
 
 The library is built with the host C++ compiler at first use
 (cuda_build.py:HostLibrary), never at import.  Unlike the JAX package,
-which falls back to Python loops (and gives up on IC(0) above 200k rows)
-when its native library is missing, a failed build raises here.
+which falls back to Python or numpy (and gives up on IC(0) above 200k rows)
+when its native library is missing, a failed build raises here.  The one
+fallback kept is the JAX package's own size rule: `ell_pattern` returns None
+when an index would overflow int32, and assembly/pattern.py then takes its
+numpy builder.
 """
 
 from __future__ import annotations
@@ -20,6 +23,16 @@ _P32 = ctypes.POINTER(ctypes.c_int32)
 _PD = ctypes.POINTER(ctypes.c_double)
 
 library = HostLibrary("host_native", {
+    "pfem_rcb_partition": ([_PD, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                            _P32], None),
+    "pfem_greedy_partition": ([_P32, ctypes.c_int64, ctypes.c_int,
+                               ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                               _P32], None),
+    "pfem_edge_cut": ([_P32, ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
+                       ctypes.c_int, _P32], ctypes.c_int64),
+    "pfem_ell_pattern": ([_P32, ctypes.c_int64, ctypes.c_int32, ctypes.c_int64,
+                          ctypes.c_int32, _P32, _P32, _P64, _P32, _P32],
+                         ctypes.c_int64),
     "pfem_samg_aggregate": ([ctypes.c_int64, _P64, _P32, _P64],
                             ctypes.c_int64),
     "pfem_ic0": ([ctypes.c_int64, _P64, _P32, _PD], ctypes.c_int64),
@@ -28,6 +41,67 @@ library = HostLibrary("host_native", {
 
 def _ptr(a: np.ndarray, ct):
     return a.ctypes.data_as(ctypes.POINTER(ct))
+
+
+def rcb_partition(centroids: np.ndarray, nparts: int) -> np.ndarray:
+    """Recursive coordinate bisection of (n, dim) points into nparts."""
+    c = np.ascontiguousarray(centroids, dtype=np.float64)
+    n, dim = c.shape
+    out = np.empty(n, dtype=np.int32)
+    library.lib().pfem_rcb_partition(_ptr(c, ctypes.c_double), n, dim, nparts,
+                                     _ptr(out, ctypes.c_int32))
+    return out
+
+
+def greedy_partition(conn: np.ndarray, n_node: int, ncommon: int,
+                     nparts: int) -> np.ndarray:
+    """Greedy BFS k-way partition of the element dual graph (elements
+    adjacent iff they share >= ncommon nodes)."""
+    c = np.ascontiguousarray(conn, dtype=np.int32)
+    n_elem, npe = c.shape
+    out = np.empty(n_elem, dtype=np.int32)
+    library.lib().pfem_greedy_partition(_ptr(c, ctypes.c_int32), n_elem, npe,
+                                        n_node, ncommon, nparts,
+                                        _ptr(out, ctypes.c_int32))
+    return out
+
+
+def edge_cut(conn: np.ndarray, n_node: int, ncommon: int,
+             part: np.ndarray) -> int:
+    """Dual-graph edges between elements of different parts."""
+    c = np.ascontiguousarray(conn, dtype=np.int32)
+    p = np.ascontiguousarray(part, dtype=np.int32)
+    if p.shape != (c.shape[0],):
+        raise ValueError("edge_cut: one part id per element")
+    return int(library.lib().pfem_edge_cut(_ptr(c, ctypes.c_int32),
+                                           c.shape[0], c.shape[1], n_node,
+                                           ncommon, _ptr(p, ctypes.c_int32)))
+
+
+def ell_pattern(elem_dof: np.ndarray, n_rows: int, lane_pad: int = 8):
+    """CSR + padded-ELL pattern + sorted scatter plan from element DOF rows
+    (-1 for an eliminated dof): (mat_perm, mat_segids, indptr, indices,
+    ell_k, nnz), the arrays of the numpy builder bit for bit; None when an
+    index would overflow int32."""
+    E, ns = np.shape(elem_dof)
+    n_ent = E * ns * ns
+    if n_ent >= 2**31:
+        return None
+    ed = np.ascontiguousarray(elem_dof, dtype=np.int32)
+    mat_perm = np.empty(n_ent, dtype=np.int32)
+    mat_segids = np.empty(n_ent, dtype=np.int32)
+    indptr = np.zeros(n_rows + 1, dtype=np.int64)
+    indices = np.empty(max(n_ent, 1), dtype=np.int32)
+    k_out = ctypes.c_int32(0)
+    nnz = library.lib().pfem_ell_pattern(
+        _ptr(ed, ctypes.c_int32), E, ns, n_rows, lane_pad,
+        _ptr(mat_perm, ctypes.c_int32), _ptr(mat_segids, ctypes.c_int32),
+        _ptr(indptr, ctypes.c_int64), _ptr(indices, ctypes.c_int32),
+        ctypes.byref(k_out))
+    if nnz < 0:
+        return None
+    return (mat_perm, mat_segids, indptr, indices[:nnz].copy(),
+            int(k_out.value), int(nnz))
 
 
 def samg_aggregate(indptr: np.ndarray, indices: np.ndarray, n: int):

@@ -22,7 +22,7 @@ from pfemfort_tpu_torch.sparse.formats import ELLMatrix
 
 
 def dia_from_numpy(vals: np.ndarray, offsets: Sequence[int], n_rows: int,
-                   lattice: Optional[Sequence[int]], device="cpu",
+                   lattice: Optional[Sequence[int]], *, device,
                    dtype: Optional[torch.dtype] = None) -> DIAMatrix:
     """The port's DIAMatrix from the fields of a JAX DIAMatrix (vals as a
     (D, n_rows) numpy array).  dtype None means torch.get_default_dtype()."""
@@ -40,7 +40,7 @@ def dia_from_numpy(vals: np.ndarray, offsets: Sequence[int], n_rows: int,
 
 
 def ell_from_numpy(cols: np.ndarray, vals: np.ndarray, n_cols: int,
-                   device="cpu", dtype: Optional[torch.dtype] = None
+                   *, device, dtype: Optional[torch.dtype] = None
                    ) -> ELLMatrix:
     """The port's ELLMatrix from the fields of a JAX ELLMatrix ((N, K)
     numpy cols and vals).  dtype None means torch.get_default_dtype()."""
@@ -83,7 +83,7 @@ def _tensor(a, device, dtype):
                         device=device)
 
 
-def samg_from_numpy(arrays, meta, device="cpu",
+def samg_from_numpy(arrays, meta, *, device,
                     dtype: Optional[torch.dtype] = None):
     """(SAMGArrays, SAMGMeta) of the port from a JAX SA-AMG hierarchy:
     `arrays` with the fields of pfemfort_tpu.solve.amg.SAMGArrays (the
@@ -109,7 +109,7 @@ def samg_from_numpy(arrays, meta, device="cpu",
                          omega_smooth=float(meta.omega_smooth))
 
 
-def gmg_from_numpy(arrays, meta, device="cpu",
+def gmg_from_numpy(arrays, meta, *, device,
                    dtype: Optional[torch.dtype] = None):
     """(GMGArrays, GMGMeta) of the port from a JAX geometric-multigrid
     hierarchy: `arrays` with the fields of
@@ -133,7 +133,7 @@ def gmg_from_numpy(arrays, meta, device="cpu",
         coarse_cheby=cheby)
 
 
-def ic0_from_numpy(arrays, device="cpu",
+def ic0_from_numpy(arrays, *, device,
                    dtype: Optional[torch.dtype] = None) -> IC0Arrays:
     """The port's IC0Arrays from a JAX IC(0) factor: `arrays` with the
     fields of pfemfort_tpu.solve.ic0.IC0Arrays (t_cols, t_vals, tt_cols,

@@ -139,7 +139,7 @@ def box_tet_coords_em(x0, x1, nex, y0, y1, ney, z0, z1, nez,
 
 
 def box_tet_coords_em_device(x0, x1, nex, y0, y1, ney, z0, z1, nez,
-                             dtype=torch.float32, device="cpu"
+                             dtype=torch.float32, *, device
                              ) -> torch.Tensor:
     """`box_tet_coords_em` built on `device` from three aranges: lattice
     coordinates are affine in the cell index, so the (4, 3, E) tensor is

@@ -187,7 +187,7 @@ def build_samg(indptr: np.ndarray, indices: np.ndarray, vals: np.ndarray,
                filter_tol: float = 0.01,
                filter_from_level: int = 2,
                aggressive_levels: int = 0,
-               dtype=torch.float32, device="cpu"
+               dtype=torch.float32, *, device
                ) -> Optional[Tuple[SAMGArrays, SAMGMeta]]:
     """Build the hierarchy from a host CSR of the (reduced, SPD) system;
     the blocks are staged on `device` in `dtype`.  None when the system

@@ -11,15 +11,18 @@ forms:
              and whose diagonals read no more bytes than its ELL slots;
   * 'ell':   kernel B2 (sparse/ell_spmv_cuda.py), square or rectangular
              (the transfers P0 and P0^T), sentinel column n_cols;
+  * 'hybrid': a square block's dense diagonals on B1 and the rest on B2
+             (sparse/hybrid.py), split at each of the JAX package's three
+             (fill threshold, diagonal cap) pairs;
   * 'dense': torch.matmul, for a block of at most 24M entries (the JAX
              package's threshold) whose dense form reads no more bytes than
              its ELL slots: the deep coarse levels, which are nearly dense.
 
-Of the eligible forms the one that reads the fewest bytes is taken.  On a
-CPU tensor every form takes its plain version (the kernel wrappers decide
-that from the tensor's device).  The JAX package's TPU cost constants, its
-VMEM gate and its slot-gather packing do not apply to the card and are not
-carried over.
+Of the eligible forms the one that reads the fewest bytes is taken (on a
+tie the earlier form in the list above).  On a CPU tensor every form takes
+its plain version (the kernel wrappers decide that from the tensor's
+device).  The JAX package's TPU cost constants, its VMEM gate and its
+slot-gather packing do not apply to the card and are not carried over.
 
 Reference role: PETSc PC=hypre/gamg and PC=ILU applications inside KSPSolve
 (PFEMFort src/solverpetsc.F:198-209, 476).
@@ -40,11 +43,17 @@ from pfemfort_tpu_torch.sparse.dia import DIAMatrix
 from pfemfort_tpu_torch.sparse.dia_spmv_cuda import dia_spmv
 from pfemfort_tpu_torch.sparse.ell_spmv_cuda import ell_spmv
 from pfemfort_tpu_torch.sparse.formats import ELLMatrix
+from pfemfort_tpu_torch.sparse.hybrid import HybridMatrix, apply_hybrid, \
+    build_hybrid_plan, hybrid_from_plan, plan_bytes
 
 DENSE_MAX_ENTRIES = 24_000_000
 DIA_MAX_OFFSETS = 128
+# (fill threshold, diagonal cap) of the hybrid splits tried per square block
+# (the JAX package's amg_device.build_device_ell)
+HYBRID_SPLITS = ((0.2, 48), (0.05, 160), (0.015, 384))
 
-# Products applied per route, keyed 'dia', 'ell', 'ell_rect' or 'dense':
+# Products applied per route, keyed 'dia', 'ell', 'ell_rect', 'hybrid' or
+# 'dense':
 # lets a caller see which form carried a preconditioner's work.
 route_calls: collections.Counter = collections.Counter()
 
@@ -56,14 +65,16 @@ route_calls: collections.Counter = collections.Counter()
 @dataclasses.dataclass(frozen=True)
 class DeviceEll:
     """A static sparse block in the form chosen for it: exactly one of
-    `ell`, `dia` (with its offsets as an int32 tensor) or `dense` is set."""
-    kind: str                               # 'ell' | 'dia' | 'dense'
+    `ell`, `dia` (with its offsets as an int32 tensor), `hybrid` or `dense`
+    is set."""
+    kind: str                         # 'ell' | 'dia' | 'hybrid' | 'dense'
     n_rows: int
     n_cols: int
     ell: Optional[ELLMatrix] = None
     dia: Optional[DIAMatrix] = None
     dia_offsets: Optional[torch.Tensor] = None
     dense: Optional[torch.Tensor] = None
+    hybrid: Optional[HybridMatrix] = None
 
 
 def _dia_form(cols: np.ndarray, vals: np.ndarray, n: int):
@@ -81,7 +92,7 @@ def _dia_form(cols: np.ndarray, vals: np.ndarray, n: int):
 
 
 def build_device_ell(cols: np.ndarray, vals: np.ndarray, n_cols: int,
-                     dtype=torch.float32, device="cpu") -> DeviceEll:
+                     dtype=torch.float32, *, device) -> DeviceEll:
     """Lay out one (n, K) padded-ELL block (sentinel col >= n_cols) on
     `device` in the form that reads the fewest bytes per product."""
     cols = np.asarray(cols)
@@ -93,9 +104,16 @@ def build_device_ell(cols: np.ndarray, vals: np.ndarray, n_cols: int,
         dia = _dia_form(cols, vals, n)
         if dia is not None:
             cand.append((len(dia[0]) * n * size, "dia", dia))
+        for thr, max_d in HYBRID_SPLITS:
+            plan = build_hybrid_plan(cols, n, fill_threshold=thr,
+                                     max_d=max_d)
+            cand.append((plan_bytes(plan, size), "hybrid", plan))
     if n * n_cols <= DENSE_MAX_ENTRIES:
         cand.append((n * n_cols * size, "dense", None))
     _, kind, dia = min(cand, key=lambda c: c[0])
+    if kind == "hybrid":
+        return DeviceEll(kind="hybrid", n_rows=n, n_cols=n_cols,
+                         hybrid=hybrid_from_plan(dia, vals, dtype, device))
     as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
     if kind == "dia":
         offsets, dvals = dia
@@ -126,6 +144,9 @@ def device_ell_apply(d: DeviceEll, x: torch.Tensor) -> torch.Tensor:
     if d.kind == "dia":
         route_calls["dia"] += 1
         return dia_spmv(d.dia, x, d.dia_offsets)
+    if d.kind == "hybrid":
+        route_calls["hybrid"] += 1
+        return apply_hybrid(d.hybrid, x)
     route_calls["ell" if d.n_rows == d.n_cols else "ell_rect"] += 1
     return ell_spmv(d.ell, x)
 
@@ -157,7 +178,7 @@ class SAMGDevice(NamedTuple):
 
 
 def build_samg_device(arrs: SAMGArrays, sizes: Tuple[int, ...],
-                      dtype=torch.float32, device="cpu",
+                      dtype=torch.float32, *, device,
                       external_fine_op: bool = False) -> SAMGDevice:
     """Route every block of a built hierarchy onto `device`.  `sizes`: rows
     per level (SAMGMeta.sizes).  `external_fine_op`: skip ops[0], the
@@ -231,7 +252,7 @@ class IC0Device(NamedTuple):
 
 
 def build_ic0_device(arrs: IC0Arrays, dtype=torch.float32,
-                     device="cpu") -> IC0Device:
+                     *, device) -> IC0Device:
     """Route an IC0Arrays factor's triangular blocks (solve/ic0.py)."""
     route = lambda A: build_device_ell(*_host(A), n_cols=A.n_cols,
                                        dtype=dtype, device=device)

@@ -114,7 +114,7 @@ def ic0_factor_csr(indptr, indices, vals, n: int):
 
 
 def build_ic0_from_csr(indptr, indices, vals, n: int, lane_pad: int = 8,
-                       dtype=torch.float32, device="cpu") -> IC0Arrays:
+                       dtype=torch.float32, *, device) -> IC0Arrays:
     """Factor a host CSR (possibly permuted into the solve's row order) and
     stage T / T^T and 1/diag(L) on `device`."""
     tr, tc, tv, dinv = ic0_factor_csr(indptr, indices, vals, n)

@@ -238,11 +238,13 @@ def build_gmg(
     bc_mask_full: np.ndarray,
     element_fn: Callable,
     dtype=torch.float32,
-    device="cpu",
+    *,
+    device,
     nu: Optional[int] = None,
     omega: Optional[float] = None,
     coarsest_max_dof: int = 4096,
     min_cells: int = 2,
+    fine_matrix: Optional[DIAMatrix] = None,
 ) -> Optional[Tuple[GMGArrays, GMGMeta]]:
     """Build the multigrid hierarchy for a structured mesh.
 
@@ -260,6 +262,11 @@ def build_gmg(
     multigrid, parallel/dist_mg.py) and omega = (4/3) / lambda_max of the
     fine level (power iteration, solve/precond.py; 0.8 is the same rule's
     value for the Poisson lattice).  Pass nu and omega to choose.
+
+    `fine_matrix`: optional pre-assembled AND pre-symmetrized (identity BC
+    rows and columns) full-system fine-level DIA on `device`; skips the
+    fine-level element assembly, the only expensive level at 48M elements
+    (solve/highprec.py).
     """
     st = mesh.structure or {}
     if st.get("kind") not in ("box_tet", "rect_tria"):
@@ -292,9 +299,12 @@ def build_gmg(
 
     # --- per-level operators ---
     mats, inv_diags, masks = [], [], []
-    for m, bm in zip(meshes, masks_np):
+    for li, (m, bm) in enumerate(zip(meshes, masks_np)):
         bc = torch.as_tensor(bm, device=device)
-        A = _assemble_level(m, ndof, element_fn, dtype, device, bc)
+        if li == 0 and fine_matrix is not None:
+            A = fine_matrix
+        else:
+            A = _assemble_level(m, ndof, element_fn, dtype, device, bc)
         d = dia_diagonal(A)
         mats.append(A)
         inv_diags.append(torch.where(d != 0, 1.0 / d, 0.0))

@@ -178,7 +178,7 @@ def _hierarchies(case, **kw):
     jb = jamg.build_samg(indptr, indices, vals, n, ndof=ndof,
                          dtype=jnp.float64, **kw)
     tb = tamg.build_samg(indptr, indices, vals, n, ndof=ndof,
-                         dtype=torch.float64, **kw)
+                         dtype=torch.float64, **kw, device="cpu")
     return jb, tb
 
 
@@ -209,7 +209,7 @@ def test_build_samg_with_nodal_blocks_and_nullspace_matches_jax():
     ja, jmeta = jamg.build_samg(indptr, indices, vals, n, dtype=jnp.float64,
                                 **kw)
     ta, tmeta = tamg.build_samg(indptr, indices, vals, n,
-                                dtype=torch.float64, **kw)
+                                dtype=torch.float64, **kw, device="cpu")
     assert tmeta.sizes == tuple(jmeta.sizes) and len(tmeta.sizes) >= 2
     for blk, c, v in zip(ta.p0, ja.p0_cols, ja.p0_vals):
         _assert_ell_equal(blk, c, v)
@@ -227,10 +227,12 @@ def test_vcycle_matches_both_jax_forms(case):
     z_dev = np.asarray(jad.samg_device_preconditioner(jdev, jmeta)(
         jnp.asarray(r)))
     assert _rel(z_dev, z_port) < TOL
-    carried, cmeta = interop.samg_from_numpy(ja, jmeta, dtype=torch.float64)
-    tdev = tad.build_samg_device(ta, tmeta.sizes, dtype=torch.float64)
+    carried, cmeta = interop.samg_from_numpy(ja, jmeta, dtype=torch.float64,
+                                             device="cpu")
+    tdev = tad.build_samg_device(ta, tmeta.sizes, dtype=torch.float64,
+                                 device="cpu")
     fine = tad.build_samg_device(ta, tmeta.sizes, dtype=torch.float64,
-                                 external_fine_op=True)
+                                 external_fine_op=True, device="cpu")
     assert fine.ops[0] is None
     spmv0 = lambda x: spmv_ell(ta.a[0], x)
     rt = torch.as_tensor(r)
@@ -249,7 +251,7 @@ def test_amg_solve_matches_jax_on_the_lattice(n):
     tm, td = pt.generate.box_tet(0, 1, n, 0, 1, n, 0, 1, n)
     rj = ft.solve_poisson(jm, jd, rtol=1e-10, precond="amg")
     rt = pt.solve_poisson(tm, td, rtol=1e-10, precond="amg",
-                          dtype=torch.float64)
+                          dtype=torch.float64, device="cpu")
     assert rj.timings["precond_used"] == "amg"
     assert rt.timings["precond_used"] == "amg"
     assert rt.timings["amg_levels"][0] == (n - 1) ** 3
@@ -267,7 +269,7 @@ def test_amg_elasticity_matches_jax():
     tm = interop.mesh_from_numpy(jm.etype, jm.coords, jm.conn, jm.structure)
     rt = solve_implicit(tm, 3, dbc, lambda c: te.elasticity_stiffness(
         c, "tetra4", te.dmat_3d(210.0, 0.3)), force_bc=fbc, rtol=1e-10,
-        dtype=torch.float64, precond="amg")
+        dtype=torch.float64, precond="amg", device="cpu")
     assert rj.timings["precond_used"] == rt.timings["precond_used"] == "amg"
     assert rt.stats.converged and rt.stats.iters == int(rj.stats.iters)
     assert _rel(rt.u_full, rj.u_full) < 1e-9
@@ -280,7 +282,7 @@ def test_amg_falls_back_to_jacobi_on_a_small_system():
     tm, td = pt.generate.box_tet(0, 1, 6, 0, 1, 6, 0, 1, 6)
     rj = ft.solve_poisson(jm, jd, rtol=1e-10, precond="amg")
     rt = pt.solve_poisson(tm, td, rtol=1e-10, precond="amg",
-                          dtype=torch.float64)
+                          dtype=torch.float64, device="cpu")
     assert rj.timings["precond_used"] == "jacobi"
     assert rt.timings["precond_requested"] == "amg"
     assert rt.timings["precond_used"] == "jacobi"
@@ -298,7 +300,7 @@ def test_amg_on_the_ell_path_is_in_jax_band(case):
                           precond="amg")
     tm = interop.mesh_from_numpy(jm.etype, jm.coords, jm.conn)
     rt = solve_implicit(tm, 1, jd, POISSON_T, rtol=1e-10, recover=False,
-                        dtype=torch.float64, precond="amg")
+                        dtype=torch.float64, precond="amg", device="cpu")
     assert "order_s" in rt.timings
     assert rt.timings["precond_used"] == rj.timings["precond_used"] == "amg"
     assert rt.stats.converged
@@ -311,11 +313,11 @@ def test_device_routing_picks_the_cheapest_form_and_agrees():
     rng = np.random.default_rng(7)
 
     def check(cols, vals, n_cols, kind, dtype=torch.float64):
-        d = tad.build_device_ell(cols, vals, n_cols, dtype=dtype)
+        d = tad.build_device_ell(cols, vals, n_cols, dtype=dtype, device="cpu")
         assert d.kind == kind
         x = torch.as_tensor(rng.standard_normal(n_cols), dtype=dtype)
         ref = spmv_ell(interop.ell_from_numpy(cols, vals, n_cols,
-                                              dtype=dtype), x)
+                                              dtype=dtype, device="cpu"), x)
         tad.route_calls.clear()
         y = tad.device_ell_apply(d, x)
         assert sum(tad.route_calls.values()) == 1

@@ -46,7 +46,7 @@ def _both(A, b, **kw):
     uj, sj = jcg.cg_solve(op_j, b, precond=jcg.jacobi_preconditioner(diag_j),
                           **kw)
     At = interop.dia_from_numpy(np.asarray(A.vals), A.offsets, A.n_rows,
-                                A.lattice, dtype=torch.float64)
+                                A.lattice, dtype=torch.float64, device="cpu")
     op_t, diag_t = operator_and_diag(At)
     ut, st = tcg.cg_solve(op_t, torch.tensor(np.asarray(b)),
                           precond=tcg.jacobi_preconditioner(diag_t), **kw)
@@ -80,7 +80,7 @@ def test_cg_maxiter_and_x0_match():
     uj, sj = jcg.cg_solve(op_j, b, x0=jnp.asarray(x0), rtol=1e-9,
                           precond=jcg.jacobi_preconditioner(diag_j))
     At = interop.dia_from_numpy(np.asarray(A.vals), A.offsets, A.n_rows,
-                                A.lattice, dtype=torch.float64)
+                                A.lattice, dtype=torch.float64, device="cpu")
     op_t, diag_t = operator_and_diag(At)
     x0_t = torch.as_tensor(x0)
     ut, st = tcg.cg_solve(op_t, torch.tensor(np.asarray(b)), x0=x0_t,
@@ -105,7 +105,7 @@ def test_cg_without_preconditioner_matches():
     op_j, _ = j_operator_and_diag(A)
     uj, sj = jcg.cg_solve(op_j, b, rtol=1e-9)
     At = interop.dia_from_numpy(np.asarray(A.vals), A.offsets, A.n_rows,
-                                A.lattice, dtype=torch.float64)
+                                A.lattice, dtype=torch.float64, device="cpu")
     op_t, _ = operator_and_diag(At)
     ut, st = tcg.cg_solve(op_t, torch.tensor(np.asarray(b)), rtol=1e-9)
     assert st.iters == int(sj.iters)

@@ -9,8 +9,9 @@ BiCGStab on the elasticity system is the exception: its count moves by up
 to 2 when b changes by a relative 1e-15, in the JAX package alone (dense
 against DIA operator, or b perturbed: 84 to 87 iterations at rtol 1e-8),
 so the two counts may differ by 2.
-The preconditioners, the full system (`--bc-mode full`) and `--refine` run
-like the JAX CLI; options and subcommands the port does not carry raise
+The preconditioners, the full system (`--bc-mode full`), `--refine`,
+`--matrix-free`, `cfd` and `partition` run like the JAX CLI; `bench` and
+`--shards > 1`, which the port does not carry yet, raise
 NotImplementedError naming their ROADMAP item.  One run goes through a fresh process that
 never imports JAX.
 """
@@ -196,15 +197,19 @@ def test_vtktovtu_matches_jax(tet_prefix, tmp_path, capsys):
 ])
 def test_options_outside_the_slice_raise(tet_prefix, cantilever, tmp_path,
                                          capsys, argv, item):
-    """Options still outside the port raise naming their ROADMAP item; those
-    of A.6 and A.7, ported since, now run like the JAX CLI (Poisson on the
-    box, elasticity on the cantilever).  The refined elasticity count is a
-    sum of float32 inner CG counts, which move with the order of the sums,
-    so it may differ by 10%."""
+    """Options still outside the port (sharding) raise naming their ROADMAP
+    item; those of A.6, A.7 and A.8, ported since, now run like the JAX CLI
+    (Poisson on the box, elasticity on the cantilever, cfd on the box's
+    files with its Dirichlet rows as velocity BCs).  The refined elasticity
+    count is a sum of float32 inner CG counts, which move with the order of
+    the sums, so it may differ by 10%."""
     cmd, opts = argv[0], argv[1:]
-    if item not in ("A.6", "A.7"):
+    if item not in ("A.6", "A.7", "A.8"):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             t_main([cmd, *_files(tet_prefix), *opts, *CPU])
+        return
+    if cmd == "cfd":
+        _cfd_matches_jax(_files(tet_prefix), tmp_path, capsys)
         return
     files = _files(cantilever, force=True) if cmd == "elasticity" \
         else _files(tet_prefix)
@@ -214,6 +219,56 @@ def test_options_outside_the_slice_raise(tet_prefix, cantilever, tmp_path,
     slack = int(0.1 * _iters(out_j)) if cmd == "elasticity" else 0
     assert abs(_iters(out_t) - _iters(out_j)) <= slack
     assert np.abs(_vtk_solution(vt) - _vtk_solution(vj)).max() <= VTK_TOL
+
+
+def _vtk_vector(path, ncomp):
+    return _vtk_solution(path).reshape(-1, ncomp)
+
+
+def _cfd_matches_jax(files, tmp_path, capsys, nsteps="15"):
+    """The cfd subcommand in both packages: the printed final max|div u|
+    and the VTK velocity (and 2D pressure) agree."""
+    vj, vt = str(tmp_path / "cj.vtk"), str(tmp_path / "ct.vtk")
+    argv = ["cfd", *files, "--nsteps", nsteps, "--dt", "1e-3"]
+    out_j, out_t = _run_both(capsys, [*argv, "-o", vj],
+                             [*argv, "-o", vt, *CPU])
+    div = lambda out: float(re.search(r"max\|div u\| = (\S+)", out)[1])
+    assert abs(div(out_t) - div(out_j)) <= 1e-3 * div(out_j)
+    assert f"{nsteps} steps in" in out_t and "Wrote" in out_t
+    assert np.abs(_vtk_solution(vt) - _vtk_solution(vj)).max() <= VTK_TOL
+
+
+def test_cfd_on_a_renumbered_cavity_matches_jax(tmp_path, capsys):
+    """A 2D lid-driven cavity written as .dat files with its nodes renumbered
+    (so the pressure operator is ELL): (u, v, p) as the JAX CLI writes it."""
+    from pfemfort_tpu.mesh import generate as jgen
+    from pfemfort_tpu.mesh import io as jio
+
+    mesh = jgen.rect_tria(0, 1, 10, 0, 1, 10)
+    perm = np.random.default_rng(0).permutation(mesh.n_node)
+    mesh = mesh.renumbered(perm.astype(np.int64))
+    x, y = mesh.coords.T
+    wall = np.isclose(x, 0) | np.isclose(x, 1) | np.isclose(y, 0)
+    lid = np.isclose(y, 1) & ~wall
+    rows = [[n, c, 1.0 if (lid[n] and c == 0) else 0.0]
+            for n in np.nonzero(wall | lid)[0] for c in (0, 1)]
+    prefix = str(tmp_path / "cavity")
+    jio.write_dat(prefix, mesh, dirichlet=np.asarray(rows, np.float64))
+    _cfd_matches_jax(_files(prefix), tmp_path, capsys, nsteps="20")
+
+
+@pytest.mark.parametrize("method", ["rcb", "greedy"])
+def test_partition_matches_jax(tet_prefix, tmp_path, capsys, method):
+    """The partition subcommand: the same part sizes printed and the same
+    per-element part ids in the VTK file."""
+    pj, ptv = str(tmp_path / "pj.vtk"), str(tmp_path / "pt.vtk")
+    argv = ["partition", *_files(tet_prefix)[:2], "--nparts", "3",
+            "--method", method]
+    out_j, out_t = _run_both(capsys, [*argv, "-o", pj], [*argv, "-o", ptv])
+    assert out_t.replace(ptv, "") == out_j.replace(pj, "")
+    assert "Partitioned 216 elements into 3 parts" in out_t
+    cells = lambda p: Path(p).read_text().split("SCALARS procid int 1")[1]
+    assert cells(ptv) == cells(pj)
 
 
 @pytest.mark.parametrize("extra", [
@@ -258,7 +313,14 @@ def test_options_file_pc_type_matches_jax(tet_prefix, tmp_path, capsys,
 @pytest.mark.parametrize("argv,item", [
     (["partition", "N", "E", "--nparts", "2"], "A.9"),
     (["bench", "8"], "A.10")])
-def test_subcommands_outside_the_slice_raise(argv, item):
+def test_subcommands_outside_the_slice_raise(tet_prefix, capsys, argv, item):
+    """bench still raises naming A.10; partition, once listed under A.9,
+    is ported and prints the JAX CLI's part sizes."""
+    if argv[0] == "partition":
+        argv = ["partition", *_files(tet_prefix)[:2], *argv[3:]]
+        out_j, out_t = _run_both(capsys, argv, argv)
+        assert out_t == out_j and "into 2 parts" in out_t
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         t_main(argv)
 

@@ -396,11 +396,12 @@ def test_ell_kernel_on_amg_transfers_and_ic0_triangles(cuda, dtype):
 
     indptr, indices, vals, n = _ordered_csr(16)
     arrs, meta = build_samg(indptr, indices, vals, n, dtype=torch.float64,
-                            coarsest_max=100)
+                            coarsest_max=100, device="cpu")
     assert len(meta.sizes) >= 3
     for P in (*arrs.p0, *arrs.p0t, *arrs.p, *arrs.pt, *arrs.a):
         _kernel_vs_plain(P, cuda, dtype)
-    ic0 = build_ic0_from_csr(indptr, indices, vals, n, dtype=torch.float64)
+    ic0 = build_ic0_from_csr(indptr, indices, vals, n, dtype=torch.float64,
+                             device="cpu")
     assert bool((ic0.t.cols >= n).all(1).any())      # the first row
     for T in (ic0.t, ic0.tt):
         _kernel_vs_plain(T, cuda, dtype)
@@ -457,7 +458,8 @@ def test_routed_blocks_on_the_card_match_the_cpu(cuda):
         for dtype in (torch.float32, torch.float64):
             d_gpu = build_device_ell(cols, vals, n_cols, dtype=dtype,
                                      device=cuda)
-            d_cpu = build_device_ell(cols, vals, n_cols, dtype=dtype)
+            d_cpu = build_device_ell(cols, vals, n_cols, dtype=dtype,
+                                     device="cpu")
             assert d_gpu.kind == d_cpu.kind == kind
             y = device_ell_apply(d_gpu, torch.as_tensor(x, dtype=dtype,
                                                         device=cuda))
@@ -492,3 +494,92 @@ def test_preconditioned_solves_on_the_card_match_the_cpu(cuda, case):
     assert np.abs(r_gpu.u_full - r_cpu.u_full).max() <= 1e-9
     assert r_gpu.timings.get("precond_used") == r_cpu.timings.get(
         "precond_used")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_hybrid_on_the_card_matches_plain(cuda, dtype):
+    """The hybrid split (sparse/hybrid.py) of a banded block with far
+    couplings: B1 on its dense diagonals and B2 on the remainder, both
+    launched, against the same split on the CPU (the plain versions)."""
+    from pfemfort_tpu_torch.sparse.hybrid import apply_hybrid, \
+        build_hybrid_plan, hybrid_from_plan
+
+    rng = np.random.default_rng(11)
+    n = 50_000
+    cols = np.concatenate([np.arange(n)[:, None] + [-300, -1, 0, 1, 300],
+                           rng.integers(0, n, (n, 3))], 1)
+    cols = np.sort(np.where((cols < 0) | (cols >= n), n, cols), 1)
+    cols[:, 1:][cols[:, 1:] == cols[:, :-1]] = n
+    vals = np.where(cols < n, rng.standard_normal(cols.shape), 0.0)
+    plan = build_hybrid_plan(cols, n)
+    assert plan.D == 5 and plan.nnz_rem > 0
+    x = rng.standard_normal(n)
+    H_gpu = hybrid_from_plan(plan, vals, dtype, cuda)
+    H_cpu = hybrid_from_plan(plan, vals, dtype, "cpu")
+    before = (dia_spmv_cuda.kernel.launches, ell_spmv_cuda.kernel.launches)
+    y = apply_hybrid(H_gpu, torch.as_tensor(x, dtype=dtype, device=cuda))
+    torch.cuda.synchronize()
+    assert (dia_spmv_cuda.kernel.launches, ell_spmv_cuda.kernel.launches) \
+        == (before[0] + 1, before[1] + 1)
+    ref = apply_hybrid(H_cpu, torch.as_tensor(x, dtype=dtype))
+    assert _rel_err(y.cpu(), ref) <= REL_TOL[dtype]
+
+
+def test_float32_ell_solve_on_the_card_runs_pure_b1(cuda):
+    """A renumbered box in float32: the hybrid in lex order is 15 dense
+    diagonals and no remainder, so the card launches B1 only."""
+    from pfemfort_tpu_torch.drivers.common import solve_implicit
+    from pfemfort_tpu_torch.elements.poisson import poisson_element_matrices
+
+    mesh, dbc = _permuted_box(16)
+    fn = lambda c: poisson_element_matrices(c, "tetra4", source=-6.0)
+    run = lambda d: solve_implicit(mesh, 1, dbc, fn, device=d,
+                                   dtype=torch.float32, rtol=1e-6,
+                                   recover=False)
+    r_cpu = run("cpu")
+    before = (dia_spmv_cuda.kernel.launches, ell_spmv_cuda.kernel.launches)
+    r_gpu = run(cuda)
+    b1 = dia_spmv_cuda.kernel.launches - before[0]
+    assert ell_spmv_cuda.kernel.launches == before[1]
+    assert b1 >= r_gpu.stats.iters
+    assert r_gpu.timings["hybrid_diagonals"] == 15
+    assert abs(r_gpu.stats.iters - r_cpu.stats.iters) <= 1
+    assert np.abs(r_gpu.u_full - r_cpu.u_full).max() <= 1e-4
+
+
+def test_highprec_on_the_card_matches_the_cpu(cuda):
+    from pfemfort_tpu_torch.solve.highprec import solve_box_poisson_1e8
+
+    mesh, dbc = generate.box_tet(0, 1, 24, 0, 1, 24, 0, 1, 24)
+    (u_c, s_c, _), (u_g, s_g, _) = (solve_box_poisson_1e8(mesh, dbc, device=d)
+                                    for d in ("cpu", cuda))
+    assert s_g.converged and s_g.relres <= 1e-8
+    assert s_g.outer_iters == s_c.outer_iters
+    assert np.abs(u_g - u_c).max() <= 1e-9
+    assert np.abs(u_g - (mesh.coords ** 2).sum(1)).max() < 1e-7
+
+
+def test_matrix_free_on_the_card_matches_the_cpu(cuda):
+    mesh, dbc = generate.box_tet(0, 1, 24, 0, 1, 24, 0, 1, 24)
+    r_cpu, r_gpu = (solve_poisson(mesh, dbc, device=d, dtype=torch.float64,
+                                  rtol=1e-10, matrix_free=True)
+                    for d in ("cpu", cuda))
+    assert r_gpu.stats.converged
+    assert abs(r_gpu.stats.iters - r_cpu.stats.iters) <= 1
+    assert np.abs(r_gpu.u_full - r_cpu.u_full).max() <= 1e-10
+
+
+def test_cfd_on_the_card_matches_the_cpu(cuda):
+    from pfemfort_tpu_torch.cfd import fractional_step_ns
+
+    mesh = generate.rect_tria(0, 1, 16, 0, 1, 16)
+    x, y = mesh.coords.T
+    wall = np.isclose(x, 0) | np.isclose(x, 1) | np.isclose(y, 0)
+    lid = np.isclose(y, 1) & ~wall
+    bcs = np.asarray([[n, c, 1.0 if (lid[n] and c == 0) else 0.0]
+                      for n in np.nonzero(wall | lid)[0] for c in (0, 1)])
+    r_cpu, r_gpu = (fractional_step_ns(mesh, bcs, nu_visc=0.05, dt=2e-3,
+                                       nsteps=20, dtype=torch.float64,
+                                       device=d) for d in ("cpu", cuda))
+    assert np.abs(r_gpu.velocity - r_cpu.velocity).max() <= 1e-10
+    assert np.abs(r_gpu.div_history - r_cpu.div_history).max() <= 1e-9

@@ -82,7 +82,8 @@ def test_spmv_dia_ragged_offsets_past_both_ends():
     x = rng.standard_normal(n)
     Aj = jdia.DIAMatrix(vals=jnp.asarray(vals), offsets=offsets, n_rows=n)
     y_jax = np.asarray(jdia.spmv_dia(Aj, jnp.asarray(x)))
-    At = interop.dia_from_numpy(vals, offsets, n, None, dtype=torch.float64)
+    At = interop.dia_from_numpy(vals, offsets, n, None, dtype=torch.float64,
+                                device="cpu")
     y = tdia.spmv_dia(At, torch.as_tensor(x)).numpy()
     np.testing.assert_allclose(y, y_jax, rtol=0, atol=ATOL)
     ref = np.zeros(n)
@@ -108,7 +109,8 @@ def test_decompose_offsets_matches(offsets, shape):
 def test_dia_diagonal_matches(offsets):
     vals = np.random.default_rng(4).standard_normal((len(offsets), 9))
     Aj = jdia.DIAMatrix(vals=jnp.asarray(vals), offsets=offsets, n_rows=9)
-    At = interop.dia_from_numpy(vals, offsets, 9, None, dtype=torch.float64)
+    At = interop.dia_from_numpy(vals, offsets, 9, None, dtype=torch.float64,
+                                device="cpu")
     np.testing.assert_array_equal(tdia.dia_diagonal(At).numpy(),
                                   np.asarray(jdia.dia_diagonal(Aj)))
 
@@ -131,14 +133,14 @@ def test_operator_and_diag_on_cpu_takes_the_plain_version():
                                    torch.int32])
 def test_dia_operator_rejects_other_dtypes(dtype):
     A = interop.dia_from_numpy(np.ones((3, 8)), (-1, 0, 1), 8, None,
-                               dtype=dtype)
+                               dtype=dtype, device="cpu")
     with pytest.raises(TypeError):
         dia_operator(A)(torch.ones(8, dtype=dtype))
 
 
 def test_dia_operator_rejects_mixed_dtypes_and_other_devices():
     A = interop.dia_from_numpy(np.ones((3, 8)), (-1, 0, 1), 8, None,
-                               dtype=torch.float32)
+                               dtype=torch.float32, device="cpu")
     with pytest.raises(TypeError):
         dia_operator(A)(torch.ones(8, dtype=torch.float64))
     Am = interop.dia_from_numpy(np.ones((3, 8)), (-1, 0, 1), 8, None,
@@ -167,4 +169,5 @@ def test_kernel_builds_for_sm90a_into_an_ignored_directory():
 
 def test_interop_dia_rejects_mismatched_shape():
     with pytest.raises(ValueError):
-        interop.dia_from_numpy(np.ones((2, 8)), (-1, 0, 1), 8, None)
+        interop.dia_from_numpy(np.ones((2, 8)), (-1, 0, 1), 8, None,
+                               device="cpu")

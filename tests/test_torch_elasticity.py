@@ -182,13 +182,14 @@ def test_solve_elasticity_with_point_loads_matches_jax(kind):
               plane="strain" if kind.endswith("strain") else "stress")
     rj = j_solve(mesh, dbc, 240.565, 0.3, **kw)
     rt = pt.solve_elasticity(_port_mesh(mesh), dbc, 240.565, 0.3,
-                             dtype=torch.float64, **kw)
+                             dtype=torch.float64, **kw, device="cpu")
     _assert_same(rt, rj)
     assert "order_s" not in rt.timings      # the DIA pattern path
     assert np.abs(rt.u_full).max() > 0
     # the loads move the solution: without them it differs
     r0 = pt.solve_elasticity(_port_mesh(mesh), dbc, 240.565, 0.3,
-                             bforce=bforce, rtol=1e-10, dtype=torch.float64)
+                             bforce=bforce, rtol=1e-10, dtype=torch.float64,
+                             device="cpu")
     assert np.abs(r0.u_full - rt.u_full).max() > 1e-3 * np.abs(
         rt.u_full).max()
 
@@ -210,7 +211,8 @@ def test_renumbered_elasticity_matches_jax(kind, recover):
     rt = solve_implicit(
         _port_mesh(mesh), mesh.ndim, dbc,
         lambda c: te.elasticity_stiffness(c, mesh.etype, D, bforce=bforce),
-        force_bc=fbc, dtype=torch.float64, rtol=1e-10, recover=recover)
+        force_bc=fbc, dtype=torch.float64, rtol=1e-10, recover=recover,
+                        device="cpu")
     _assert_same(rt, rj, slack=0 if recover else 1)
     assert rt.timings.get("structure_recovered", False) == recover
     assert ("order_s" in rt.timings) == (not recover)
@@ -238,7 +240,7 @@ def test_elasticity_patch_test_is_exact():
     dbc = np.stack([np.repeat(bd, 3), np.tile(np.arange(3), len(bd)),
                     u_lin[bd].reshape(-1)], 1)
     res = pt.solve_elasticity(mesh, dbc, 240.565, 0.3, rtol=1e-12,
-                              dtype=torch.float64)
+                              dtype=torch.float64, device="cpu")
     assert res.stats.converged
     assert np.abs(res.u_full - u_lin.reshape(-1)).max() < 1e-12
 
@@ -277,7 +279,7 @@ def test_elasticity_options_outside_the_slice_raise(option):
     kw = dict(force_bc=fbc, rtol=1e-10)
     rj = j_solve(mesh, dbc, 240.565, 0.3, **kw, **option)
     rt = pt.solve_elasticity(_port_mesh(mesh), dbc, 240.565, 0.3,
-                             dtype=torch.float64, **kw, **option)
+                             dtype=torch.float64, **kw, **option, device="cpu")
     if option.get("refine"):
         assert rt.stats.converged and bool(rj.stats.converged)
         assert rt.stats.relres <= 1e-10 and float(rj.stats.relres) <= 1e-10
@@ -288,6 +290,6 @@ def test_elasticity_options_outside_the_slice_raise(option):
     _assert_same(rt, rj)
     if "precond" in option:
         r0 = pt.solve_elasticity(_port_mesh(mesh), dbc, 240.565, 0.3,
-                                 dtype=torch.float64, **kw)
+                                 dtype=torch.float64, **kw, device="cpu")
         assert rt.stats == r0.stats and "precond_used" not in rt.timings
         np.testing.assert_array_equal(rt.u_full, r0.u_full)

@@ -80,7 +80,8 @@ def test_spmv_ell_matches_jax_and_the_slotgather_reference(case):
     valsv = np.where(plan.src >= 0,
                      vals.reshape(-1)[np.clip(plan.src, 0, None)], 0.0)
     y_sg = apply_slotgather_reference(plan, valsv, x)
-    At = interop.ell_from_numpy(cols, vals, n_cols, dtype=torch.float64)
+    At = interop.ell_from_numpy(cols, vals, n_cols, dtype=torch.float64,
+                                device="cpu")
     y = tspmv.spmv_ell(At, torch.as_tensor(x)).numpy()
     _close(y, y_jax)
     _close(y, y_sg)
@@ -95,7 +96,8 @@ def test_extract_diagonal_matches_jax(case):
     cols, vals, x = _case(case)
     Aj = JELL(cols=jnp.asarray(cols.astype(np.int32)), vals=jnp.asarray(vals),
               n_cols=len(x))
-    At = interop.ell_from_numpy(cols, vals, len(x), dtype=torch.float64)
+    At = interop.ell_from_numpy(cols, vals, len(x), dtype=torch.float64,
+                                device="cpu")
     np.testing.assert_array_equal(tspmv.extract_diagonal(At).numpy(),
                                   np.asarray(jspmv.extract_diagonal(Aj)))
 
@@ -104,7 +106,8 @@ def test_operator_and_diag_on_cpu_takes_the_plain_version():
     cols, vals, x = _case("square_n_cols_sentinel")
     Aj = JELL(cols=jnp.asarray(cols.astype(np.int32)), vals=jnp.asarray(vals),
               n_cols=len(x))
-    At = interop.ell_from_numpy(cols, vals, len(x), dtype=torch.float64)
+    At = interop.ell_from_numpy(cols, vals, len(x), dtype=torch.float64,
+                                device="cpu")
     op_j, diag_j = j_operator_and_diag(Aj)
     before = ell_spmv_cuda.kernel.launches
     op_t, diag_t = operator_and_diag(At)
@@ -118,14 +121,15 @@ def test_operator_and_diag_on_cpu_takes_the_plain_version():
                                    torch.int32])
 def test_ell_spmv_rejects_other_dtypes(dtype):
     A = interop.ell_from_numpy(np.zeros((4, 2), np.int64), np.ones((4, 2)),
-                               4, dtype=dtype)
+                               4, dtype=dtype, device="cpu")
     with pytest.raises(TypeError):
         ell_spmv(A, torch.ones(4, dtype=dtype))
 
 
 def test_ell_spmv_rejects_wrong_shapes_mixed_dtypes_and_other_devices():
     cols = np.array([[0, 1], [1, 4], [2, 4], [3, 4]])
-    A = interop.ell_from_numpy(cols, np.ones((4, 2)), 4, dtype=torch.float32)
+    A = interop.ell_from_numpy(cols, np.ones((4, 2)), 4, dtype=torch.float32,
+                               device="cpu")
     with pytest.raises(TypeError):
         ell_spmv(A, torch.ones(4, dtype=torch.float64))
     with pytest.raises(ValueError):
@@ -138,9 +142,11 @@ def test_ell_spmv_rejects_wrong_shapes_mixed_dtypes_and_other_devices():
 
 def test_interop_ell_rejects_bad_input():
     with pytest.raises(ValueError):
-        interop.ell_from_numpy(np.zeros((3, 2)), np.zeros((3, 3)), 3)
+        interop.ell_from_numpy(np.zeros((3, 2)), np.zeros((3, 3)), 3,
+                               device="cpu")
     with pytest.raises(ValueError):
-        interop.ell_from_numpy(-np.ones((3, 2)), np.zeros((3, 2)), 3)
+        interop.ell_from_numpy(-np.ones((3, 2)), np.zeros((3, 2)), 3,
+                               device="cpu")
 
 
 def test_ell_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):

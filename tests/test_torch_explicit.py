@@ -83,7 +83,7 @@ def test_explicit_dynamics_matches_jax(name):
     rt = explicit_dynamics(tmesh, dbc, nsteps=NSTEPS, bforce_fn=t_bf,
                            snapshot_every=12,
                            snapshot_cb=lambda k, d: snaps_t.append((k, d)),
-                           dtype=torch.float64, **kw)
+                           dtype=torch.float64, **kw, device="cpu")
     for field in ("disp", "velo", "acce", "disp_prev", "probe_history"):
         a, b = getattr(rt, field), getattr(rj, field)
         assert a.shape == b.shape, field
@@ -100,11 +100,11 @@ def test_explicit_dynamics_without_snapshots_or_probes_matches_jax():
     kw["probe_dofs"] = ()
     rj = j_explicit(mesh, dbc, nsteps=NSTEPS, bforce_fn=j_bf, **kw)
     rt = explicit_dynamics(tmesh, dbc, nsteps=NSTEPS, bforce_fn=t_bf,
-                           dtype=torch.float64, **kw)
+                           dtype=torch.float64, **kw, device="cpu")
     assert rt.probe_history.shape == rj.probe_history.shape == (NSTEPS, 0)
     assert _rel_err(rt.disp, rj.disp) < RTOL
     rt0 = explicit_dynamics(tmesh, dbc, nsteps=NSTEPS, dtype=torch.float64,
-                            **kw)
+                            **kw, device="cpu")
     rj0 = j_explicit(mesh, dbc, nsteps=NSTEPS, **kw)
     assert _rel_err(rt0.disp, rj0.disp) < RTOL
 
@@ -129,7 +129,7 @@ def test_pulse_step_in_float32_falls_where_jax_puts_it():
 
     explicit_dynamics(tmesh, _clamped(mesh), preset.E, preset.nu,
                       preset.dens, preset.dt, len(ks), bforce_fn=t_bforce,
-                      start_step=int(ks[0]), dtype=torch.float32)
+                      start_step=int(ks[0]), dtype=torch.float32, device="cpu")
     assert all(dt == torch.float32 for dt, _ in seen)
     np.testing.assert_array_equal([on for _, on in seen], j_on)
     assert j_on[ks == 500].item() and not j_on[ks == 501].item()
@@ -149,7 +149,8 @@ def test_float32_run_through_the_pulse_matches_jax():
                     init_state=state, **kw)
     rt = explicit_dynamics(tmesh, dbc, nsteps=12, bforce_fn=t_bf,
                            dtype=torch.float32,
-                           init_state=tck.ExplicitState(*state), **kw)
+                           init_state=tck.ExplicitState(*state), **kw,
+                           device="cpu")
     assert rt.probe_history.dtype == np.float32
     assert _rel_err(rt.probe_history, rj.probe_history) < 1e-5
     assert _rel_err(rt.disp, rj.disp) < 1e-5
@@ -159,16 +160,17 @@ def test_float32_run_through_the_pulse_matches_jax():
 def test_checkpoint_resume_is_bit_identical(tmp_path, dtype):
     _, tmesh, dbc, _, t_bf, kw = _setup("tria")
     full = explicit_dynamics(tmesh, dbc, nsteps=NSTEPS, bforce_fn=t_bf,
-                             dtype=dtype, **kw)
+                             dtype=dtype, **kw, device="cpu")
     half = explicit_dynamics(tmesh, dbc, nsteps=NSTEPS // 2, bforce_fn=t_bf,
-                             dtype=dtype, **kw)
+                             dtype=dtype, **kw, device="cpu")
     path = str(tmp_path / "state.npz")
     tck.save_state(path, tck.ExplicitState(
         disp=half.disp, disp_prev=half.disp_prev, velo=half.velo,
         step=NSTEPS // 2))
     rest = explicit_dynamics(tmesh, dbc, nsteps=NSTEPS - NSTEPS // 2,
                              bforce_fn=t_bf, dtype=dtype,
-                             init_state=tck.load_state(path), **kw)
+                             init_state=tck.load_state(path), **kw,
+                             device="cpu")
     for field in ("disp", "velo", "acce", "disp_prev"):
         np.testing.assert_array_equal(getattr(rest, field),
                                       getattr(full, field))
@@ -191,7 +193,8 @@ def test_port_resumes_a_jax_checkpoint(tmp_path):
         step=NSTEPS // 2))
     rest = explicit_dynamics(tmesh, dbc, nsteps=NSTEPS - NSTEPS // 2,
                              bforce_fn=t_bf, dtype=torch.float64,
-                             init_state=tck.load_state(path), **kw)
+                             init_state=tck.load_state(path), **kw,
+                             device="cpu")
     assert _rel_err(rest.disp, full.disp) < RTOL
     assert _rel_err(rest.probe_history, full.probe_history[NSTEPS // 2:]) \
         < RTOL

@@ -60,10 +60,12 @@ def test_zero_dirichlet_rows_matches_jax(renumber):
     Aj, bj = j_zdr(A, b, jnp.asarray(mask), jnp.asarray(vals))
     if isinstance(A, JDIA):
         At = interop.dia_from_numpy(np.asarray(A.vals), A.offsets, A.n_rows,
-                                    A.lattice, dtype=torch.float64)
+                                    A.lattice, dtype=torch.float64,
+                                    device="cpu")
     else:
         At = interop.ell_from_numpy(np.asarray(A.cols), np.asarray(A.vals),
-                                    A.n_cols, dtype=torch.float64)
+                                    A.n_cols, dtype=torch.float64,
+                                    device="cpu")
     assert isinstance(A, JDIA) != renumber
     At2, bt = zero_dirichlet_rows(At, torch.tensor(np.asarray(b)),
                                   torch.as_tensor(mask),
@@ -78,9 +80,10 @@ def test_full_mode_matches_reduced_2d(method):
     dbc = _dbc_square(mesh, lambda p: np.sin(np.pi * p[:, 0]) * (1 - p[:, 1]))
     jm = ft.generate.rect_tria(0, 1, 8, 0, 1, 8)
     rj = ft.solve_poisson(jm, dbc, rtol=1e-12, bc_mode="full", method=method)
-    ref = pt.solve_poisson(mesh, dbc, rtol=1e-12, dtype=torch.float64)
+    ref = pt.solve_poisson(mesh, dbc, rtol=1e-12, dtype=torch.float64,
+                           device="cpu")
     res = pt.solve_poisson(mesh, dbc, rtol=1e-12, bc_mode="full",
-                           method=method, dtype=torch.float64)
+                           method=method, dtype=torch.float64, device="cpu")
     assert res.stats.converged
     assert res.stats.iters == int(rj.stats.iters)
     assert np.abs(res.u_full - rj.u_full).max() < 1e-10
@@ -95,9 +98,10 @@ def test_full_mode_matches_reduced_3d():
     jm, jd = ft.generate.box_tet(0, 1, 4, 0, 1, 4, 0, 1, 4)
     mesh, dbc = pt.generate.box_tet(0, 1, 4, 0, 1, 4, 0, 1, 4)
     rj = ft.solve_poisson(jm, jd, rtol=1e-11, bc_mode="full")
-    ref = pt.solve_poisson(mesh, dbc, rtol=1e-11, dtype=torch.float64)
+    ref = pt.solve_poisson(mesh, dbc, rtol=1e-11, dtype=torch.float64,
+                           device="cpu")
     res = pt.solve_poisson(mesh, dbc, rtol=1e-11, bc_mode="full",
-                           dtype=torch.float64)
+                           dtype=torch.float64, device="cpu")
     assert res.stats.converged and res.stats.iters == int(rj.stats.iters)
     assert np.abs(res.u_full - rj.u_full).max() < 1e-10
     assert np.allclose(res.u_full, ref.u_full, atol=1e-8)
@@ -117,7 +121,7 @@ def test_full_mode_on_the_pattern_path_matches_jax(renumber):
         jd[:, 0] = perm[jd[:, 0].astype(np.int64)]
     rj = ft.solve_poisson(jm, jd, rtol=1e-11, bc_mode="full")
     rt = pt.solve_poisson(_port_mesh(jm), jd, rtol=1e-11, bc_mode="full",
-                          dtype=torch.float64)
+                          dtype=torch.float64, device="cpu")
     assert rt.stats.converged and rt.stats.iters == int(rj.stats.iters)
     assert np.abs(rt.u_full - rj.u_full).max() < 1e-10
     assert np.abs(rt.u_full - (jm.coords ** 2).sum(1)).max() < 1e-8
@@ -139,9 +143,10 @@ def test_full_mode_elasticity_with_point_loads_matches_jax(kind):
     kw = dict(force_bc=fbc, rtol=1e-11, bc_mode="full")
     rj = ft.solve_elasticity(jm, dbc, 240.565, 0.3, **kw)
     rt = pt.solve_elasticity(_port_mesh(jm), dbc, 240.565, 0.3,
-                             dtype=torch.float64, **kw)
+                             dtype=torch.float64, **kw, device="cpu")
     ref = pt.solve_elasticity(_port_mesh(jm), dbc, 240.565, 0.3,
-                              force_bc=fbc, rtol=1e-11, dtype=torch.float64)
+                              force_bc=fbc, rtol=1e-11, dtype=torch.float64,
+                              device="cpu")
     scale = np.abs(rj.u_full).max()
     assert rt.stats.converged and rt.stats.iters == int(rj.stats.iters)
     assert np.abs(rt.u_full - rj.u_full).max() < 1e-10 * scale

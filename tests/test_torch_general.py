@@ -96,7 +96,7 @@ def test_permuted_box_solve_implicit_matches_jax(recover):
     rt = solve_implicit(
         tm, 1, dbc, lambda c: poisson_element_matrices(c, "tetra4",
                                                        source=-6.0),
-        dtype=torch.float64, rtol=RTOL, recover=recover)
+        dtype=torch.float64, rtol=RTOL, recover=recover, device="cpu")
     _assert_same(rt, rj)
     assert rt.timings.get("structure_recovered", False) == recover
     assert rj.timings.get("structure_recovered", False) == recover
@@ -110,7 +110,8 @@ def test_scrambled_delaunay_solve_poisson_matches_jax():
     coords, conn, dbc = scrambled_delaunay(8)
     jm, tm = _both_meshes(coords, conn)
     rj = ft.solve_poisson(jm, dbc, rtol=RTOL)
-    rt = pt.solve_poisson(tm, dbc, dtype=torch.float64, rtol=RTOL)
+    rt = pt.solve_poisson(tm, dbc, dtype=torch.float64, rtol=RTOL,
+                          device="cpu")
     _assert_same(rt, rj)
     assert "order_s" in rt.timings
     assert "structure_recovered" not in rt.timings
@@ -130,7 +131,7 @@ def test_dat_round_trip_solves_like_jax(tmp_path):
     np.testing.assert_array_equal(td, jd)
     np.testing.assert_allclose(tm.coords, coords, rtol=0, atol=1e-8)
     rj = ft.solve_poisson(jm, jd, rtol=RTOL)
-    rt = pt.solve_poisson(tm, td, dtype=torch.float64, rtol=RTOL)
+    rt = pt.solve_poisson(tm, td, dtype=torch.float64, rtol=RTOL, device="cpu")
     _assert_same(rt, rj)
 
 
@@ -139,7 +140,7 @@ def test_ell_solve_leaves_jax_out_of_a_fresh_process():
         "import sys, torch, pfemfort_tpu_torch as pt\n"
         "coords, conn, dbc = scrambled_delaunay(8)\n"
         "res = pt.solve_poisson(pt.Mesh('tetra4', coords, conn), dbc, "
-        "dtype=torch.float64)\n"
+        "dtype=torch.float64, device='cpu')\n"
         "assert res.stats.converged and 'order_s' in res.timings\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'pfemfort_tpu.')) or m == 'pfemfort_tpu')\n"

@@ -127,7 +127,7 @@ def _csr(case):
     A, _ = asm(jnp.asarray(to_element_minor(mesh.elem_coords())))
     jcsr = jic._csr_from_matrix(A, getattr(asm, "pattern", None))
     At = interop.dia_from_numpy(np.asarray(A.vals), A.offsets, A.n_rows,
-                                A.lattice, dtype=torch.float64)
+                                A.lattice, dtype=torch.float64, device="cpu")
     tcsr = tic._csr_from_matrix(At)
     for a, b in zip(tcsr, jcsr):
         np.testing.assert_array_equal(a, b)
@@ -195,7 +195,7 @@ def test_ic0_arrays_and_applies_match_jax(case):
     indptr, indices, vals, n = _csr(case)
     ja = jic.build_ic0_from_csr(indptr, indices, vals, n, dtype=jnp.float64)
     ta = tic.build_ic0_from_csr(indptr, indices, vals, n,
-                                dtype=torch.float64)
+                                dtype=torch.float64, device="cpu")
     for (cj, vj), blk in (((ja.t_cols, ja.t_vals), ta.t),
                           ((ja.tt_cols, ja.tt_vals), ta.tt)):
         np.testing.assert_array_equal(blk.cols.numpy(), np.asarray(cj))
@@ -208,10 +208,10 @@ def test_ic0_arrays_and_applies_match_jax(case):
     z_jd = np.asarray(jad.ic0_device_preconditioner(
         jad.build_ic0_device(ja, dtype=jnp.float64))(jnp.asarray(r)))
     assert _rel(z_jd, z_j) < TOL
-    carried = interop.ic0_from_numpy(ja, dtype=torch.float64)
+    carried = interop.ic0_from_numpy(ja, dtype=torch.float64, device="cpu")
     for z in (tic.ic0_preconditioner(ta)(torch.as_tensor(r)),
               tad.ic0_device_preconditioner(tad.build_ic0_device(
-                  ta, dtype=torch.float64))(torch.as_tensor(r)),
+                  ta, dtype=torch.float64, device="cpu"))(torch.as_tensor(r)),
               tic.ic0_preconditioner(carried)(torch.as_tensor(r))):
         assert _rel(z, z_j) < TOL and _rel(z, z_jd) < TOL
 
@@ -222,7 +222,7 @@ def test_ic0_solve_matches_jax_on_the_lattice(n):
     tm, td = pt.generate.box_tet(0, 1, n, 0, 1, n, 0, 1, n)
     rj = ft.solve_poisson(jm, jd, rtol=1e-10, precond="ic0")
     rt = pt.solve_poisson(tm, td, rtol=1e-10, precond="ic0",
-                          dtype=torch.float64)
+                          dtype=torch.float64, device="cpu")
     assert rt.stats.converged and rt.stats.iters == int(rj.stats.iters)
     assert np.abs(rt.u_full - rj.u_full).max() < 1e-10
     assert rt.timings["precond_used"] == "ic0" and "ic0_setup_s" in \
@@ -243,7 +243,7 @@ def test_ic0_elasticity_matches_jax():
     tm = interop.mesh_from_numpy(jm.etype, jm.coords, jm.conn, jm.structure)
     rt = solve_implicit(tm, 3, dbc, lambda c: te.elasticity_stiffness(
         c, "tetra4", te.dmat_3d(210.0, 0.3)), force_bc=fbc, rtol=1e-10,
-        dtype=torch.float64, precond="ic0")
+        dtype=torch.float64, precond="ic0", device="cpu")
     assert rt.stats.converged and abs(rt.stats.iters - int(rj.stats.iters)) \
         <= 1
     assert _rel(rt.u_full, rj.u_full) < 1e-9
@@ -261,7 +261,7 @@ def test_ic0_on_the_ell_path_is_in_jax_band():
                           precond="ic0")
     tm = interop.mesh_from_numpy(jm.etype, jm.coords, jm.conn)
     rt = solve_implicit(tm, 1, jd, POISSON_T, rtol=1e-10, recover=False,
-                        dtype=torch.float64, precond="ic0")
+                        dtype=torch.float64, precond="ic0", device="cpu")
     assert rt.timings["ordering"] == "lex"
     assert rt.timings["precond_used"] == "ic0"
     assert rt.stats.converged

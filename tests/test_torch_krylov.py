@@ -90,7 +90,7 @@ def test_solve_poisson_with_method_matches_jax(method, dims):
     (jm, jd), (tm, td) = ft.generate.box_tet(*args), pt.generate.box_tet(*args)
     rj = ft.solve_poisson(jm, jd, rtol=1e-10, method=method)
     rt = pt.solve_poisson(tm, td, rtol=1e-10, method=method,
-                          dtype=torch.float64)
+                          dtype=torch.float64, device="cpu")
     assert rt.stats.converged and rt.stats.iters == int(rj.stats.iters)
     assert np.abs(rt.u_full - rj.u_full).max() <= 1e-9
 
@@ -106,7 +106,8 @@ def test_solve_elasticity_bicgstab_matches_jax():
     tm = interop.mesh_from_numpy(mesh.etype, mesh.coords, mesh.conn,
                                  mesh.structure)
     rt = pt.solve_elasticity(tm, dbc, 240.565, 0.3, force_bc=fbc, rtol=1e-10,
-                             method="bicgstab", dtype=torch.float64)
+                             method="bicgstab", dtype=torch.float64,
+                             device="cpu")
     # BiCGStab's count on an elasticity system moves by up to 2 when b
     # changes by a relative 1e-15, in the JAX package alone (dense against
     # DIA operator, or b perturbed)
@@ -121,4 +122,4 @@ def test_solve_elasticity_bicgstab_matches_jax():
 def test_unknown_method_is_refused():
     tm, td = pt.generate.box_tet(0, 1, 3, 0, 1, 3, 0, 1, 3)
     with pytest.raises(ValueError, match="method"):
-        pt.solve_poisson(tm, td, method="minres")
+        pt.solve_poisson(tm, td, method="minres", device="cpu")

@@ -85,13 +85,14 @@ def test_device_coords_match_jax_and_the_host_build(dims, box):
     x0, x1, y0, y1, z0, z1 = box
     args = (x0, x1, nex, y0, y1, ney, z0, z1, nez)
     cj = np.asarray(jgen.box_tet_coords_em_device(*args, dtype=jnp.float64))
-    ct = tgen.box_tet_coords_em_device(*args, dtype=torch.float64)
+    ct = tgen.box_tet_coords_em_device(*args, dtype=torch.float64,
+                                       device="cpu")
     host = tgen.box_tet_coords_em(*args, dtype=np.float64)
     assert ct.shape == (4, 3, 6 * nex * ney * nez) and ct.dtype == \
         torch.float64
     assert np.abs(ct.numpy() - cj).max() < 1e-14
     assert np.abs(ct.numpy() - host).max() < 1e-14
-    c32 = tgen.box_tet_coords_em_device(*args)
+    c32 = tgen.box_tet_coords_em_device(*args, device="cpu")
     assert c32.dtype == torch.float32
     assert np.abs(c32.numpy() - host).max() < 1e-6
 
@@ -135,7 +136,8 @@ def _both_gmg(kind):
     # ndof = 1 only (see test_elasticity_mg_needs_its_own_smoothing)
     kw = dict(coarsest_max_dof=64, nu=1, omega=0.8)
     jb = jmg.build_gmg(jm, ndof, mask, jfn, dtype=jnp.float64, **kw)
-    tb = tmg.build_gmg(tm, ndof, mask, tfn, dtype=torch.float64, **kw)
+    tb = tmg.build_gmg(tm, ndof, mask, tfn, dtype=torch.float64, **kw,
+                       device="cpu")
     return jb, tb, mask
 
 
@@ -158,7 +160,8 @@ def test_build_gmg_levels_match_jax(kind):
 @pytest.mark.parametrize("kind", KINDS)
 def test_vcycle_matches_jax_on_both_hierarchies(kind):
     (ja, jmeta), (ta, tmeta), mask = _both_gmg(kind)
-    carried = interop.gmg_from_numpy(ja, jmeta, dtype=torch.float64)
+    carried = interop.gmg_from_numpy(ja, jmeta, dtype=torch.float64,
+                                     device="cpu")
     r = np.random.default_rng(3).standard_normal(ta.mats[0].n_rows)
     r[mask] = 0.0
     zj = np.asarray(jmg.gmg_preconditioner(ja, jmeta)(jnp.asarray(r)))
@@ -203,7 +206,7 @@ def test_mg_solve_matches_jax(kind):
         rj = ft.solve_poisson(jm, jd, bc_mode="full", precond="mg",
                               rtol=1e-10)
         rt = pt.solve_poisson(tm, td, bc_mode="full", precond="mg",
-                              rtol=1e-10, dtype=torch.float64)
+                              rtol=1e-10, dtype=torch.float64, device="cpu")
         assert np.abs(rt.u_full - (tm.coords ** 2).sum(1)).max() < 1e-7
     elif kind == "tria":
         jm = ft.generate.rect_tria(0, 1, 16, 0, 1, 16)
@@ -216,7 +219,7 @@ def test_mg_solve_matches_jax(kind):
         rj = ft.solve_poisson(jm, dbc, bc_mode="full", precond="mg",
                               rtol=1e-10)
         rt = pt.solve_poisson(tm, dbc, bc_mode="full", precond="mg",
-                              rtol=1e-10, dtype=torch.float64)
+                              rtol=1e-10, dtype=torch.float64, device="cpu")
     else:
         jm, _ = ft.generate.box_tet(0, 1, 4, 0, 1, 4, 0, 1, 4)
         tm, _ = pt.generate.box_tet(0, 1, 4, 0, 1, 4, 0, 1, 4)
@@ -226,7 +229,7 @@ def test_mg_solve_matches_jax(kind):
         kw = dict(force_bc=fbc, rtol=1e-10, bc_mode="full", precond="mg")
         rj = ft.solve_elasticity(jm, dbc, 210.0, 0.3, **kw)
         rt = pt.solve_elasticity(tm, dbc, 210.0, 0.3, dtype=torch.float64,
-                                 **kw)
+                                 **kw, device="cpu")
     assert rt.stats.converged and rt.stats.iters == int(rj.stats.iters)
     assert np.abs(rt.u_full - rj.u_full).max() < 1e-10
     assert rt.timings["precond_used"] == "mg"
@@ -244,7 +247,8 @@ def test_mg_chebyshev_coarse_tail_matches_jax():
                               dtype=jnp.float64, coarsest_max_dof=64)
     ta, tmeta = tmg.build_gmg(tm, 1, mask,
                               lambda c: poisson_element_matrices(c, "tetra4"),
-                              dtype=torch.float64, coarsest_max_dof=64)
+                              dtype=torch.float64, coarsest_max_dof=64,
+                              device="cpu")
     assert tmeta.coarse_cheby is not None and ta.coarse_inv.shape == (1, 1)
     assert tmeta.coarse_cheby[2] == jmeta.coarse_cheby[2]
     assert abs(tmeta.coarse_cheby[0] - jmeta.coarse_cheby[0]) < 1e-12
@@ -272,7 +276,7 @@ def test_mg_falls_back_to_jacobi_on_an_unstructured_mesh():
     tm = interop.mesh_from_numpy(jm.etype, jm.coords, jm.conn)
     rj = ft.solve_poisson(jm, dbc, bc_mode="full", precond="mg", rtol=1e-10)
     rt = pt.solve_poisson(tm, dbc, bc_mode="full", precond="mg", rtol=1e-10,
-                          dtype=torch.float64)
+                          dtype=torch.float64, device="cpu")
     assert rt.timings["precond_requested"] == "mg"
     assert rt.timings["precond_used"] == "jacobi"
     assert "mg_setup_s" not in rt.timings
@@ -295,17 +299,18 @@ def test_elasticity_mg_needs_its_own_smoothing():
                     np.zeros(3 * len(left))], 1).astype(np.float64)
     kw = dict(bforce=(0.1, 0.0, 0.0), rtol=1e-6, dtype=torch.float64)
     res = pt.solve_elasticity(mesh, dbc, 240.565, 0.3, bc_mode="full",
-                              precond="mg", maxiter=200, **kw)
+                              precond="mg", maxiter=200, **kw, device="cpu")
     assert res.timings["mg_levels"] == [14739, 2187]
     assert res.stats.converged and res.stats.iters <= 30
-    ref = pt.solve_elasticity(mesh, dbc, 240.565, 0.3, **kw)
+    ref = pt.solve_elasticity(mesh, dbc, 240.565, 0.3, **kw, device="cpu")
     assert np.abs(res.u_full - ref.u_full).max() < 1e-5 * np.abs(
         ref.u_full).max()
     jax_like = functools.partial(tmg.build_gmg, nu=1, omega=0.8)
     orig, dc.build_gmg = dc.build_gmg, jax_like
     try:
         bad = pt.solve_elasticity(mesh, dbc, 240.565, 0.3, bc_mode="full",
-                                  precond="mg", maxiter=200, **kw)
+                                  precond="mg", maxiter=200, **kw,
+                                  device="cpu")
     finally:
         dc.build_gmg = orig
     assert not bad.stats.converged

@@ -50,16 +50,17 @@ def test_solve_poisson_callable_source_kappa_matches_jax():
     src = lambda xg: -6.0 + xg[:, 0] * xg[:, 1]
     kw = dict(source=src, kappa=(1.0, 2.0, 0.5), rtol=1e-11)
     rj = ft.solve_poisson(jm, jd, **kw)
-    rt = pt.solve_poisson(tm, td, dtype=torch.float64, **kw)
+    rt = pt.solve_poisson(tm, td, dtype=torch.float64, **kw, device="cpu")
     assert rt.stats.iters == int(rj.stats.iters)
     assert np.abs(rt.u_full - rj.u_full).max() < 1e-10
 
 
 def test_solve_poisson_default_dtype_and_float32():
     (jm, jd), (tm, td) = _meshes((8, 8, 8))
-    r = pt.solve_poisson(tm, td, rtol=1e-6)
+    r = pt.solve_poisson(tm, td, rtol=1e-6, device="cpu")
     assert r.u_reduced.dtype == torch.get_default_dtype()
-    r32 = pt.solve_poisson(tm, td, rtol=1e-6, dtype=torch.float32)
+    r32 = pt.solve_poisson(tm, td, rtol=1e-6, dtype=torch.float32,
+                           device="cpu")
     assert r32.u_reduced.dtype == torch.float32
     assert r32.stats.converged and r32.stats.relres <= 1e-6
     u_exact = (tm.coords ** 2).sum(axis=1)
@@ -71,8 +72,10 @@ def test_solve_poisson_default_dtype_and_float32():
 def test_interop_mesh_from_numpy_solves_like_the_generator():
     (jm, jd), (tm, td) = _meshes((4, 5, 6))
     m2 = interop.mesh_from_numpy(jm.etype, jm.coords, jm.conn, jm.structure)
-    r1 = pt.solve_poisson(tm, td, dtype=torch.float64, rtol=1e-10)
-    r2 = pt.solve_poisson(m2, jd, dtype=torch.float64, rtol=1e-10)
+    r1 = pt.solve_poisson(tm, td, dtype=torch.float64, rtol=1e-10,
+                          device="cpu")
+    r2 = pt.solve_poisson(m2, jd, dtype=torch.float64, rtol=1e-10,
+                          device="cpu")
     assert r1.stats == r2.stats
     np.testing.assert_array_equal(r1.u_full, r2.u_full)
 
@@ -82,17 +85,14 @@ def test_interop_mesh_from_numpy_solves_like_the_generator():
     dict(precond="amg"), dict(refine=True), dict(bc_mode="full"),
     dict(matrix_free=True)])
 def test_options_outside_the_slice_raise(option):
-    """matrix_free still raises naming its ROADMAP item; the other options,
-    ported since, give the JAX package's iterations and solution (precond
-    'mg' in reduced mode and 'amg' on a system too small to coarsen run
-    Jacobi in both packages)."""
+    """The options once outside the port, all ported since (matrix_free
+    last), give the JAX package's iterations and solution (precond 'mg' in
+    reduced mode and 'amg' on a system too small to coarsen run Jacobi in
+    both packages)."""
     (jm, jd), (tm, td) = _meshes((4, 4, 4))
-    if option.get("matrix_free"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-            pt.solve_poisson(tm, td, **option)
-        return
     rj = ft.solve_poisson(jm, jd, rtol=1e-10, **option)
-    rt = pt.solve_poisson(tm, td, rtol=1e-10, dtype=torch.float64, **option)
+    rt = pt.solve_poisson(tm, td, rtol=1e-10, dtype=torch.float64, **option,
+                          device="cpu")
     assert rt.stats.converged and bool(rj.stats.converged)
     assert rt.stats.iters == int(rj.stats.iters)
     assert np.abs(rt.u_full - rj.u_full).max() < 1e-10
@@ -111,7 +111,8 @@ def test_meshes_outside_the_slice_raise(mesh_kind):
     else:
         td, jd = td[td[:, 2] > 0.5], jd[jd[:, 2] > 0.5]
     rj = ft.solve_poisson(jm, jd, rtol=1e-11)
-    rt = pt.solve_poisson(tm, td, rtol=1e-11, dtype=torch.float64)
+    rt = pt.solve_poisson(tm, td, rtol=1e-11, dtype=torch.float64,
+                          device="cpu")
     assert rt.stats.iters == int(rj.stats.iters)
     assert rt.stats.converged
     assert np.abs(rt.u_full - rj.u_full).max() < 1e-10
@@ -145,3 +146,53 @@ def test_port_sources_name_no_jax_module():
             if words[:1] in (["import"], ["from"]):
                 assert words[1].split(".")[0] not in ("jax", "pfemfort_tpu"), \
                     f"{path}: {line}"
+
+
+def _entry_calls():
+    """Each public entry point, called on a tiny problem with its default
+    device."""
+    from pfemfort_tpu_torch.cfd import fractional_step_ns
+    from pfemfort_tpu_torch.drivers.common import solve_implicit, \
+        solve_implicit_fullsystem
+    from pfemfort_tpu_torch.elements.poisson import poisson_element_matrices
+    from pfemfort_tpu_torch.solve.highprec import solve_box_poisson_1e8
+
+    box, dbc = pt.generate.box_tet(0, 1, 2, 0, 1, 2, 0, 1, 2)
+    clamp = np.array([[n, c, 0.0] for n in dbc[:, 0] for c in range(3)])
+    tri = pt.generate.rect_tria(0, 1, 2, 0, 1, 2)
+    fixed = np.array([[0, 0, 0.0], [0, 1, 0.0]])
+    fn = lambda c: poisson_element_matrices(c, "tetra4", source=-6.0)
+    return {
+        "solve_poisson": (pt.solve_poisson, lambda f: f(box, dbc)),
+        "solve_elasticity": (pt.solve_elasticity,
+                             lambda f: f(box, clamp, 1.0, 0.3)),
+        "solve_implicit": (solve_implicit, lambda f: f(box, 1, dbc, fn)),
+        "solve_implicit_fullsystem": (solve_implicit_fullsystem,
+                                      lambda f: f(box, 1, dbc, fn)),
+        "explicit_dynamics": (pt.explicit_dynamics, lambda f: f(
+            tri, fixed, 1.0, 0.3, 1.0, 1e-3, 1)),
+        "solve_box_poisson_1e8": (solve_box_poisson_1e8,
+                                  lambda f: f(box, dbc)),
+        "fractional_step_ns": (fractional_step_ns, lambda f: f(
+            tri, fixed, nu_visc=0.05, dt=1e-3, nsteps=1)),
+    }
+
+
+@pytest.mark.parametrize("entry", ["solve_poisson", "solve_elasticity",
+                                   "solve_implicit",
+                                   "solve_implicit_fullsystem",
+                                   "explicit_dynamics",
+                                   "solve_box_poisson_1e8",
+                                   "fractional_step_ns"])
+def test_entry_points_default_to_the_card(entry):
+    """Every public entry point runs on the card unless the caller asks
+    for the CPU: its device defaults to 'cuda', and without a card it
+    raises, naming device='cpu', instead of carrying on on the CPU."""
+    import inspect
+
+    fn, call = _entry_calls()[entry]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call(fn)

@@ -80,10 +80,12 @@ def _system(case):
     A, _ = asm(jnp.asarray(to_element_minor(mesh.elem_coords())))
     if isinstance(A, JDIA):
         At = interop.dia_from_numpy(np.asarray(A.vals), A.offsets, A.n_rows,
-                                    A.lattice, dtype=torch.float64)
+                                    A.lattice, dtype=torch.float64,
+                                    device="cpu")
     else:
         At = interop.ell_from_numpy(np.asarray(A.cols), np.asarray(A.vals),
-                                    A.n_cols, dtype=torch.float64)
+                                    A.n_cols, dtype=torch.float64,
+                                    device="cpu")
     assert isinstance(A, JDIA) == case.endswith("dia")
     return A, At, ndof
 
@@ -137,12 +139,13 @@ def test_cheby_solve_matches_jax_on_the_lattice(n):
     tm, td = pt.generate.box_tet(0, 1, n, 0, 1, n, 0, 1, n)
     rj = ft.solve_poisson(jm, jd, rtol=1e-10, precond="cheby")
     rt = pt.solve_poisson(tm, td, rtol=1e-10, precond="cheby",
-                          dtype=torch.float64)
+                          dtype=torch.float64, device="cpu")
     assert rt.stats.converged and rt.stats.iters == int(rj.stats.iters)
     assert np.abs(rt.u_full - rj.u_full).max() < 1e-10
     assert rt.timings["precond_used"] == rt.timings["precond_requested"] \
         == "cheby"
-    r_jac = pt.solve_poisson(tm, td, rtol=1e-10, dtype=torch.float64)
+    r_jac = pt.solve_poisson(tm, td, rtol=1e-10, dtype=torch.float64,
+                             device="cpu")
     assert rt.stats.iters < r_jac.stats.iters
 
 
@@ -160,12 +163,12 @@ def test_cheby_solve_on_an_ell_system_is_in_jax_band():
     tm = interop.mesh_from_numpy(jm.etype, jm.coords, jm.conn)
     rt = solve_implicit(tm, 1, jd, lambda c: poisson_element_matrices(
         c, "tetra4", source=-6.0), dtype=torch.float64, rtol=1e-10,
-        recover=False, precond="cheby")
+        recover=False, precond="cheby", device="cpu")
     assert rt.timings["ordering"] == "lex" and rt.stats.converged
     assert abs(rt.stats.iters - int(rj.stats.iters)) <= \
         0.25 * int(rj.stats.iters)
     assert np.abs(rt.u_full - rj.u_full).max() < 1e-9
     lm, ld = pt.generate.box_tet(0, 1, 7, 0, 1, 7, 0, 1, 7)
     r_lat = pt.solve_poisson(lm, ld, rtol=1e-10, precond="cheby",
-                             dtype=torch.float64)
+                             dtype=torch.float64, device="cpu")
     assert abs(rt.stats.iters - r_lat.stats.iters) <= 1

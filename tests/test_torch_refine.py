@@ -56,9 +56,9 @@ def _both(A, b, x0=None, **kw):
         op64_j, op32_j, jnp.asarray(b), precond32=j_jacobi(d32_j),
         x0=None if x0 is None else jnp.asarray(x0), **kw)
     At = interop.dia_from_numpy(np.asarray(A.vals), A.offsets, A.n_rows,
-                                A.lattice, dtype=torch.float64)
+                                A.lattice, dtype=torch.float64, device="cpu")
     At32 = interop.dia_from_numpy(np.asarray(A.vals), A.offsets, A.n_rows,
-                                  A.lattice, dtype=torch.float32)
+                                  A.lattice, dtype=torch.float32, device="cpu")
     op64_t, _ = t_op(At)
     op32_t, d32_t = t_op(At32)
     xt, st = tref.cg_with_refinement(
@@ -81,7 +81,7 @@ def test_cg_with_refinement_matches_jax(rtol):
     # the reported residual is the true float64 one
     op64, _ = t_op(interop.dia_from_numpy(np.asarray(A.vals), A.offsets,
                                           A.n_rows, A.lattice,
-                                          dtype=torch.float64))
+                                          dtype=torch.float64, device="cpu"))
     bt = torch.as_tensor(b)
     true = float(torch.linalg.vector_norm(bt - op64(xt))
                  / torch.linalg.vector_norm(bt))
@@ -112,7 +112,8 @@ def test_refined_poisson_matches_jax(n):
     tm, td = pt.generate.box_tet(0, 1, n, 0, 1, n, 0, 1, n)
     rj = ft.solve_poisson(jm, jd, rtol=1e-10, refine=True)
     rt = pt.solve_poisson(tm, td, rtol=1e-10, refine=True,
-                          dtype=torch.float32)       # refine ignores dtype
+                          dtype=torch.float32,
+                          device="cpu")       # refine ignores dtype
     assert rt.u_reduced.dtype == torch.float64
     assert rt.stats.converged and rt.stats.relres <= 1e-10
     assert rt.timings["outer_iters"] == rj.timings["outer_iters"]
@@ -136,7 +137,7 @@ def test_refined_solve_on_the_ell_path_matches_jax():
                           rtol=1e-10, refine=True)
     tm = interop.mesh_from_numpy(jm.etype, jm.coords, jm.conn)
     rt = solve_implicit(tm, 1, jd, lambda c: poisson_element_matrices(
-        c, "tetra4", source=-6.0), rtol=1e-10, refine=True)
+        c, "tetra4", source=-6.0), rtol=1e-10, refine=True, device="cpu")
     assert "structure_recovered" not in rt.timings
     assert rt.stats.converged and rt.stats.relres <= 1e-10
     assert rt.timings["outer_iters"] == rj.timings["outer_iters"]

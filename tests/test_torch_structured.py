@@ -226,7 +226,7 @@ def test_rect_tria_poisson_takes_the_structured_path_like_jax(dims):
     assert _rel_err(At.vals, Aj.vals) < RTOL and _rel_err(bt, bj) < RTOL
     rj = ft.solve_poisson(mesh, dbc, source=1.0, rtol=1e-11)
     rt = ptp.solve_poisson(tmesh, dbc, source=1.0, rtol=1e-11,
-                           dtype=torch.float64)
+                           dtype=torch.float64, device="cpu")
     assert rt.stats.iters == int(rj.stats.iters)
     assert np.abs(rt.u_full - rj.u_full).max() < 1e-10
     assert set(rt.timings) == {"pattern_s", "assemble_s", "solve_s"}
