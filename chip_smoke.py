@@ -13,10 +13,16 @@ of JAX.  Phases, one JSON line each:
   3. kernel          each kernel against its plain PyTorch SpMV on the card,
                      in float32 (relative error <= 1e-5) and float64
                      (<= 1e-12).  DIA: the box_tet n=96 lattice system and a
-                     ragged one.  ELL: box_tet n=96 with its nodes randomly
-                     renumbered (857,375 rows, K = 16) in the solve's row
-                     order and unordered, and a ragged rectangular block with
-                     both sentinels.  Then small float64 solves on the card
+                     ragged one.  ELL (B2 takes the sliced layout of
+                     sparse/sliced.py; every block checked to hold no slice
+                     wider than its longest row, and a block laid out here
+                     also against spmv_ell on its padded (N, K) form):
+                     box_tet n=96 with its
+                     nodes randomly renumbered (857,375 rows, K = 16) in the
+                     solve's row order and unordered, a ragged rectangular
+                     block with both sentinels, and a one-slot rectangular
+                     block with empty slices and a part slice.  Then small
+                     float64 solves on the card
                      against the same solves on the CPU (box_tet n=8 on the
                      DIA path, scrambled Delaunay n=32 on the ELL path);
   4. solve           solve_poisson on box_tet n=96, float32, rtol 1e-6
@@ -106,7 +112,8 @@ of JAX.  Phases, one JSON line each:
                      vortex on box_tet 64x64x32 of [0,pi]^2 x [0,pi/2]
                      (free slip, 250 steps; energy within 30% of
                      exp(-4 nu t); B1) and a renumbered 64x64 cavity (B2);
-                     ms per step, CG iterations and launches per step;
+                     ms per step, CG iterations and launches per step, and
+                     the steps whose pressure CG stopped at its cap;
  23. cli             partition (rcb, greedy), poisson --matrix-free and cfd
                      on a renumbered cavity's .dat files, as subprocesses;
  24. timing          kernel, plain and library SpMV times (plain, kernel,
@@ -121,7 +128,9 @@ of JAX.  Phases, one JSON line each:
                      order) on the 2D one; of the phase-16 blocks and the
                      hybrid's two parts on the Delaunay matrix; each timed
                      twice: back to back (host cost per call included) and
-                     queued behind a sleep kernel (device time only); bytes,
+                     queued behind a sleep kernel (device time only); B2, for
+                     a block under 50 MB, also with a cold L2 (a 256 MB
+                     scratch write before each product); bytes,
                      the bound at the card's data-sheet memory rate,
                      launches per solve, the GB/s they imply, and each
                      solve's seconds by stage, launches and ms per
@@ -137,6 +146,7 @@ the n=96 matrix; the errors of every case), and the result line
 
 import collections
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -153,6 +163,7 @@ from pfemfort_tpu_torch import Mesh, build_dofmap, explicit_dynamics, \
 from pfemfort_tpu_torch.assembly import pattern as pattern_mod
 from pfemfort_tpu_torch.assembly import structured
 from pfemfort_tpu_torch.cfd import fractional_step_ns
+from pfemfort_tpu_torch.cfd.navierstokes import PRESSURE_CG_MAXITER
 from pfemfort_tpu_torch.assembly.fullsystem import zero_dirichlet_rows
 from pfemfort_tpu_torch.drivers import presets
 from pfemfort_tpu_torch.drivers.common import build_ell_ordering, \
@@ -174,7 +185,8 @@ from pfemfort_tpu_torch.sparse.dia import DIAMatrix, spmv_dia
 from pfemfort_tpu_torch.sparse.formats import ELLMatrix
 from pfemfort_tpu_torch.sparse.ordering import coord_lex_order, \
     permuted_sorted_cols
-from pfemfort_tpu_torch.sparse.spmv import spmv_ell
+from pfemfort_tpu_torch.sparse.sliced import SLICE, ell_to_sliced, unslice
+from pfemfort_tpu_torch.sparse.spmv import spmv_ell, spmv_sliced
 
 N_FLAGSHIP = 96
 N_RECOVERED = 48
@@ -183,6 +195,7 @@ ITERS_BAR, ITERS_SLACK = 271, 10     # f32 Jacobi-CG to rtol 1e-6 (JAX package)
 NODAL_ERR_MAX = 2e-4
 REL_ERR_MAX = {torch.float32: 1e-5, torch.float64: 1e-12}
 KERNELS = {"dia_spmv": dia_spmv_cuda.kernel, "ell_spmv": ell_spmv_cuda.kernel}
+COLD_L2_BELOW_BYTES = 50e6    # the L2's size: a smaller block may stay there
 # Data-sheet HBM peaks in GB/s; an unknown card is measured against the SXM
 # part's.
 PEAK_GBPS = {"H100 PCIe": 2000.0, "H100 NVL": 3900.0, "H100": 3350.0}
@@ -366,6 +379,33 @@ def _ragged_ell(device, rng):
                      n_cols=n_cols)
 
 
+def _skinny_ell(device, rng):
+    """K = 1, a rectangular block (n_cols = n_rows // 8, as an AMG P0), with
+    runs of empty slices and a part slice at the end (n_rows % 32 != 0)."""
+    n_rows = 100_003
+    n_cols = n_rows // 8
+    cols = rng.integers(0, n_cols, (n_rows, 1))
+    empty = (np.arange(n_rows) // SLICE) % 5 == 3
+    cols[empty] = n_cols
+    vals = np.where(empty[:, None], 0.0, rng.standard_normal((n_rows, 1)))
+    return ELLMatrix(cols=torch.as_tensor(cols, dtype=torch.int32,
+                                          device=device),
+                     vals=torch.as_tensor(vals, dtype=torch.float32,
+                                          device=device),
+                     n_cols=n_cols)
+
+
+def _tight(S):
+    """True when no slice of the sliced block S is wider than its longest
+    row (counted from S's own columns)."""
+    count = (unslice(S).cols < S.n_cols).sum(1)
+    count = torch.cat([count, count.new_zeros(S.n_slices * SLICE
+                                              - S.n_rows)])
+    width = (S.slice_ptr[1:] - S.slice_ptr[:-1]) // SLICE
+    return bool(torch.equal(count.view(-1, SLICE).amax(1)
+                            if S.n_slices else width, width))
+
+
 def _ragged_dia(device, dtype, rng):
     n = 300_007
     offsets = (-(n + 5), -4097, -1, 0, 3, 12_345, n + 2)
@@ -422,17 +462,34 @@ def _device_ms(fn, reps=100, sleep_cycles=200_000_000):
     return events[1].elapsed_time(events[2]) / reps, queued_ms < slept_ms
 
 
-def _timed_device(plain, kernel, library):
-    """_device_ms of each, in the order plain, kernel, library, kernel,
-    plain: means, and for each whether all its runs hid the host."""
-    run = {"plain": plain, "kernel": kernel, "library": library}
+def _timed_device(run):
+    """_device_ms of each function of the dict `run`, in its order and then
+    back (plain, kernel, library, kernel, plain): means, and for each
+    whether all its runs hid the host."""
     times = {k: [] for k in run}
     hidden = {k: True for k in run}
-    for k in ("plain", "kernel", "library", "kernel", "plain"):
+    for k in [*run, *reversed(run)]:
         ms, ok = _device_ms(run[k])
         times[k].append(ms)
         hidden[k] = hidden[k] and ok
     return {k: float(np.mean(v)) for k, v in times.items()}, hidden
+
+
+def _each_device_ms(fn, scratch=None, reps=30, sleep_cycles=200_000_000):
+    """Device ms of fn, each call timed alone by its own pair of events,
+    all queued behind a sleep kernel; with `scratch`, a write of it (more
+    than the L2 holds) before each call, so that each finds the L2 cold."""
+    pairs = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+             for _ in range(reps)]
+    torch.cuda._sleep(sleep_cycles)
+    for start, end in pairs:
+        if scratch is not None:
+            scratch.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return float(np.mean([start.elapsed_time(end) for start, end in pairs]))
 
 
 def _csr_library(A):
@@ -449,7 +506,8 @@ def _csr_library(A):
         keep = (cols >= 0) & (cols < N) & (vals != 0)
         n_cols = N
     else:
-        cols, vals = A.cols.to(torch.int64), A.vals
+        E = unslice(A)
+        cols, vals = E.cols.to(torch.int64), E.vals
         keep = cols < A.n_cols
         n_cols = A.n_cols
     counts = keep.sum(1)
@@ -559,33 +617,53 @@ def _ell_from_dia(A):
                      vals=vals.contiguous(), n_cols=N)
 
 
+def _ell_errors(label, A, x, errs):
+    """B2 against spmv_sliced on the sliced block A; an ELLMatrix is laid
+    out here first, and B2 is then also held against spmv_ell on the padded
+    block, which does not go through the layout."""
+    refs = {}
+    if isinstance(A, ELLMatrix):
+        refs["padded"] = spmv_ell(dataclasses.replace(
+            A, vals=A.vals.to(x.dtype)), x)
+        A = ell_to_sliced(A)
+    _check(_tight(A), f"ell_spmv {label}: a slice is wider than its rows")
+    Ad = dataclasses.replace(A, vals=A.vals.to(x.dtype))
+    y = ell_spmv_cuda.ell_spmv(Ad, x)
+    refs["sliced"] = spmv_sliced(Ad, x)
+    err = {k: _errors(y, ref) for k, ref in refs.items()}
+    abs_err = max(a for a, _ in err.values())
+    rel_err = max(r for _, r in err.values())
+    errs[("ell_spmv", label, x.dtype)] = abs_err
+    _phase("kernel", kernel="ell_spmv", case=label, dtype=str(x.dtype),
+           rows=A.n_rows, n_cols=A.n_cols, max_width=A.max_width,
+           slots=A.n_slots, max_abs_err=abs_err, max_rel_err=rel_err,
+           max_rel_err_by_reference={k: r for k, (_, r) in err.items()},
+           bound=REL_ERR_MAX[x.dtype])
+    _check(rel_err <= REL_ERR_MAX[x.dtype],
+           f"ell_spmv {label} {x.dtype}: rel err {rel_err}")
+
+
 def _kernel_errors(label, A, errs, rng):
     """Each kernel against its plain version on A in float32 and float64."""
     dev = A.vals.device
     is_dia = isinstance(A, DIAMatrix)
-    name = "dia_spmv" if is_dia else "ell_spmv"
-    n = A.n_rows if is_dia else A.n_cols
-    x64 = rng.standard_normal(n)
+    x64 = rng.standard_normal(A.n_rows if is_dia else A.n_cols)
     for dtype in (torch.float32, torch.float64):
         x = torch.as_tensor(x64, dtype=dtype, device=dev)
-        if is_dia:
-            Ad = DIAMatrix(vals=A.vals.to(dtype), offsets=A.offsets,
-                           n_rows=A.n_rows, lattice=A.lattice)
-            offsets = torch.tensor(A.offsets, dtype=torch.int32, device=dev)
-            y, y_ref = dia_spmv_cuda.dia_spmv(Ad, x, offsets), spmv_dia(Ad, x)
-        else:
-            Ad = ELLMatrix(cols=A.cols, vals=A.vals.to(dtype),
-                           n_cols=A.n_cols)
-            y, y_ref = ell_spmv_cuda.ell_spmv(Ad, x), spmv_ell(Ad, x)
-        abs_err, rel_err = _errors(y, y_ref)
-        errs[(name, label, dtype)] = abs_err
-        _phase("kernel", kernel=name, case=label, dtype=str(dtype),
-               rows=A.n_rows,
-               **({"diagonals": len(A.offsets)} if is_dia else {"k": A.k}),
-               max_abs_err=abs_err, max_rel_err=rel_err,
-               bound=REL_ERR_MAX[dtype])
+        if not is_dia:
+            _ell_errors(label, A, x, errs)
+            continue
+        Ad = DIAMatrix(vals=A.vals.to(dtype), offsets=A.offsets,
+                       n_rows=A.n_rows, lattice=A.lattice)
+        offsets = torch.tensor(A.offsets, dtype=torch.int32, device=dev)
+        abs_err, rel_err = _errors(dia_spmv_cuda.dia_spmv(Ad, x, offsets),
+                                   spmv_dia(Ad, x))
+        errs[("dia_spmv", label, dtype)] = abs_err
+        _phase("kernel", kernel="dia_spmv", case=label, dtype=str(dtype),
+               rows=A.n_rows, diagonals=len(A.offsets), max_abs_err=abs_err,
+               max_rel_err=rel_err, bound=REL_ERR_MAX[dtype])
         _check(rel_err <= REL_ERR_MAX[dtype],
-               f"{name} {label} {dtype}: rel err {rel_err}")
+               f"dia_spmv {label} {dtype}: rel err {rel_err}")
 
 
 def _counted(fn, counted, label=None):
@@ -628,6 +706,7 @@ def _elasticity3d(dev, counted, errs, rng):
     A_ell = _ell_from_dia(A)
     _kernel_errors("elasticity3d n=48", A, errs, rng)
     _kernel_errors("elasticity3d n=48 as ELL", A_ell, errs, rng)
+    A_ell = ell_to_sliced(A_ell)
     res = {}
     for dtype in (torch.float32, torch.float64):
         label = f"elasticity3d {dtype}"
@@ -690,9 +769,16 @@ def _elasticity2d(dev, counted, errs, rng):
            **r_dia.timings)
 
     perm, (pmesh, pdbc, pfbc) = _renumber(mesh, dbc, fbc)
-    A_ell, _ = _assembled(pmesh, pdbc, _elastic_fn("tria3", D), dtype, dev,
-                          ordered=True)
-    _check(A_ell.k == 16, f"renumbered 2D ELL has K = {A_ell.k}")
+    A_ell, pat = _assembled(pmesh, pdbc, _elastic_fn("tria3", D), dtype, dev,
+                            ordered=True)
+    # the pattern pads K to a multiple of 8; the sliced block reads no slot
+    # past a slice's longest row (a tria3 node couples to at most 7 nodes)
+    _phase("elasticity2d", pattern_k=pat.ell_k,
+           sliced_max_width=A_ell.max_width, slots=A_ell.n_slots,
+           nnz=pat.nnz)
+    _check(pat.ell_k == 16 and A_ell.max_width == 14,
+           f"renumbered 2D ELL: K = {pat.ell_k}, sliced max width "
+           f"{A_ell.max_width}")
     _kernel_errors("elasticity2d 1024x512", A_dia, errs, rng)
     _kernel_errors("elasticity2d renumbered, ordered", A_ell, errs, rng)
     r_ell, l_ell = _counted(lambda: solve_implicit(
@@ -842,7 +928,7 @@ def _cli(dev):
 def _guard_plain_spmv():
     """Count plain SpMV calls on card tensors inside the kernel wrappers."""
     for mod, name in ((dia_spmv_cuda, "spmv_dia"),
-                      (ell_spmv_cuda, "spmv_ell")):
+                      (ell_spmv_cuda, "spmv_sliced")):
         plain = getattr(mod, name)
 
         def counted(A, x, plain=plain, name=name):
@@ -872,10 +958,15 @@ def _shapes_recorded(into):
     counts in its kernel's own total, once."""
     for name, k in KERNELS.items():
         def launch(entry, *args, name=name, inner=k.launch):
-            # dia: (vals, offsets, D, n, ...); ell: (vals, cols, n, K,
-            # n_cols, ...); the entry's suffix is the dtype
-            key = ((entry, int(args[3]), int(args[2])) if name == "dia_spmv"
-                   else (entry, int(args[2]), int(args[4]), int(args[3])))
+            # dia: (vals, offsets, D, n, ...); ell: (vals, cols, slice_ptr,
+            # n_rows, n_cols, ...), and the widest slice of the block, the
+            # wrapper's `A`, tells two blocks of one size apart; the
+            # entry's suffix is the dtype
+            if name == "dia_spmv":
+                key = (entry, int(args[3]), int(args[2]))
+            else:
+                key = (entry, int(args[3]), int(args[4]),
+                       sys._getframe(1).f_locals["A"].max_width)
             into[key] += 1
             return inner(entry, *args)
         k.launch = launch
@@ -891,7 +982,7 @@ def _shape_key(A):
     suffix = {torch.float32: "f32", torch.float64: "f64"}[A.vals.dtype]
     if isinstance(A, DIAMatrix):
         return (f"dia_spmv_{suffix}", A.n_rows, len(A.offsets))
-    return (f"ell_spmv_{suffix}", A.n_rows, A.n_cols, A.k)
+    return (f"ell_spmv_{suffix}", A.n_rows, A.n_cols, A.max_width)
 
 
 def _check_pc(label, r, launches, on):
@@ -1100,9 +1191,10 @@ def _to(A: ELLMatrix, dev):
 
 def _preconditioner_blocks(dev, errs, rng, A_ord):
     """Phase 16: the preconditioners' blocks at the main path's shapes, each
-    kernel against its plain version.  Returns {label: matrix}."""
+    kernel against its plain version.  Returns {label: matrix} (the ELL
+    blocks sliced)."""
     t0 = time.perf_counter()
-    indptr, indices, vals = _csr_of_ell(A_ord)
+    indptr, indices, vals = _csr_of_ell(unslice(A_ord))
     n = A_ord.n_rows
     arrs, meta = build_samg(indptr, indices, vals, n, ndof=1,
                             dtype=torch.float32, device="cpu")
@@ -1139,7 +1231,8 @@ def _preconditioner_blocks(dev, errs, rng, A_ord):
     _check(gmeta.shapes[-1] == (13, 13, 13), f"gmg levels {gmeta.shapes}")
     for label, A in blocks.items():
         _kernel_errors(label, A, errs, rng)
-    return blocks
+    return {label: ell_to_sliced(A) if isinstance(A, ELLMatrix) else A
+            for label, A in blocks.items()}
 
 
 def _cli_preconditioners(dev):
@@ -1232,11 +1325,14 @@ def _delaunay_f32(dev, counted, errs, rng):
     H = ordering.hybrid.pack(A0.vals)
     x = torch.as_tensor(rng.standard_normal(A_ord.n_rows),
                         dtype=torch.float32, device=dev)
-    abs_err, rel_err = _errors(hybrid.apply_hybrid(H, x), spmv_ell(A_ord, x))
+    abs_err, rel_err = _errors(hybrid.apply_hybrid(H, x),
+                               spmv_sliced(A_ord, x))
     errs[("hybrid", "delaunay f32", torch.float32)] = abs_err
     _phase("kernel", kernel="hybrid (B1 + B2)", case=f"scrambled Delaunay "
            f"n={N_DELAUNAY_F32} in its solve's row order", rows=A_ord.n_rows,
-           diagonals=len(H.dia.offsets), k_rem=H.rem.k, k=A_ord.k,
+           diagonals=len(H.dia.offsets), k_rem=t["hybrid_k_rem"],
+           rem_max_width=H.rem.max_width, k=assemble.pattern.ell_k,
+           max_width=A_ord.max_width,
            ordering=ordering.name, max_abs_err=abs_err, max_rel_err=rel_err,
            bound=REL_ERR_MAX[torch.float32])
     _check(rel_err <= REL_ERR_MAX[torch.float32],
@@ -1363,6 +1459,9 @@ def _cfd(dev, counted):
             dtype=torch.float32, device=dev, **kw), counted, f"cfd {label}")
         secs = time.perf_counter() - t0
         cg = int(r.cg_iters.sum())
+        # ROADMAP C.6: a step whose pressure CG hit its cap goes on
+        # unconverged (both packages); count them
+        capped = int((r.cg_iters >= PRESSURE_CG_MAXITER).sum())
         fields = dict(case=label, nodes=mesh.n_node, elements=mesh.n_elem,
                       nu=nu, dt=dt, steps=steps, rtol_p=CFD_RTOL_P,
                       seconds=secs,
@@ -1370,6 +1469,8 @@ def _cfd(dev, counted):
                       cg_iters_per_step=cg / steps,
                       cg_iters_first_last=[int(r.cg_iters[0]),
                                            int(r.cg_iters[-1])],
+                      cg_steps_at_cap=capped,
+                      cg_maxiter=PRESSURE_CG_MAXITER,
                       launches=launches,
                       launches_per_step={k: v / steps
                                          for k, v in launches.items()},
@@ -1533,23 +1634,14 @@ def main():
     _check(A_un.n_rows == 857_375 and A_un.k == 16,
            f"renumbered n=96 ELL is {A_un.n_rows} rows x K = {A_un.k}")
     _phase("kernel", kernel="ell_spmv", case="set-up of the n=96 ELL system",
-           ordering=ordering.name, nnz=assemble.pattern.nnz, **setup_s)
+           ordering=ordering.name, nnz=assemble.pattern.nnz,
+           sliced_max_width=A_ord.max_width, sliced_slots=A_ord.n_slots,
+           **setup_s)
     ell_cases = {"ordered": A_ord, "unordered": A_un,
-                 "ragged": _ragged_ell(dev, rng)}
+                 "ragged": _ragged_ell(dev, rng),
+                 "skinny, empty slices": _skinny_ell(dev, rng)}
     for label, A in ell_cases.items():
-        x64 = rng.standard_normal(A.n_cols)
-        for dtype in (torch.float32, torch.float64):
-            Ad = ELLMatrix(cols=A.cols, vals=A.vals.to(dtype), n_cols=A.n_cols)
-            x = torch.as_tensor(x64, dtype=dtype, device=dev)
-            abs_err, rel_err = _errors(ell_spmv_cuda.ell_spmv(Ad, x),
-                                       spmv_ell(Ad, x))
-            errs[("ell_spmv", label, dtype)] = abs_err
-            _phase("kernel", kernel="ell_spmv", case=label, dtype=str(dtype),
-                   rows=A.n_rows, n_cols=A.n_cols, k=A.k,
-                   max_abs_err=abs_err, max_rel_err=rel_err,
-                   bound=REL_ERR_MAX[dtype])
-            _check(rel_err <= REL_ERR_MAX[dtype],
-                   f"ell_spmv {label} {dtype}: rel err {rel_err}")
+        _kernel_errors(label, A, errs, rng)
 
     m8, d8 = generate.box_tet(0, 1, 8, 0, 1, 8, 0, 1, 8)
     small = [solve_poisson(m8, d8, device=d, dtype=torch.float64, rtol=1e-10)
@@ -1715,14 +1807,16 @@ def main():
                 PEAK_GBPS["H100"])
     N = A32.n_rows
     cols, src, _ = permuted_sorted_cols(assemble.pattern.ell_cols, N, lex, N)
-    A_lex = ELLMatrix(
+    A_lex = ell_to_sliced(ELLMatrix(
         cols=torch.as_tensor(cols.astype(np.int32), device=dev),
         vals=A_un.vals.reshape(-1)[torch.as_tensor(src.reshape(-1),
                                                    device=dev)
                                    ].reshape(A_un.vals.shape),
-        n_cols=N)
+        n_cols=N))
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     mats = {"dia": A32, "ell_ordered": A_ord, "ell_lex": A_lex,
-            "ell_unordered": A_un, "dia_el3d": A_el3, "ell_el3d": A_el3_ell,
+            "ell_unordered": ell_to_sliced(A_un), "dia_el3d": A_el3,
+            "ell_el3d": A_el3_ell,
             "dia_el2d": A_el2, "ell_el2d": A_el2_ell, **blocks,
             **hybrid_blocks}
     ms, device, bounds = {}, {}, {}
@@ -1732,28 +1826,41 @@ def main():
                                                 else A.n_cols),
                             dtype=A.vals.dtype, device=dev)
         csr, nnz = _csr_library(A)
+        lib = lambda csr=csr, x=x: csr @ x
         if is_dia:
             off = torch.tensor(A.offsets, dtype=torch.int32, device=dev)
             plain = lambda A=A, x=x: spmv_dia(A, x)
             kern = lambda A=A, x=x, off=off: dia_spmv_cuda.dia_spmv(A, x, off)
+            run = {"plain": plain, "kernel": kern, "library": lib}
         else:
-            plain = lambda A=A, x=x: spmv_ell(A, x)
+            _check(_tight(A), f"timing {label}: a slice is wider than its "
+                   "rows")
+            plain = lambda A=A, x=x: spmv_sliced(A, x)
             kern = lambda A=A, x=x: ell_spmv_cuda.ell_spmv(A, x)
-        lib = lambda csr=csr, x=x: csr @ x
+            run = {"plain": plain, "kernel": kern, "library": lib}
         _, lib_rel = _errors(lib(), kern())
         _check(lib_rel <= REL_ERR_MAX[A.vals.dtype],
                f"timing {label}: the library product differs by {lib_rel}")
         ms[label], runs = _timed_pairs(plain, kern, lib)
-        device[label], hidden = _timed_device(plain, kern, lib)
+        device[label], hidden = _timed_device(run)
         dev_ms = device[label]
         bound_ms, bound_by, nbytes = _bound(A, nnz, peak)
         bounds[label] = (bound_ms, bound_by)
         key = _shape_key(A)
         per_solve = {path: shapes[key] for path, shapes in SOLVE_SHAPES.items()
                      if shapes[key]}
+        b2 = {}
+        if not is_dia:
+            b2 = dict(slots=A.n_slots)
+            if nbytes < COLD_L2_BELOW_BYTES:
+                b2.update(
+                    each_warm_kernel_ms=_each_device_ms(kern),
+                    each_warm_library_ms=_each_device_ms(lib),
+                    cold_l2_kernel_ms=_each_device_ms(kern, scratch),
+                    cold_l2_library_ms=_each_device_ms(lib, scratch))
         _phase("timing", matrix=label, card=smi, dtype=str(A.vals.dtype)[6:],
                rows=A.n_rows, n_cols=A.n_rows if is_dia else A.n_cols,
-               width=len(A.offsets) if is_dia else A.k, nnz=nnz,
+               width=len(A.offsets) if is_dia else A.max_width, nnz=nnz,
                spmv_bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by,
                peak_gbps=peak, kernel_ms=ms[label]["kernel"],
                plain_ms=ms[label]["plain"], library_ms=ms[label]["library"],
@@ -1770,7 +1877,7 @@ def main():
                device_kernel_over_library=dev_ms["kernel"]
                / dev_ms["library"], library_rel_err=lib_rel,
                kernel_gbps=nbytes / (ms[label]["kernel"] * 1e-3) / 1e9,
-               launches_per_solve=per_solve)
+               launches_per_solve=per_solve, **b2)
         del csr
     _phase("timing", matrix="b2_over_b1",
            ordering=ordering.name,
@@ -1803,10 +1910,10 @@ def main():
                 for (kname, case, dtype), err in errs.items()
                 if kname == name]
 
-    def entry(name, source, replaces, label, err_case):
+    def entry(name, source, replaces, label, err_case, dtype):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": counted[name],
-                "max_abs_err": errs[(name, err_case, torch.float32)],
+                "max_abs_err": errs[(name, err_case, dtype)],
                 "ms": ms[label]["kernel"], "plain_ms": ms[label]["plain"],
                 "bound_ms": bounds[label][0], "bound_by": bounds[label][1],
                 "library_ms": ms[label]["library"],
@@ -1816,10 +1923,12 @@ def main():
 
     print(json.dumps({"kernels": [
         entry("dia_spmv", "pfemfort_tpu_torch/csrc/dia_spmv.cu",
-              "pfemfort_tpu/sparse/pallas_spmv.py:48", "dia", "flagship"),
+              "pfemfort_tpu/sparse/pallas_spmv.py:48", "dia", "flagship",
+              torch.float32),
         entry("ell_spmv", "pfemfort_tpu_torch/csrc/ell_spmv.cu",
-              "pfemfort_tpu/sparse/slotgather.py:403", "ell_ordered",
-              "ordered")]}), flush=True)
+              "pfemfort_tpu/sparse/slotgather.py:403", "ell_el2d",
+              "elasticity2d renumbered, ordered", torch.float64)]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -45,6 +45,10 @@ from pfemfort_tpu_torch.solve.cg import cg_solve, jacobi_preconditioner
 from pfemfort_tpu_torch.sparse.ops import operator_and_diag
 from pfemfort_tpu_torch.utils.device import resolve_device
 
+# The pressure CG's iteration cap, as in the JAX package; a step that hits
+# it goes on unconverged, as there (NSResult.cg_iters shows it).
+PRESSURE_CG_MAXITER = 2000
+
 
 class NSResult(NamedTuple):
     velocity: np.ndarray     # (n_node, ndim)
@@ -203,7 +207,7 @@ def fractional_step_ns(
         bdiv, _ = nodal_div_rhs(Us)
         p_red, st = cg_solve(op_p, (-bdiv / dt)[scatter_p],
                              x0=p[scatter_p], precond=pre_p, rtol=rtol_p,
-                             maxiter=2000)
+                             maxiter=PRESSURE_CG_MAXITER)
         cg_iters[k] = st.iters
         p = torch.zeros((n,), dtype=dtype, device=device)
         p[scatter_p] = p_red

@@ -74,6 +74,8 @@ from pfemfort_tpu_torch.sparse.hybrid import HybridLayout, apply_hybrid, \
 from pfemfort_tpu_torch.sparse.ops import operator_and_diag
 from pfemfort_tpu_torch.sparse.ordering import coord_lex_order, \
     permuted_sorted_cols, rcm_order
+from pfemfort_tpu_torch.sparse.sliced import SliceLayout, SlicedELL, \
+    ell_to_sliced, slice_ell
 from pfemfort_tpu_torch.utils.device import resolve_device, \
     synchronize as _sync
 
@@ -183,25 +185,23 @@ def _point_loads(dofmap, force_bc) -> np.ndarray:
 
 @dataclasses.dataclass(frozen=True)
 class EllOrdering:
-    """A row ordering of an ELL system, with the permuted column layout
-    and the source slot of every permuted value on the device, and the
-    hybrid split of the ordered pattern when one was asked for."""
+    """A row ordering of an ELL system on the device: the ordered pattern
+    in kernel B2's sliced layout (sparse/sliced.py), each sliced slot
+    sourced from the original (N, K) values, and the hybrid split of the
+    ordered pattern when one was asked for."""
 
     name: str              # 'lex' or 'rcm'
     order: torch.Tensor    # (N,) int64, ordered row -> original row
     inv: torch.Tensor      # (N,) int64, original row -> ordered row
-    cols: torch.Tensor     # (N, K) int32, ascending per row, sentinels last
-    src: torch.Tensor      # (N*K,) int64 flat slot of the original values
+    layout: SliceLayout    # ordered, sliced; src indexes the original values
     hybrid: Optional[HybridLayout] = None
     hybrid_stats: Optional[dict] = None   # diagonals, nnz_dia, nnz_rem, k_rem
 
     def system(self, A: ELLMatrix, b: torch.Tensor
-               ) -> Tuple[ELLMatrix, torch.Tensor]:
-        """(A, b) in the ordered space: one gather of the values per
-        assembly, never per SpMV."""
-        vals = A.vals.reshape(-1)[self.src].reshape(self.cols.shape)
-        return ELLMatrix(cols=self.cols, vals=vals, n_cols=A.n_cols), \
-            b[self.order]
+               ) -> Tuple[SlicedELL, torch.Tensor]:
+        """(A, b) in the ordered space, A sliced: one gather of the values
+        per assembly, never per SpMV."""
+        return self.layout.pack(A.vals), b[self.order]
 
 
 def _order_costs(pattern: AssemblyPattern, order: np.ndarray,
@@ -249,19 +249,20 @@ def build_ell_ordering(pattern: AssemblyPattern, coords_rows: np.ndarray,
     cols, src, inv = permuted_sorted_cols(pattern.ell_cols, pattern.n_rows,
                                           order, pattern.n_rows)
     device = torch.device(device)
-    layout = stats = None
+    split = stats = None
     if hybrid:
         plan = split_sorted(cols, src, pattern.n_rows)
-        layout = hybrid_layout(plan, device)
+        split = hybrid_layout(plan, device)
         stats = dict(diagonals=plan.D, nnz_dia=plan.nnz_dia,
                      nnz_rem=plan.nnz_rem, k_rem=plan.k_rem)
+    layout = slice_ell(torch.as_tensor(cols.astype(np.int32), device=device),
+                       pattern.n_rows)
     return EllOrdering(
         name=name,
         order=torch.as_tensor(order, device=device),
         inv=torch.as_tensor(inv, device=device),
-        cols=torch.as_tensor(cols.astype(np.int32), device=device),
-        src=torch.as_tensor(src.reshape(-1), device=device),
-        hybrid=layout, hybrid_stats=stats)
+        layout=layout.compose(torch.as_tensor(src, device=device)),
+        hybrid=split, hybrid_stats=stats)
 
 
 _PRECONDS = ("jacobi", "cheby", "ic0", "amg", "mg")
@@ -594,6 +595,8 @@ def _solve_implicit_refined(mesh, ndof, dirichlet, element_fn, force_bc,
     A64, b64 = assemble64(coords64)
     del coords64
     b64 = b64 + fvec
+    if isinstance(A64, ELLMatrix):     # laid out once, for both precisions
+        A64 = ell_to_sliced(A64)
     A32 = dataclasses.replace(A64, vals=A64.vals.to(torch.float32))
     op64, _ = operator_and_diag(A64)
     op32, diag32 = operator_and_diag(A32)

@@ -18,11 +18,11 @@ construction (Vanek/Mandel/Brezina):
       filtering and diagonal lumping from level 2 down, and a stall guard
     * recurse until the coarsest level fits a dense inverse
 
-  V-cycle: damped-Jacobi smoothing, padded-ELL level operators and
-  transfers.  `samg_preconditioner` here is the portable form (every
-  product through sparse/ell_spmv_cuda.py: kernel B2 on the card, the plain
-  gather on the CPU); solve/amg_device.py routes each block to B1, B2 or a
-  dense product and applies the transfers factored.
+  V-cycle: damped-Jacobi smoothing, ELL level operators and transfers.
+  `samg_preconditioner` here is the portable form (every block laid out
+  sliced once, every product through sparse/ell_spmv_cuda.py: kernel B2 on
+  the card, the plain gather on the CPU); solve/amg_device.py routes each
+  block to B1, B2 or a dense product and applies the transfers factored.
 
 The reference findings in this construction are reproduced, not fixed
 (ROADMAP C): `aggressive_levels` stays 0 and the lumping can shrink a
@@ -40,6 +40,7 @@ import torch
 from pfemfort_tpu_torch import host_native
 from pfemfort_tpu_torch.sparse.ell_spmv_cuda import ell_spmv
 from pfemfort_tpu_torch.sparse.formats import ELLMatrix, round_up
+from pfemfort_tpu_torch.sparse.sliced import ell_to_sliced
 
 
 # ---------------------------------------------------------------------------
@@ -374,26 +375,30 @@ def build_samg(indptr: np.ndarray, indices: np.ndarray, vals: np.ndarray,
 # the portable V-cycle
 # ---------------------------------------------------------------------------
 
-def _vcycle(arrs: SAMGArrays, meta: SAMGMeta, level: int,
+def _vcycle(blocks, arrs: SAMGArrays, meta: SAMGMeta, level: int,
             r: torch.Tensor) -> torch.Tensor:
+    a, p, pt = blocks
     last = len(arrs.a) - 1
     if level == last:
         return arrs.coarse_inv @ r
     Dinv = arrs.inv_diags[level]
     om = meta.omega_smooth
-    spmv = lambda x: ell_spmv(arrs.a[level], x)
+    spmv = lambda x: ell_spmv(a[level], x)
 
     e = om * Dinv * r
     for _ in range(meta.nu - 1):
         e = e + om * Dinv * (r - spmv(e))
-    rc = ell_spmv(arrs.pt[level], r - spmv(e))
-    ec = _vcycle(arrs, meta, level + 1, rc)
-    e = e + ell_spmv(arrs.p[level], ec)
+    rc = ell_spmv(pt[level], r - spmv(e))
+    ec = _vcycle(blocks, arrs, meta, level + 1, rc)
+    e = e + ell_spmv(p[level], ec)
     for _ in range(meta.nu):
         e = e + om * Dinv * (r - spmv(e))
     return e
 
 
 def samg_preconditioner(arrs: SAMGArrays, meta: SAMGMeta) -> Callable:
-    """r -> M^-1 r: one symmetric V(nu, nu) cycle (SPD; valid inside CG)."""
-    return lambda r: _vcycle(arrs, meta, 0, r)
+    """r -> M^-1 r: one symmetric V(nu, nu) cycle (SPD; valid inside CG).
+    The level operators and transfers are laid out sliced here, once."""
+    blocks = tuple(tuple(ell_to_sliced(A) for A in group)
+                   for group in (arrs.a, arrs.p, arrs.pt))
+    return lambda r: _vcycle(blocks, arrs, meta, 0, r)

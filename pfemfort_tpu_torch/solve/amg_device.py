@@ -9,8 +9,9 @@ forms:
   * 'dia':   kernel B1 (sparse/dia_spmv_cuda.py), for a square block whose
              diagonal census stays within the pattern builder's 128 offsets
              and whose diagonals read no more bytes than its ELL slots;
-  * 'ell':   kernel B2 (sparse/ell_spmv_cuda.py), square or rectangular
-             (the transfers P0 and P0^T), sentinel column n_cols;
+  * 'ell':   kernel B2 (sparse/ell_spmv_cuda.py) in the sliced layout
+             (sparse/sliced.py), square or rectangular (the transfers P0
+             and P0^T), sentinel column n_cols;
   * 'hybrid': a square block's dense diagonals on B1 and the rest on B2
              (sparse/hybrid.py), split at each of the JAX package's three
              (fill threshold, diagonal cap) pairs;
@@ -19,10 +20,12 @@ forms:
              its ELL slots: the deep coarse levels, which are nearly dense.
 
 Of the eligible forms the one that reads the fewest bytes is taken (on a
-tie the earlier form in the list above).  On a CPU tensor every form takes
-its plain version (the kernel wrappers decide that from the tensor's
-device).  The JAX package's TPU cost constants, its VMEM gate and its
-slot-gather packing do not apply to the card and are not carried over.
+tie the earlier form in the list above); an ELL block or remainder counts
+the slots of its sliced layout, which is what B2 reads.  On a CPU tensor
+every form takes its plain version (the kernel wrappers decide that from
+the tensor's device).  The JAX package's TPU cost constants, its VMEM gate
+and its slot-gather packing do not apply to the card and are not carried
+over.
 
 Reference role: PETSc PC=hypre/gamg and PC=ILU applications inside KSPSolve
 (PFEMFort src/solverpetsc.F:198-209, 476).
@@ -45,6 +48,8 @@ from pfemfort_tpu_torch.sparse.ell_spmv_cuda import ell_spmv
 from pfemfort_tpu_torch.sparse.formats import ELLMatrix
 from pfemfort_tpu_torch.sparse.hybrid import HybridMatrix, apply_hybrid, \
     build_hybrid_plan, hybrid_from_plan, plan_bytes
+from pfemfort_tpu_torch.sparse.sliced import SlicedELL, slice_ell, \
+    sliced_slots
 
 DENSE_MAX_ENTRIES = 24_000_000
 DIA_MAX_OFFSETS = 128
@@ -70,7 +75,7 @@ class DeviceEll:
     kind: str                         # 'ell' | 'dia' | 'hybrid' | 'dense'
     n_rows: int
     n_cols: int
-    ell: Optional[ELLMatrix] = None
+    ell: Optional[SlicedELL] = None
     dia: Optional[DIAMatrix] = None
     dia_offsets: Optional[torch.Tensor] = None
     dense: Optional[torch.Tensor] = None
@@ -97,9 +102,9 @@ def build_device_ell(cols: np.ndarray, vals: np.ndarray, n_cols: int,
     `device` in the form that reads the fewest bytes per product."""
     cols = np.asarray(cols)
     vals = np.asarray(vals, dtype=np.float64)
-    n, K = cols.shape
+    n = cols.shape[0]
     size = torch.empty((), dtype=dtype).element_size()
-    cand = [(n * K * (size + 4), "ell", None)]
+    cand = [(sliced_slots(cols, n_cols) * (size + 4), "ell", None)]
     if n == n_cols and n > 0:
         dia = _dia_form(cols, vals, n)
         if dia is not None:
@@ -129,11 +134,9 @@ def build_device_ell(cols: np.ndarray, vals: np.ndarray, n_cols: int,
         np.add.at(dense, (rr[ok], cols[ok]), vals[ok])
         return DeviceEll(kind="dense", n_rows=n, n_cols=n_cols,
                          dense=as_t(dense))
-    return DeviceEll(
-        kind="ell", n_rows=n, n_cols=n_cols,
-        ell=ELLMatrix(cols=torch.as_tensor(cols.astype(np.int32),
-                                           device=device),
-                      vals=as_t(vals), n_cols=n_cols))
+    layout = slice_ell(torch.as_tensor(cols, device=device), n_cols)
+    return DeviceEll(kind="ell", n_rows=n, n_cols=n_cols,
+                     ell=layout.pack(as_t(vals)))
 
 
 def device_ell_apply(d: DeviceEll, x: torch.Tensor) -> torch.Tensor:

@@ -15,9 +15,9 @@ standard wide-vector reformulation:
     preconditioner application is 2(m-1) sparse products with T and T^T;
   * M^{-1} = G_m^T G_m is SPD by construction, so CG remains valid.
 
-T and T^T are stored as padded ELL (sentinel column n); their products go
-through sparse/ell_spmv_cuda.py (kernel B2 on the card), or through the
-routed blocks of solve/amg_device.py.
+T and T^T are stored as padded ELL (sentinel column n) and laid out once,
+when a preconditioner is made, in the sliced layout of kernel B2
+(sparse/ell_spmv_cuda.py), or routed by solve/amg_device.py.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ from pfemfort_tpu_torch import host_native
 from pfemfort_tpu_torch.sparse.dia import DIAMatrix
 from pfemfort_tpu_torch.sparse.ell_spmv_cuda import ell_spmv
 from pfemfort_tpu_torch.sparse.formats import ELLMatrix, round_up
+from pfemfort_tpu_torch.sparse.sliced import ell_to_sliced
 
 
 def _csr_from_matrix(A, pattern=None) -> Tuple[np.ndarray, np.ndarray,
@@ -146,5 +147,6 @@ def ic0_apply(t_mv: Callable, tt_mv: Callable, dinv: torch.Tensor,
 
 def ic0_preconditioner(arrs: IC0Arrays, m: int = 4) -> Callable:
     """r -> G_m^T G_m r (SPD; 2(m-1) ELL products per application)."""
-    return ic0_apply(lambda x: ell_spmv(arrs.t, x),
-                     lambda x: ell_spmv(arrs.tt, x), arrs.dinv, m)
+    t, tt = ell_to_sliced(arrs.t), ell_to_sliced(arrs.tt)
+    return ic0_apply(lambda x: ell_spmv(t, x), lambda x: ell_spmv(tt, x),
+                     arrs.dinv, m)

@@ -11,6 +11,10 @@ Columns are non-negative.  A padded slot holds a sentinel column >= n_cols
 (n_cols itself from the pattern builder, 2 * n_rows + 128 after a row
 ordering, sparse/ordering.py:permuted_sorted_cols) and a zero value; it
 adds nothing to a product.
+
+This (N, K) form is what assembly writes and set-up reads.  A product on
+it goes through kernel B2, which takes the block laid out once in the
+sliced layout of sparse/sliced.py, without the padding.
 """
 
 from __future__ import annotations

@@ -13,14 +13,14 @@ diagonals.  So split, once per sparsity pattern:
   * A_dia: every diagonal that at least `fill_threshold` of the rows
     populate (at most `max_d` of them), as a (D, N) DIA block — B1 reads
     no column indices;
-  * A_rem: everything else, as an (N, K_rem) padded-ELL block for B2.
+  * A_rem: everything else, as an (N, K_rem) padded-ELL block in the host
+    plan, laid out on the device in B2's sliced layout (sparse/sliced.py).
 
 Both parts read the same x; y = y_dia + y_rem.  The split is a host plan of
 flat source indices into the assembled (N, K) ELL values, so each assembly
 packs both parts with one device gather each.  The JAX package packed the
-remainder into its TPU slot-gather layout; on the card B2 reads the (N,
-K_rem) block as it is, so that plan, its V caps and its support gate are
-not carried over.
+remainder into its TPU slot-gather layout; on the card B2 reads it sliced,
+so that plan, its V caps and its support gate are not carried over.
 
 Replaces the hot loop of the reference's format-agnostic PETSc MatMult
 (PFEMFort src/solverpetsc.F:476) for unstructured meshes.
@@ -37,9 +37,10 @@ import torch
 from pfemfort_tpu_torch.sparse.dia import DIAMatrix
 from pfemfort_tpu_torch.sparse.dia_spmv_cuda import dia_spmv
 from pfemfort_tpu_torch.sparse.ell_spmv_cuda import ell_spmv
-from pfemfort_tpu_torch.sparse.formats import ELLMatrix
 from pfemfort_tpu_torch.sparse.ordering import permuted_sorted_cols
-from pfemfort_tpu_torch.sparse.spmv import extract_diagonal
+from pfemfort_tpu_torch.sparse.sliced import SliceLayout, SlicedELL, \
+    slice_ell, sliced_slots
+from pfemfort_tpu_torch.sparse.spmv import sliced_diagonal
 
 
 # ---------------------------------------------------------------------------
@@ -133,10 +134,11 @@ def split_sorted(cols: np.ndarray, src_of_slot: np.ndarray, n_rows: int,
 
 
 def plan_bytes(plan: HybridPlan, value_bytes: int) -> int:
-    """Bytes one product reads from the two blocks (values, plus the
-    remainder's int32 columns)."""
-    return plan.n_rows * (plan.D * value_bytes
-                          + plan.k_rem * (value_bytes + 4))
+    """Bytes one product reads from the two blocks: the diagonals' values,
+    and the sliced remainder's values and int32 columns."""
+    rem = 0 if plan.rem_cols is None else sliced_slots(plan.rem_cols,
+                                                       plan.n_rows)
+    return plan.n_rows * plan.D * value_bytes + rem * (value_bytes + 4)
 
 
 # ---------------------------------------------------------------------------
@@ -168,19 +170,19 @@ def apply_hybrid_reference(plan: HybridPlan, vals: np.ndarray,
 @dataclasses.dataclass(frozen=True)
 class HybridMatrix:
     """The two blocks of a hybrid operator on one device: a DIA block for
-    kernel B1 (None when no diagonal passed the threshold) and a square ELL
-    remainder for kernel B2 (None when it is empty)."""
+    kernel B1 (None when no diagonal passed the threshold) and a square
+    sliced ELL remainder for kernel B2 (None when it is empty)."""
     n_rows: int
     dia: Optional[DIAMatrix]
     dia_offsets: Optional[torch.Tensor]   # int32, A.offsets on the device
-    rem: Optional[ELLMatrix]
+    rem: Optional[SlicedELL]
 
     def diagonal(self) -> torch.Tensor:
         """diag(A): the main diagonal is always extracted when the plan
         has one (it is 100% full); otherwise read from the remainder."""
         if self.dia is not None and 0 in self.dia.offsets:
             return self.dia.vals[self.dia.offsets.index(0)]
-        return extract_diagonal(self.rem)
+        return sliced_diagonal(self.rem)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,37 +193,36 @@ class HybridLayout:
     offsets: Tuple[int, ...]
     dia_offsets: Optional[torch.Tensor]
     dia_src: Optional[torch.Tensor]      # (D, N) int64, -1 empty
-    rem_cols: Optional[torch.Tensor]     # (N, K_rem) int32
-    rem_src: Optional[torch.Tensor]      # (N, K_rem) int64, -1 empty
+    rem: Optional[SliceLayout]           # sliced, sourced from the values
 
     def pack(self, vals: torch.Tensor) -> HybridMatrix:
         flat = vals.reshape(-1)
-        take = lambda src: torch.where(src >= 0, flat[src.clamp(min=0)],
-                                       0.0)
-        dia = rem = None
+        dia = None
         if self.dia_src is not None:
-            dia = DIAMatrix(vals=take(self.dia_src), offsets=self.offsets,
-                            n_rows=self.n_rows)
-        if self.rem_cols is not None:
-            rem = ELLMatrix(cols=self.rem_cols, vals=take(self.rem_src),
-                            n_cols=self.n_rows)
-        return HybridMatrix(n_rows=self.n_rows, dia=dia,
-                            dia_offsets=self.dia_offsets, rem=rem)
+            dia = DIAMatrix(vals=torch.where(self.dia_src >= 0,
+                                             flat[self.dia_src.clamp(min=0)],
+                                             0.0),
+                            offsets=self.offsets, n_rows=self.n_rows)
+        return HybridMatrix(
+            n_rows=self.n_rows, dia=dia, dia_offsets=self.dia_offsets,
+            rem=None if self.rem is None else self.rem.pack(flat))
 
 
 def hybrid_layout(plan: HybridPlan, device) -> HybridLayout:
-    """Lay a plan's index arrays out on `device`, once per pattern."""
+    """Lay a plan's index arrays out on `device`, once per pattern: the
+    remainder sliced, its sources composed with the plan's rem_src."""
     device = torch.device(device)
     as_t = lambda a, dt: torch.as_tensor(a, dtype=dt, device=device)
     has_dia = plan.D > 0
+    rem = None
+    if plan.rem_cols is not None:
+        rem = slice_ell(as_t(plan.rem_cols, torch.int64),
+                        plan.n_rows).compose(as_t(plan.rem_src, torch.int64))
     return HybridLayout(
         n_rows=plan.n_rows, offsets=plan.offsets,
         dia_offsets=as_t(plan.offsets, torch.int32) if has_dia else None,
         dia_src=as_t(plan.dia_src, torch.int64) if has_dia else None,
-        rem_cols=(None if plan.rem_cols is None
-                  else as_t(plan.rem_cols, torch.int32)),
-        rem_src=(None if plan.rem_src is None
-                 else as_t(plan.rem_src, torch.int64)))
+        rem=rem)
 
 
 def hybrid_from_plan(plan: HybridPlan, vals: np.ndarray, dtype,

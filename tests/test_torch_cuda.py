@@ -15,7 +15,9 @@ from pfemfort_tpu_torch.sparse import dia_spmv_cuda, ell_spmv_cuda
 from pfemfort_tpu_torch.sparse.dia import DIAMatrix, spmv_dia
 from pfemfort_tpu_torch.sparse.formats import ELLMatrix
 from pfemfort_tpu_torch.sparse.ops import dia_operator
-from pfemfort_tpu_torch.sparse.spmv import spmv_ell
+from pfemfort_tpu_torch.sparse.sliced import SLICE, SlicedELL, \
+    ell_to_sliced, unslice
+from pfemfort_tpu_torch.sparse.spmv import spmv_ell, spmv_sliced
 
 pytestmark = pytest.mark.cuda
 
@@ -139,36 +141,71 @@ def _ordered_ell_system(n, device, dtype):
     return assemble, ordering, coords
 
 
-def _ragged_ell(n_rows, n_cols, k, device, dtype, seed):
-    """Random ELL with mixed sentinels (n_cols and 2 * n_rows + 128)."""
+def _ragged_ell(n_rows, n_cols, k, device, dtype, seed, empty_every=0):
+    """Random ELL with mixed sentinels (n_cols and 2 * n_rows + 128) in
+    any slot: (sliced, x, the padded block); with empty_every, every such
+    slice of 32 rows holds no valid slot."""
     rng = np.random.default_rng(seed)
     cols = rng.integers(0, n_cols, (n_rows, k))
     pad = rng.random((n_rows, k)) < 0.3
+    if empty_every:
+        pad |= ((np.arange(n_rows) // SLICE) % empty_every == 1)[:, None]
     cols = np.where(pad, np.where(rng.random((n_rows, k)) < 0.5, n_cols,
                                   2 * n_rows + 128), cols)
     vals = np.where(pad, 0.0, rng.standard_normal((n_rows, k)))
     A = interop.ell_from_numpy(cols, vals, n_cols, device=device, dtype=dtype)
     x = torch.as_tensor(rng.standard_normal(n_cols), dtype=dtype,
                         device=device)
-    return A, x
+    return ell_to_sliced(A), x, A
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("shape", [(1, 1, 1), (255, 255, 7), (257, 300, 16),
                                    (100_003, 110_010, 7), (4097, 4097, 33),
-                                   (1000, 1000, 0)])
+                                   (1000, 1000, 0), (100_003, 12_500, 1),
+                                   (5000, 5000, 45)])
 def test_ell_kernel_matches_plain_on_ragged_systems(cuda, shape, dtype):
-    A, x = _ragged_ell(*shape, cuda, dtype, seed=shape[0])
+    A, x, padded = _ragged_ell(*shape, cuda, dtype, seed=shape[0],
+                               empty_every=3)
     before = ell_spmv_cuda.kernel.launches
     y = ell_spmv_cuda.ell_spmv(A, x)
     torch.cuda.synchronize()
     assert ell_spmv_cuda.kernel.launches == before + 1
-    y_ref = spmv_ell(A, x)
-    if shape[2] == 0:
-        assert torch.equal(y, y_ref)
-    else:
-        assert _rel_err(y, y_ref) <= REL_TOL[dtype]
-    assert torch.equal(y, ell_spmv_cuda.ell_spmv(A, x))   # same bits again
+    # against the sliced block and, independent of the layout, the padded one
+    for y_ref in (spmv_sliced(A, x), spmv_ell(padded, x)):
+        if shape[2] == 0:
+            assert torch.equal(y, y_ref)
+        else:
+            assert _rel_err(y, y_ref) <= REL_TOL[dtype]
+    # same bits again
+    assert torch.equal(y, ell_spmv_cuda.ell_spmv(A, x))
+
+
+def test_ell_kernel_past_int32_slot_offsets(cuda):
+    """A block of 2.24e9 slots (18 GB in float32): slices past 2**31
+    elements are read at their int64 offsets."""
+    n_slices, width, n_cols = 70_000, 1_000, 4096
+    n_rows = n_slices * SLICE - 7
+    n_slots = n_slices * SLICE * width
+    assert n_slots > 2 ** 31
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    cols = torch.randint(0, n_cols, (n_slots,), dtype=torch.int32,
+                         device=cuda, generator=gen)
+    vals = torch.randn(n_slots, device=cuda, generator=gen)
+    ptr = torch.arange(n_slices + 1, dtype=torch.int64,
+                       device=cuda) * (SLICE * width)
+    A = SlicedELL(cols=cols, vals=vals, slice_ptr=ptr, n_rows=n_rows,
+                  n_cols=n_cols, max_width=width)
+    x = torch.randn(n_cols, device=cuda, generator=gen)
+    y = ell_spmv_cuda.ell_spmv(A, x)
+    torch.cuda.synchronize()
+    for s in (0, n_slices // 2, n_slices - 1):
+        b = s * SLICE * width
+        c = cols[b:b + SLICE * width].view(width, SLICE).long()
+        v = vals[b:b + SLICE * width].view(width, SLICE)
+        ref = (v * x[c]).sum(0)[:min(SLICE, n_rows - s * SLICE)]
+        got = y[s * SLICE:s * SLICE + len(ref)]
+        assert _rel_err(got, ref) <= 1e-4    # sum order differs (1000 terms)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -179,7 +216,7 @@ def test_ell_kernel_matches_plain_on_the_ordered_mesh_system(cuda, dtype):
                         dtype=dtype, device=cuda)
     y = ell_spmv_cuda.ell_spmv(A, x)
     torch.cuda.synchronize()
-    assert _rel_err(y, spmv_ell(A, x)) <= REL_TOL[dtype]
+    assert _rel_err(y, spmv_sliced(A, x)) <= REL_TOL[dtype]
 
 
 def test_ell_assembly_on_the_card_repeats_bit_for_bit(cuda):
@@ -190,18 +227,23 @@ def test_ell_assembly_on_the_card_repeats_bit_for_bit(cuda):
 
 
 def test_ell_kernel_rejects_what_it_does_not_take(cuda):
-    A, x = _ragged_ell(64, 64, 4, cuda, torch.float32, seed=0)
+    import dataclasses
+
+    A, x, _ = _ragged_ell(64, 64, 4, cuda, torch.float32, seed=0)
+    with pytest.raises(ValueError):
+        ell_spmv_cuda.ell_spmv(dataclasses.replace(A, cols=A.cols.long()), x)
     with pytest.raises(ValueError):
         ell_spmv_cuda.ell_spmv(
-            ELLMatrix(cols=A.cols.long(), vals=A.vals, n_cols=64), x)
+            dataclasses.replace(A, vals=A.vals.repeat(2)[::2]), x)
     with pytest.raises(ValueError):
         ell_spmv_cuda.ell_spmv(
-            ELLMatrix(cols=A.cols, vals=A.vals.t().contiguous().t(),
-                      n_cols=64), x)
+            dataclasses.replace(A, slice_ptr=A.slice_ptr.int()), x)
     with pytest.raises(ValueError):
         ell_spmv_cuda.ell_spmv(A, torch.ones(128, device=cuda)[::2])
     with pytest.raises(ValueError):
         ell_spmv_cuda.ell_spmv(A, x.cpu())
+    with pytest.raises(TypeError, match="slice_ell"):     # unsliced
+        ell_spmv_cuda.ell_spmv(unslice(A), x)
 
 
 def test_ell_solve_on_the_card_matches_the_cpu(cuda):
@@ -278,14 +320,16 @@ def test_dia_kernel_at_59_flat_diagonals(cuda, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_ell_kernel_at_k16_two_dofs(cuda, dtype):
     A = _elasticity_system("2d", cuda, dtype)
-    assert A.k == 16
+    # the pattern's K = 16 is the TPU's padding; a tria3 node has at most
+    # 7 nodes, 14 entries a row, and the sliced block is no wider
+    assert A.max_width == 14
     x = torch.as_tensor(np.random.default_rng(6).standard_normal(A.n_cols),
                         dtype=dtype, device=cuda)
     before = ell_spmv_cuda.kernel.launches
     y = ell_spmv_cuda.ell_spmv(A, x)
     torch.cuda.synchronize()
     assert ell_spmv_cuda.kernel.launches == before + 1
-    assert _rel_err(y, spmv_ell(A, x)) <= REL_TOL[dtype]
+    assert _rel_err(y, spmv_sliced(A, x)) <= REL_TOL[dtype]
     assert torch.equal(y, ell_spmv_cuda.ell_spmv(A, x))
 
 
@@ -351,6 +395,7 @@ def _ordered_csr(n):
     assemble, ordering, coords = _ordered_ell_system(n, "cpu",
                                                      torch.float64)
     A, b = ordering.system(*assemble(coords))
+    A = unslice(A)
     cols, vals = A.cols.numpy(), A.vals.numpy()
     valid = cols < A.n_cols
     indptr = np.zeros(A.n_rows + 1, np.int64)
@@ -362,8 +407,9 @@ def _on(A, device, dtype):
     if isinstance(A, DIAMatrix):
         return DIAMatrix(vals=A.vals.to(device, dtype), offsets=A.offsets,
                          n_rows=A.n_rows, lattice=A.lattice)
-    return ELLMatrix(cols=A.cols.to(device), vals=A.vals.to(device, dtype),
-                     n_cols=A.n_cols)
+    return ell_to_sliced(ELLMatrix(cols=A.cols.to(device),
+                                   vals=A.vals.to(device, dtype),
+                                   n_cols=A.n_cols))
 
 
 def _kernel_vs_plain(A, device, dtype, seed=0):
@@ -380,7 +426,7 @@ def _kernel_vs_plain(A, device, dtype, seed=0):
         kern = ell_spmv_cuda.kernel
         before = kern.launches
         y = ell_spmv_cuda.ell_spmv(A, x)
-        ref = spmv_ell(A, x)
+        ref = spmv_sliced(A, x)
     torch.cuda.synchronize()
     assert kern.launches == before + 1
     assert _rel_err(y, ref) <= REL_TOL[dtype]

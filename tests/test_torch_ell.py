@@ -1,12 +1,14 @@
 """Port parity: the ELL format, its plain SpMV and the kernel B2 wrapper.
 
-The port's plain `spmv_ell` (the CPU path and the CUDA kernel's oracle) and
+The port's plain `spmv_ell` (the JAX-parity oracle of the padded form) and
 `extract_diagonal` are held against JAX `spmv_ell` and `extract_diagonal`,
 and against the slot-gather plan run by `apply_slotgather_reference`, which
 is how the JAX package's own tests run kernel B2 on the CPU
 (tests/test_slotgather.py).  Cases: square and rectangular blocks, with the
 pattern builder's sentinel (n_cols) and the row ordering's (2 * n_rows +
-128).  The kernel itself runs only on the card: tests/test_torch_cuda.py.
+128).  The kernel's wrapper takes the sliced layout
+(tests/test_torch_sliced_ell.py); the kernel itself runs only on the card:
+tests/test_torch_cuda.py.
 """
 
 from pathlib import Path
@@ -26,6 +28,7 @@ from pfemfort_tpu_torch.sparse import dia_spmv_cuda, ell_spmv_cuda, \
     spmv as tspmv
 from pfemfort_tpu_torch.sparse.ell_spmv_cuda import ell_spmv
 from pfemfort_tpu_torch.sparse.ops import operator_and_diag
+from pfemfort_tpu_torch.sparse.sliced import SlicedELL, ell_to_sliced
 
 torch.set_num_threads(1)
 
@@ -120,22 +123,27 @@ def test_operator_and_diag_on_cpu_takes_the_plain_version():
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16,
                                    torch.int32])
 def test_ell_spmv_rejects_other_dtypes(dtype):
-    A = interop.ell_from_numpy(np.zeros((4, 2), np.int64), np.ones((4, 2)),
-                               4, dtype=dtype, device="cpu")
+    A = ell_to_sliced(interop.ell_from_numpy(
+        np.zeros((4, 2), np.int64), np.ones((4, 2)), 4, dtype=dtype,
+        device="cpu"))
     with pytest.raises(TypeError):
         ell_spmv(A, torch.ones(4, dtype=dtype))
 
 
 def test_ell_spmv_rejects_wrong_shapes_mixed_dtypes_and_other_devices():
     cols = np.array([[0, 1], [1, 4], [2, 4], [3, 4]])
-    A = interop.ell_from_numpy(cols, np.ones((4, 2)), 4, dtype=torch.float32,
+    E = interop.ell_from_numpy(cols, np.ones((4, 2)), 4, dtype=torch.float32,
                                device="cpu")
+    A = ell_to_sliced(E)
     with pytest.raises(TypeError):
         ell_spmv(A, torch.ones(4, dtype=torch.float64))
     with pytest.raises(ValueError):
         ell_spmv(A, torch.ones(5, dtype=torch.float32))
-    Am = interop.ell_from_numpy(cols, np.ones((4, 2)), 4, device="meta",
-                                dtype=torch.float32)
+    with pytest.raises(TypeError, match="slice_ell"):
+        ell_spmv(E, torch.ones(4, dtype=torch.float32))
+    Am = SlicedELL(cols=A.cols.to("meta"), vals=A.vals.to("meta"),
+                   slice_ptr=A.slice_ptr.to("meta"), n_rows=4, n_cols=4,
+                   max_width=A.max_width)
     with pytest.raises(ValueError, match="no kernel"):
         ell_spmv(Am, torch.ones(4, dtype=torch.float32, device="meta"))
 
