@@ -134,14 +134,47 @@ of JAX.  Phases, one JSON line each:
                      the bound at the card's data-sheet memory rate,
                      launches per solve, the GB/s they imply, and each
                      solve's seconds by stage, launches and ms per
-                     iteration.
+                     iteration;
+ 25. dist_kernel     kernel B1's halo entry (the in-shard product of the
+                     sharded DIA route: x read from [left | x_l | right])
+                     against its plain version, f32 (<= 1e-5) and f64
+                     (<= 1e-12), with both halos and with an edge rank's
+                     missing one, at one rank of the 8-way slab of box_tet
+                     n=200 (990,025 rows = whole lattice planes, 15
+                     diagonals, w = 39,608) and of the 4-way slab of the
+                     3D elasticity n=48 system (86,440 rows, 59
+                     diagonals, w = 7,064); each timed in f32 as phase 24 times B1,
+                     beside its byte bound and cuSPARSE on the CSR of the
+                     same (P, P + 2w) block;
+ 26. dist_dia        a world-size-1 NCCL group (parallel/multihost.py), then
+                     solve_implicit_sharded on box_tet n=96, f32, rtol 1e-6
+                     (271 +- 10 iterations, within 2 of phase 4's, relres
+                     <= 1e-6, nodal error <= 2e-4, layout 'dia', B1 halo
+                     launches >= iterations, no B2) and on the phase-7
+                     elasticity system in f64 with Jacobi (within 2 of
+                     phase 7's f64 count, u within 1e-9) and block-Jacobi;
+                     stage seconds, ms per iteration, peak device memory
+                     above what the script held before the solve, and the
+                     host cost of CG's reduced dot pair (one all_reduce and
+                     the flag read) against the local pair; after each
+                     solve, B1's halo entry against its plain version on
+                     that solve's own (D, P) block, f32 and f64, with both
+                     halos None (as the solve launched it) and random ones;
+ 27. dist_ell        distributed_cg_solve (the all-gather ELL route) at
+                     world size 1 on the n=96 box's ELL system, f32, rtol
+                     1e-6: 271 +- 10 iterations, B2 launches >= iterations;
+ 28. cli             `poisson --shards 2 --device cpu` (two gloo ranks the
+                     CLI starts under torchrun) against the single-device CLI solve on the
+                     card (u within the VTK's 1e-6), and `--shards 2
+                     --device cuda`, which must fail naming the card count.
 
 Every launch count is set to 0 just before its path is driven and read just
 after; from phase 11 on, a plain SpMV called on a card tensor would also be
 counted, and none may be.  Then one JSON line describing the kernels
 (launches summed over the counted paths; times, bound and library time on
 the n=96 matrix; the errors of every case), and the result line
-{"ok": true, "device": {...}} last.  Any failed check raises.
+{"ok": true, "device": {...}} last, after the process group is torn
+down.  Any failed check raises.
 """
 
 import collections
@@ -174,6 +207,13 @@ from pfemfort_tpu_torch.elements.elasticity import dmat_3d, \
     dmat_plane_stress, elasticity_stiffness
 from pfemfort_tpu_torch.elements.geometry import to_element_minor
 from pfemfort_tpu_torch.elements.poisson import poisson_element_matrices
+from pfemfort_tpu_torch.assembly.assemble import assemble_ell_values, \
+    assemble_rhs, build_assembly_plan, dirichlet_rhs_correction
+from pfemfort_tpu_torch.drivers import sharded as sharded_driver
+from pfemfort_tpu_torch.drivers.sharded import solve_implicit_sharded
+from pfemfort_tpu_torch.parallel import multihost, shard_cg
+from pfemfort_tpu_torch.parallel.halo import halo_width
+from pfemfort_tpu_torch.parallel.shard import build_sharded_system
 from pfemfort_tpu_torch.solve import amg_device
 from pfemfort_tpu_torch.solve.amg import build_samg
 from pfemfort_tpu_torch.solve.highprec import solve_box_poisson_1e8
@@ -181,8 +221,9 @@ from pfemfort_tpu_torch.solve.ic0 import build_ic0_from_csr
 from pfemfort_tpu_torch.solve.multigrid import build_gmg
 from pfemfort_tpu_torch.sparse import dia_spmv_cuda, ell_spmv_cuda, hybrid
 from pfemfort_tpu_torch.sparse import ops as sparse_ops
-from pfemfort_tpu_torch.sparse.dia import DIAMatrix, spmv_dia
-from pfemfort_tpu_torch.sparse.formats import ELLMatrix
+from pfemfort_tpu_torch.sparse.dia import DIAMatrix, decompose_offsets, \
+    spmv_dia, spmv_dia_halo_local
+from pfemfort_tpu_torch.sparse.formats import ELLMatrix, round_up
 from pfemfort_tpu_torch.sparse.ordering import coord_lex_order, \
     permuted_sorted_cols
 from pfemfort_tpu_torch.sparse.sliced import SLICE, ell_to_sliced, unslice
@@ -256,6 +297,15 @@ CFD_CAVITY = (512, 100, 5e-5, 0.01)
 CFD_TG3D = (64, 250, 2e-3, 0.05)
 CFD_RENUMBERED = (64, 20, 1e-3, 0.05)
 CFD_RTOL_P = 1e-6           # pressure CG, as every float32 solve here
+# The sharded DIA route (phases 25-28).  dist_kernel's shapes: one rank of
+# the 8-way slab of box_tet n=200 (P = whole planes of the 199^3 lattice,
+# 15 diagonals) and of the 4-way slab of the 3D elasticity n=48 system (59
+# diagonals).  dist_dia's counts, u and ms per iteration against the
+# single-device solves of phases 4 and 7 (f64) of this run.
+N_SLAB, SLAB_RANKS, EL3D_SLAB_RANKS = 200, 8, 4
+DIST_ITERS_SLACK = 2
+DIST_EL3D_U_REL = 1e-9
+CLI_SHARDED_U_TOL = 1e-6 * (1 + 1e-9)   # one unit of the VTK's 6 decimals
 # Plain SpMV calls made on a card tensor (the kernel wrappers route card
 # tensors to their kernels, so this must stay empty).
 PLAIN_ON_CARD = collections.Counter()
@@ -279,6 +329,7 @@ def _poisson_fn(coords_em):
 def _reset_launches():
     for k in KERNELS.values():
         k.launches = 0
+        k.entry_launches.clear()
 
 
 def _launches():
@@ -677,6 +728,10 @@ def _counted(fn, counted, label=None):
     launches = _launches()
     for k, v in launches.items():
         counted[k] += v
+    # of B1's launches, those of its halo entry (the sharded route)
+    counted["dia_spmv_halo"] += sum(
+        v for e, v in dia_spmv_cuda.kernel.entry_launches.items()
+        if e.startswith("dia_spmv_halo"))
     if label is not None:
         SOLVE_SHAPES[label] = shapes
     return out, launches
@@ -926,15 +981,18 @@ def _cli(dev):
 
 
 def _guard_plain_spmv():
-    """Count plain SpMV calls on card tensors inside the kernel wrappers."""
+    """Count plain SpMV calls on card tensors inside the kernel wrappers
+    and the sharded solve's routing."""
     for mod, name in ((dia_spmv_cuda, "spmv_dia"),
-                      (ell_spmv_cuda, "spmv_sliced")):
+                      (dia_spmv_cuda, "spmv_dia_halo_local"),
+                      (ell_spmv_cuda, "spmv_sliced"),
+                      (shard_cg, "spmv_dia_halo")):
         plain = getattr(mod, name)
 
-        def counted(A, x, plain=plain, name=name):
-            if x.is_cuda:
+        def counted(*args, plain=plain, name=name):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
                 PLAIN_ON_CARD[name] += 1
-            return plain(A, x)
+            return plain(*args)
 
         setattr(mod, name, counted)
 
@@ -1148,6 +1206,7 @@ def _large(dev, counted):
                       ("refined", dict(refine=True, rtol=LARGE_RELRES))):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         r, launches = _counted(lambda: solve_poisson(mesh, dbc, device=dev,
                                                      **kw), counted,
                                f"box_tet n=200 {label}")
@@ -1569,6 +1628,373 @@ def _cli_ported(dev):
                f"CLI cfd: {out}")
 
 
+def _slab_rows(total, ranks, plane=1, lane_pad=8):
+    """Rows per rank of parallel/shard.py's slab partition: total / ranks
+    rounded up to lane_pad, then to whole lattice planes."""
+    P = round_up(-(-total // ranks), lane_pad)
+    return plane * (-(-P // plane))
+
+
+def _halo_csr(A, w):
+    """torch.sparse_csr_tensor of a rank's (P, P + 2w) block over its
+    extended x = [left | x_l | right] (nonzero in-range entries): its
+    product with the extended x is one cuSPARSE SpMV.  Returns (csr,
+    nnz)."""
+    dev, P = A.vals.device, A.n_rows
+    offs = torch.tensor(A.offsets, dtype=torch.int64, device=dev)
+    cols = torch.arange(P, device=dev)[:, None] + offs[None, :] + w
+    vals = A.vals.t()
+    keep = (cols >= 0) & (cols < P + 2 * w) & (vals != 0)
+    crow = torch.zeros(P + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum(keep.sum(1), 0)
+    csr = torch.sparse_csr_tensor(crow.to(torch.int32),
+                                  cols[keep].to(torch.int32), vals[keep],
+                                  size=(P, P + 2 * w))
+    return csr, int(crow[-1])
+
+
+def _dist_kernel(dev, errs, rng, A_lat, A_el3, smi, peak):
+    """Phase 25: B1's halo entry at two real per-rank shapes, against its
+    plain version (f32, f64; both halos, and an edge rank's missing one),
+    then timed in f32 as phase 24 times B1: back to back, queued behind a
+    sleep kernel, its byte bound and cuSPARSE on the CSR of the block."""
+    L = N_SLAB - 1
+    shifts = decompose_offsets(A_lat.offsets, A_lat.lattice)
+    offs = tuple(sorted(a * L * L + b * L + c for a, b, c in shifts))
+    P = _slab_rows(L ** 3, SLAB_RANKS, plane=L * L)
+    lat_vals = torch.as_tensor(rng.standard_normal((len(offs), P)),
+                               dtype=torch.float32, device=dev)
+    Pe = _slab_rows(A_el3.n_rows, EL3D_SLAB_RANKS)
+    shapes = {
+        f"box_tet n={N_SLAB}, rank 1 of {SLAB_RANKS} (slab)":
+            DIAMatrix(vals=lat_vals, offsets=offs, n_rows=P),
+        f"elasticity3d n={N_EL3D}, rank 1 of {EL3D_SLAB_RANKS} (slab)":
+            DIAMatrix(vals=A_el3.vals[:, Pe:2 * Pe].contiguous(),
+                      offsets=A_el3.offsets, n_rows=Pe)}
+    timing = []
+    for label, A in shapes.items():
+        w = halo_width(A.offsets)
+        _check(w <= A.n_rows and len(A.offsets) in (15, 59),
+               f"dist_kernel {label}: w {w}, {len(A.offsets)} diagonals")
+        x64, l64, r64 = (rng.standard_normal(n)
+                         for n in (A.n_rows, w, w))
+        off = torch.tensor(A.offsets, dtype=torch.int32, device=dev)
+        for dtype in (torch.float32, torch.float64):
+            Ad = DIAMatrix(vals=A.vals.to(dtype), offsets=A.offsets,
+                           n_rows=A.n_rows)
+            x, left, right = (torch.as_tensor(v, dtype=dtype, device=dev)
+                              for v in (x64, l64, r64))
+            for halos, (lh, rh) in (("halos", (left, right)),
+                                    ("edge rank", (None, right))):
+                abs_err, rel_err = _errors(
+                    dia_spmv_cuda.dia_spmv_halo(Ad, x, lh, rh, off),
+                    spmv_dia_halo_local(Ad, x, lh, rh))
+                case = f"halo {label}, {halos}"
+                errs[("dia_spmv", case, dtype)] = abs_err
+                _phase("dist_kernel", kernel="dia_spmv (halo entry)",
+                       case=case, dtype=str(dtype), rows=A.n_rows, w=w,
+                       diagonals=len(A.offsets), max_abs_err=abs_err,
+                       max_rel_err=rel_err, bound=REL_ERR_MAX[dtype])
+                _check(rel_err <= REL_ERR_MAX[dtype],
+                       f"dia_spmv_halo {case} {dtype}: rel err {rel_err}")
+        x, left, right = (torch.as_tensor(v, dtype=torch.float32,
+                                          device=dev)
+                          for v in (x64, l64, r64))
+        csr, nnz = _halo_csr(A, w)
+        x_ext = torch.cat([left, x, right])
+        kern = lambda A=A, x=x, l=left, r=right, o=off: \
+            dia_spmv_cuda.dia_spmv_halo(A, x, l, r, o)
+        plain = lambda A=A, x=x, l=left, r=right: \
+            spmv_dia_halo_local(A, x, l, r)
+        lib = lambda csr=csr, xe=x_ext: csr @ xe
+        _, lib_rel = _errors(lib(), kern())
+        _check(lib_rel <= REL_ERR_MAX[torch.float32],
+               f"dist_kernel {label}: the library product differs by "
+               f"{lib_rel}")
+        ms, runs = _timed_pairs(plain, kern, lib)
+        device, hidden = _timed_device({"plain": plain, "kernel": kern,
+                                        "library": lib})
+        size = 4
+        nbytes = nnz * size + (A.n_rows + 2 * w) * size + A.n_rows * size \
+            + 4 * len(A.offsets)
+        t_bytes = nbytes / (peak * 1e9) * 1e3
+        t_ops = 2 * nnz / PEAK_FLOPS[torch.float32] * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        row = dict(shape=label, rows=A.n_rows, w=w,
+                   diagonals=len(A.offsets), nnz=nnz, spmv_bytes=nbytes,
+                   bound_ms=bound_ms, bound_by=bound_by, peak_gbps=peak,
+                   kernel_ms=ms["kernel"], plain_ms=ms["plain"],
+                   library_ms=ms["library"], kernel_ms_runs=runs["kernel"],
+                   device_kernel_ms=device["kernel"],
+                   device_plain_ms=device["plain"],
+                   device_library_ms=device["library"],
+                   device_host_hidden=hidden,
+                   device_kernel_share_of_bound=bound_ms / device["kernel"],
+                   device_kernel_over_library=device["kernel"]
+                   / device["library"], library_rel_err=lib_rel)
+        _phase("dist_kernel", card=smi, dtype="float32", **row)
+        timing.append(row)
+        del csr, x_ext
+    return timing
+
+
+def _dist_stages(label, r, base, extra):
+    """Print a sharded solve's stages; `base`: the bytes the script held on
+    the card when the solve began (the peak since then is printed above
+    it too)."""
+    it = max(r.stats.iters, 1)
+    peak = torch.cuda.max_memory_allocated()
+    _phase("dist_dia", run=label, iters=r.stats.iters, relres=r.stats.relres,
+           converged=r.stats.converged, ms_per_iter=1e3 * r.timings["solve_s"]
+           / it, time_to_solution_s=_stage_seconds(r),
+           peak_device_gb=peak / 1e9, peak_above_start_gb=(peak - base) / 1e9,
+           **extra, **r.timings)
+
+
+def _reduction_cost(v, reps=300):
+    """Host ms per call of CG's reduced dot pair (parallel/shard_cg.py: two
+    local dots stacked into one all_reduce) and of the local pair, each
+    followed by the flag read the Krylov loop makes, on the solve's vector
+    `v`.  The difference is what a collective adds to every CG iteration,
+    twice (p.Ap, then the pair after the preconditioner)."""
+    _, dot2 = shard_cg._reduced_dots()
+    pairs = {"local": lambda: (torch.dot(v, v), torch.dot(v, v)),
+             "reduced": lambda: dot2(v, v, v, v)}
+    ms = {}
+    for name, pair in pairs.items():
+        for _ in range(2):          # the first pass warms up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                bool(pair()[1] > 0)
+            ms[name] = (time.perf_counter() - t0) / reps * 1e3
+    return {"dot_pair_local_ms": ms["local"],
+            "dot_pair_all_reduce_ms": ms["reduced"]}
+
+
+@contextlib.contextmanager
+def _solve_blocks(into):
+    """Record in `into` the (offsets, vals (D, P)) block that each sharded
+    solve run inside hands its halo-exchange Krylov solve
+    (drivers/sharded.py)."""
+    solve = sharded_driver.distributed_cg_solve_dia
+
+    def recorded(offsets, vals_l, *args, **kw):
+        into.append((tuple(offsets), vals_l))
+        return solve(offsets, vals_l, *args, **kw)
+
+    sharded_driver.distributed_cg_solve_dia = recorded
+    try:
+        yield
+    finally:
+        sharded_driver.distributed_cg_solve_dia = solve
+
+
+def _halo_entry_on_block(label, block, errs, rng):
+    """B1's halo entry on a sharded solve's own (D, P) block against its
+    plain version, f32 and f64: with both halos None, as every launch of a
+    world-size-1 solve has them, and with random non-zero halos."""
+    offsets, vals = block
+    P, dev = vals.shape[1], vals.device
+    w = halo_width(offsets)
+    off = torch.tensor(offsets, dtype=torch.int32, device=dev)
+    x64, l64, r64 = (rng.standard_normal(n) for n in (P, w, w))
+    for dtype in (torch.float32, torch.float64):
+        A = DIAMatrix(vals=vals.to(dtype), offsets=offsets, n_rows=P)
+        x, left, right = (torch.as_tensor(v, dtype=dtype, device=dev)
+                          for v in (x64, l64, r64))
+        for halos, (lh, rh) in (("no neighbours", (None, None)),
+                                ("halos", (left, right))):
+            abs_err, rel_err = _errors(
+                dia_spmv_cuda.dia_spmv_halo(A, x, lh, rh, off),
+                spmv_dia_halo_local(A, x, lh, rh))
+            case = f"halo {label} solve block, {halos}"
+            errs[("dia_spmv", case, dtype)] = abs_err
+            _phase("dist_dia", kernel="dia_spmv (halo entry)", case=case,
+                   dtype=str(dtype), rows=P, w=w, diagonals=len(offsets),
+                   max_abs_err=abs_err, max_rel_err=rel_err,
+                   bound=REL_ERR_MAX[dtype])
+            _check(rel_err <= REL_ERR_MAX[dtype],
+                   f"dia_spmv_halo {case} {dtype}: rel err {rel_err}")
+
+
+def _dist_dia(dev, counted, solve_dia, el3, errs, rng):
+    """Phase 26: solve_implicit_sharded on a world-size-1 NCCL group: the
+    n=96 Poisson box (f32) and the phase-7 elasticity system (f64, Jacobi
+    and block-Jacobi), every in-shard product on B1's halo entry; after
+    each solve, B1's halo entry against its plain version on that solve's
+    own block."""
+    wd = multihost.world()
+    _check(wd.size == 1 and wd.device.type == "cuda",
+           f"dist_dia: the group is {wd}")
+    n = N_FLAGSHIP
+    mesh, dbc = generate.box_tet(0, 1, n, 0, 1, n, 0, 1, n)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    blocks = []
+    with _solve_blocks(blocks):
+        res, launches = _counted(lambda: solve_implicit_sharded(
+            mesh, 1, dbc, _poisson_fn, dtype=torch.float32, rtol=1e-6,
+            device=dev), counted, "sharded n=96 f32 jacobi (world 1)")
+    halo = dia_spmv_cuda.kernel.entry_launches["dia_spmv_halo_f32"]
+    nodal_err = _check_solve("dist_dia", res, (mesh.coords ** 2).sum(1))
+    st = res.stats
+    single_it = solve_dia.stats.iters
+    _dist_stages(f"box_tet n={n} f32 jacobi", res, base, dict(
+        nodal_err=nodal_err, launches=launches, halo_launches=halo,
+        single_device_iters=single_it,
+        single_device_ms_per_iter=1e3 * solve_dia.timings["solve_s"]
+        / max(single_it, 1), **_reduction_cost(res.u_reduced)))
+    _check(res.timings["assembly_layout"] == "dia"
+           and res.timings["distributed_assembly"],
+           f"dist_dia n={n}: {res.timings}")
+    _check(halo >= st.iters and launches["ell_spmv"] == 0,
+           f"dist_dia n={n}: halo launches {halo}, {launches} vs "
+           f"{st.iters} iterations")
+    _check(abs(st.iters - single_it) <= DIST_ITERS_SLACK,
+           f"dist_dia n={n}: {st.iters} iterations, single device "
+           f"{single_it}")
+    _check(not PLAIN_ON_CARD, f"dist_dia: plain SpMVs on the card "
+           f"{dict(PLAIN_ON_CARD)}")
+    _check(len(blocks) == 1, f"dist_dia n={n}: {len(blocks)} blocks")
+    _halo_entry_on_block(f"box_tet n={n}", blocks.pop(), errs, rng)
+    runs = {"sharded n=96 f32 (world 1)": res}
+    del res
+
+    m3, _ = generate.box_tet(0, 1, N_EL3D, 0, 1, N_EL3D, 0, 1, N_EL3D)
+    d3 = _clamped(m3)
+    D = dmat_3d(E_EL, NU_EL)
+    efn = lambda c: elasticity_stiffness(c, "tetra4", D,
+                                         bforce=(0.1, 0.0, 0.0))
+    ref = el3[torch.float64]
+    for pc in ("jacobi", "bjacobi"):
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with _solve_blocks(blocks):
+            r, launches = _counted(lambda: solve_implicit_sharded(
+                m3, 3, d3, efn, dtype=torch.float64, rtol=1e-6, precond=pc,
+                device=dev), counted,
+                f"sharded elasticity3d f64 {pc} (world 1)")
+        halo = dia_spmv_cuda.kernel.entry_launches["dia_spmv_halo_f64"]
+        rel = float(np.abs(r.u_full - ref.u_full).max()
+                    / np.abs(ref.u_full).max())
+        _dist_stages(f"elasticity3d n={N_EL3D} f64 {pc}", r, base, dict(
+            launches=launches, halo_launches=halo,
+            single_device_iters=ref.stats.iters, u_rel_vs_single=rel))
+        _check(r.stats.converged and r.stats.relres <= 1e-6,
+               f"dist_dia elasticity {pc}: {r.stats}")
+        _check(r.timings["precond_used"] == pc,
+               f"dist_dia elasticity {pc}: {r.timings}")
+        _check(halo >= r.stats.iters and launches["ell_spmv"] == 0,
+               f"dist_dia elasticity {pc}: launches {launches}")
+        if pc == "jacobi":
+            _check(abs(r.stats.iters - ref.stats.iters) <= DIST_ITERS_SLACK
+                   and rel <= DIST_EL3D_U_REL,
+                   f"dist_dia elasticity: {r.stats.iters} iterations vs "
+                   f"{ref.stats.iters}, u rel {rel}")
+        _check(len(blocks) == 1, f"dist_dia elasticity {pc}: "
+               f"{len(blocks)} blocks")
+        _halo_entry_on_block(f"elasticity3d n={N_EL3D} {pc}", blocks.pop(),
+                             errs, rng)
+        runs[f"sharded elasticity3d f64 {pc} (world 1)"] = r
+    return runs
+
+
+def _dist_ell(dev, counted):
+    """Phase 27: distributed_cg_solve (the all-gather ELL route) at world
+    size 1 on the n=96 box's ELL system, f32: every product on B2."""
+    n = N_FLAGSHIP
+    mesh, dbc = generate.box_tet(0, 1, n, 0, 1, n, 0, 1, n)
+    t0 = time.perf_counter()
+    sys_ = build_sharded_system(mesh, 1, dbc, 1, layout="ell")
+    plan = build_assembly_plan(sys_.pattern, dev)
+    t_pattern = time.perf_counter() - t0
+    coords = torch.as_tensor(to_element_minor(mesh.elem_coords()),
+                             dtype=torch.float32, device=dev)
+    Ke, Fe = _poisson_fn(coords)
+    A = assemble_ell_values(Ke, plan)
+    ubc = torch.as_tensor(
+        sys_.dofmap.bc_values_full[sys_.dofmap.elem_nodedof].T,
+        dtype=torch.float32, device=dev)
+    b = assemble_rhs(Fe + dirichlet_rhs_correction(Ke, ubc), plan)
+    del Ke, Fe, coords, ubc
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (x, st), launches = _counted(lambda: shard_cg.distributed_cg_solve(
+        A.cols, A.vals, b, rtol=1e-6), counted,
+        "all-gather ELL n=96 f32 (world 1)")
+    torch.cuda.synchronize()
+    t_solve = time.perf_counter() - t0
+    u = sys_.dofmap.expand_solution(
+        sys_.reduce_solution(x.cpu().to(torch.float64).numpy()))
+    nodal_err = float(np.abs(u - (mesh.coords ** 2).sum(1)).max())
+    _phase("dist_ell", n=n, rows=sys_.n_rows_padded, k=A.k,
+           iters=st.iters, relres=st.relres, converged=st.converged,
+           nodal_err=nodal_err, launches=launches, pattern_s=t_pattern,
+           solve_s=t_solve, ms_per_iter=1e3 * t_solve / max(st.iters, 1))
+    _check(st.converged and st.relres <= 1e-6, f"dist_ell: {st}")
+    _check(abs(st.iters - ITERS_BAR) <= ITERS_SLACK,
+           f"dist_ell: {st.iters} iterations, not {ITERS_BAR} +- "
+           f"{ITERS_SLACK}")
+    _check(launches["ell_spmv"] >= st.iters and launches["dia_spmv"] == 0,
+           f"dist_ell: launches {launches} vs {st.iters} iterations")
+    _check(nodal_err <= NODAL_ERR_MAX, f"dist_ell: nodal error {nodal_err}")
+
+
+def _vtk_point_values(path):
+    body = Path(path).read_text().split("POINT_DATA")[1].split("\n", 2)[2]
+    if body.startswith("LOOKUP_TABLE"):
+        body = body.split("\n", 1)[1]
+    return np.array(body.split(), dtype=np.float64)
+
+
+def _cli_sharded(dev):
+    """Phase 28: `poisson --shards 2 --device cpu` (two gloo ranks started
+    by the CLI) against the single-device CLI solve on the card, and
+    `--shards 2 --device cuda` on this one-card machine, which must fail
+    naming the card count."""
+    def run(label, *argv):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "pfemfort_tpu_torch",
+                               *argv], cwd=ROOT, capture_output=True,
+                              text=True, timeout=600)
+        _phase("cli", subcommand=label, seconds=time.perf_counter() - t0,
+               exit=proc.returncode, output=proc.stdout.strip().splitlines(),
+               stderr_tail=proc.stderr.strip().splitlines()[-2:])
+        return proc
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh, dbc = generate.box_tet(0, 1, 8, 0, 1, 8, 0, 1, 16)
+        prefix = str(Path(tmp) / "box")
+        mesh_io.write_dat(prefix, mesh, dirichlet=dbc)
+        files = [prefix + s for s in ("-nodes.dat", "-elems.dat",
+                                      "-DirichBC.dat")]
+        vs, vd = str(Path(tmp) / "single.vtk"), str(Path(tmp) / "dist.vtk")
+        single = run("poisson (single device)", "poisson", *files,
+                     "--device", dev.type, "--dtype", "float64", "-o", vs)
+        dist = run("poisson --shards 2 --device cpu", "poisson", *files,
+                   "--shards", "2", "--device", "cpu", "--dtype", "float64",
+                   "-o", vd)
+        _check(single.returncode == 0 and dist.returncode == 0,
+               f"CLI sharded poisson: {dist.stdout}{dist.stderr}")
+        _check(dist.stdout.count("Convergence in") == 1
+               and "Mesh statistics" in dist.stdout,
+               f"CLI sharded poisson: rank 0's report {dist.stdout}")
+        diff = float(np.abs(_vtk_point_values(vd)
+                            - _vtk_point_values(vs)).max())
+        _phase("cli", subcommand="poisson --shards 2 vs single device",
+               max_abs_u_diff=diff, bound=CLI_SHARDED_U_TOL)
+        _check(diff <= CLI_SHARDED_U_TOL, f"CLI sharded u differs by {diff}")
+        bad = run("poisson --shards 2 --device cuda", "poisson", *files,
+                  "--shards", "2", "--device", "cuda")
+        found = torch.cuda.device_count()
+        _check(bad.returncode != 0 and f"found {found}" in bad.stderr
+               and "needs 2 CUDA cards" in bad.stderr,
+               f"CLI --shards 2 --device cuda on {found} card(s): "
+               f"{bad.returncode} {bad.stderr}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -1905,6 +2331,20 @@ def main():
                time_to_solution_s=sum(v for k, v in timings.items()
                                       if k.endswith("_s")), **timings)
 
+    # 25.-28. the sharded DIA route on one card: B1's halo entry at real
+    # per-rank shapes, the sharded solves at world size 1 (NCCL), the
+    # all-gather ELL route on B2, the command line's --shards
+    halo_timing = _dist_kernel(dev, errs, rng, A32, A_el3, smi, peak)
+    multihost.initialize(device="cuda")
+    dist_runs = _dist_dia(dev, counted, solve_dia, el3, errs, rng)
+    _dist_ell(dev, counted)
+    _cli_sharded(dev)
+    for label, r in dist_runs.items():
+        _phase("timing", stages=label, card=smi, cg_iters=r.stats.iters,
+               cg_ms_per_iter=1e3 * r.timings["solve_s"]
+               / max(r.stats.iters, 1),
+               time_to_solution_s=_stage_seconds(r), **r.timings)
+
     def cases(name):
         return [{"case": case, "dtype": str(dtype)[6:], "max_abs_err": err}
                 for (kname, case, dtype), err in errs.items()
@@ -1921,14 +2361,19 @@ def main():
                 "device_library_ms": device[label]["library"], "shape": label,
                 "cases": cases(name)}
 
+    dia_entry = entry("dia_spmv", "pfemfort_tpu_torch/csrc/dia_spmv.cu",
+                      "pfemfort_tpu/sparse/pallas_spmv.py:48", "dia",
+                      "flagship", torch.float32)
+    dia_entry["halo_entry"] = {
+        "replaces": "pfemfort_tpu/sparse/pallas_spmv.py:167",
+        "launches": counted["dia_spmv_halo"], "shapes": halo_timing}
     print(json.dumps({"kernels": [
-        entry("dia_spmv", "pfemfort_tpu_torch/csrc/dia_spmv.cu",
-              "pfemfort_tpu/sparse/pallas_spmv.py:48", "dia", "flagship",
-              torch.float32),
+        dia_entry,
         entry("ell_spmv", "pfemfort_tpu_torch/csrc/ell_spmv.cu",
               "pfemfort_tpu/sparse/slotgather.py:403", "ell_el2d",
               "elasticity2d renumbered, ordered", torch.float64)]}),
           flush=True)
+    multihost.shutdown()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

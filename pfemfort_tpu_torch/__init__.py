@@ -15,8 +15,10 @@ Jacobi-CG), the float64 1e-8 box solve `solve/highprec.py:
 solve_box_poisson_1e8`, incompressible Navier-Stokes
 `cfd.fractional_step_ns`, explicit central-difference dynamics through
 `explicit_dynamics` (with checkpoint/resume), mesh partitioning
-(`parallel`), VTK output, and the command line
-`python -m pfemfort_tpu_torch`.  Every entry point runs on the card
+(`parallel`), the distributed DIA route over torch.distributed ranks
+(`drivers.sharded.solve_implicit_sharded`, set up by
+`parallel.multihost.initialize`), VTK output, and the command line
+`python -m pfemfort_tpu_torch` (`--shards N` included).  Every entry point runs on the card
 unless the caller passes device="cpu", and raises without a card.
 Generated box_tet and rect_tria Poisson meshes take the structured
 slice-add assembly of the reduced DIA system; every other system (read

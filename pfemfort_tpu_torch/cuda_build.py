@@ -16,6 +16,7 @@ build takes seconds.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -105,7 +106,8 @@ class _SharedLibrary:
 
 class CudaKernel(_SharedLibrary):
     """One csrc/<name>.cu library: its build, its entry points and the
-    count of kernel launches made through `launch`."""
+    count of kernel launches made through `launch`, in all (`launches`) and
+    by entry point (`entry_launches`)."""
 
     suffix = ".cu"
     flags = NVCC_FLAGS
@@ -117,6 +119,7 @@ class CudaKernel(_SharedLibrary):
         table[f"{name}_error_string"] = ([ctypes.c_int], ctypes.c_char_p)
         super().__init__(name, table)
         self.launches = 0
+        self.entry_launches = collections.Counter()
 
     def launch(self, entry: str, *args) -> None:
         """Call one entry point; raise if the launch was refused, else count
@@ -127,6 +130,7 @@ class CudaKernel(_SharedLibrary):
             msg = getattr(lib, f"{self.name}_error_string")(err).decode()
             raise RuntimeError(f"{self.name} kernel launch failed: {msg}")
         self.launches += 1
+        self.entry_launches[entry] += 1
 
 
 class HostLibrary(_SharedLibrary):

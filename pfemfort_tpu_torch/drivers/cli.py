@@ -18,14 +18,23 @@ options and the same printed milestones as the JAX package's CLI:
 The solving subcommands add two options of their own: `--device` (default
 cuda; without a card the run fails, pass `--device cpu` to run on the
 CPU) and `--dtype` (float32 by default, as the JAX CLI without x64; the
-port's counterpart of `jax_enable_x64` is `--dtype float64`).  The
-`bench` subcommand and `--shards > 1` are not ported yet: they raise
-NotImplementedError naming their ROADMAP item.
+port's counterpart of `jax_enable_x64` is `--dtype float64`).
+
+`poisson` and `elasticity` take `--shards N`: the per-rank DIA solve of
+drivers/sharded.py on N ranks.  Under torchrun (RANK in the environment)
+each process is one rank of the group torchrun set up; launched by hand,
+the command re-runs itself under torchrun with N rank processes
+(parallel/multihost.py:torchrun_ranks).  `--device cuda` needs N cards (one per rank,
+NCCL), `--device cpu` runs the ranks on gloo.  Rank 0 alone prints the
+report and writes the output, with each element's rank as the VTK file's
+procid.  The `bench` subcommand is not ported yet: it raises
+NotImplementedError naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -52,11 +61,32 @@ def _device(args):
     return device, _DTYPES[args.dtype]
 
 
-def _no_shards(args):
-    if args.shards and args.shards > 1:
-        raise NotImplementedError(
-            f"--shards {args.shards}: sharded solves wait for ROADMAP A.9 "
-            "(distributed)")
+def _launch_ranks(args, argv):
+    """A `--shards N` command: as one rank under torchrun, join the process
+    group and return None; launched by hand, run the same command as N
+    torchrun ranks and return torchrun's exit code."""
+    from pfemfort_tpu_torch.parallel import multihost
+
+    n, device = args.shards, torch.device(args.device)
+    if "RANK" not in os.environ:
+        if device.type == "cuda" and torch.cuda.device_count() < n:
+            raise SystemExit(
+                f"--shards {n} --device {args.device} needs {n} CUDA cards "
+                f"(one per rank), found {torch.cuda.device_count()} (pass "
+                "--device cpu to run the ranks on the CPU)")
+        return multihost.torchrun_ranks(["-m", "pfemfort_tpu_torch", *argv],
+                                        n)
+    multihost.initialize(device=device.type)
+    return None
+
+
+def _solve_sharded(args, mesh, ndof, dbc, element_fn, fbc=None):
+    from pfemfort_tpu_torch.drivers.sharded import solve_implicit_sharded
+
+    return solve_implicit_sharded(
+        mesh, ndof, dbc, element_fn, n_shards=args.shards, force_bc=fbc,
+        dtype=_DTYPES[args.dtype], rtol=args.rtol, precond=args.precond,
+        method=args.ksp, device=args.device)
 
 
 def _report(mesh, ndof, res, t0):
@@ -74,12 +104,25 @@ def _report(mesh, ndof, res, t0):
     print(f" That took {time.perf_counter() - t0:.3f} seconds")
 
 
-def _write_output(args, mesh, ndof, u_full):
+def _write_output(args, mesh, ndof, res):
     if args.output:
         from pfemfort_tpu_torch.io.vtk import write_vtk
 
-        write_vtk(args.output, mesh, u_full, ndof)
+        write_vtk(args.output, mesh, res.u_full, ndof,
+                  elem_procid=res.elem_part)
         print(f" Wrote {args.output}")
+
+
+def _finish(args, mesh, ndof, res, t0):
+    """Report and write (rank 0 alone on a sharded run); the exit code."""
+    from pfemfort_tpu_torch.parallel import multihost
+
+    if multihost.is_coordinator():
+        _report(mesh, ndof, res, t0)
+        _write_output(args, mesh, ndof, res)
+    if args.shards and args.shards > 1:
+        multihost.shutdown()
+    return 0 if res.stats.converged else 1
 
 
 def _solver_opts(args):
@@ -101,39 +144,66 @@ def _solver_opts(args):
 
 def cmd_poisson(args):
     from pfemfort_tpu_torch.drivers.poisson import solve_poisson
+    from pfemfort_tpu_torch.elements.poisson import poisson_element_matrices
 
     _solver_opts(args)
-    _no_shards(args)
-    device, dtype = _device(args)
+    sharded = args.shards and args.shards > 1
+    if sharded:
+        rc = _launch_ranks(args, args.argv)
+        if rc is not None:
+            return rc
+    else:
+        device, dtype = _device(args)
     mesh, dbc, _ = _read(args)
     t0 = time.perf_counter()
-    res = solve_poisson(mesh, dbc, rtol=args.rtol, method=args.ksp,
-                        source=args.source, bc_mode=args.bc_mode,
-                        precond=args.precond, refine=args.refine,
-                        matrix_free=args.matrix_free, device=device,
-                        dtype=dtype)
-    _report(mesh, 1, res, t0)
-    _write_output(args, mesh, 1, res.u_full)
-    return 0 if res.stats.converged else 1
+    if sharded:
+        src = args.source
+        if src is None:
+            src = -6.0 if mesh.etype == "tetra4" else 0.0
+        res = _solve_sharded(args, mesh, 1, dbc, lambda c:
+                             poisson_element_matrices(c, mesh.etype,
+                                                      source=src))
+    else:
+        res = solve_poisson(mesh, dbc, rtol=args.rtol, method=args.ksp,
+                            source=args.source, bc_mode=args.bc_mode,
+                            precond=args.precond, refine=args.refine,
+                            matrix_free=args.matrix_free, device=device,
+                            dtype=dtype)
+    return _finish(args, mesh, 1, res, t0)
 
 
 def cmd_elasticity(args):
     from pfemfort_tpu_torch.drivers.elasticity import solve_elasticity
+    from pfemfort_tpu_torch.elements.elasticity import dmat_3d, \
+        dmat_plane_strain, dmat_plane_stress, elasticity_stiffness
 
     _solver_opts(args)
     # --precond selects the sharded solve's preconditioner; a single-device
     # solve ignores it, as the JAX CLI does
-    _no_shards(args)
-    device, dtype = _device(args)
+    sharded = args.shards and args.shards > 1
+    if sharded:
+        rc = _launch_ranks(args, args.argv)
+        if rc is not None:
+            return rc
+    else:
+        device, dtype = _device(args)
     mesh, dbc, fbc = _read(args)
     t0 = time.perf_counter()
-    res = solve_elasticity(
-        mesh, dbc, args.E, args.nu, force_bc=fbc,
-        bforce=None, plane=args.plane, rtol=args.rtol,
-        method=args.ksp, refine=args.refine, device=device, dtype=dtype)
-    _report(mesh, mesh.ndim, res, t0)
-    _write_output(args, mesh, mesh.ndim, res.u_full)
-    return 0 if res.stats.converged else 1
+    if sharded:
+        if mesh.ndim == 2:
+            D = dmat_plane_stress(args.E, args.nu) \
+                if args.plane == "stress" else \
+                dmat_plane_strain(args.E, args.nu)
+        else:
+            D = dmat_3d(args.E, args.nu)
+        res = _solve_sharded(args, mesh, mesh.ndim, dbc, lambda c:
+                             elasticity_stiffness(c, mesh.etype, D), fbc)
+    else:
+        res = solve_elasticity(
+            mesh, dbc, args.E, args.nu, force_bc=fbc,
+            bforce=None, plane=args.plane, rtol=args.rtol,
+            method=args.ksp, refine=args.refine, device=device, dtype=dtype)
+    return _finish(args, mesh, mesh.ndim, res, t0)
 
 
 def cmd_explicit(args):
@@ -311,8 +381,8 @@ def build_parser():
     sp.add_argument("--source", type=float, default=None,
                     help="volume source (default: 0 in 2D, -6 for tetra)")
     sp.add_argument("--shards", type=int, default=0,
-                    help="shard the solve over N devices (0 = single; "
-                         "ROADMAP A.9)")
+                    help="solve on N ranks (0 = single device): the "
+                         "per-rank DIA route, one card per rank")
     sp.add_argument("--bc-mode", choices=["reduced", "full"],
                     default="reduced",
                     help="reduced = BC-eliminated system (impl1/2); "
@@ -340,8 +410,8 @@ def build_parser():
     sp.add_argument("--ksp", choices=["cg", "bicgstab", "gmres"],
                     default="cg")
     sp.add_argument("--shards", type=int, default=0,
-                    help="shard the solve over N devices (0 = single; "
-                         "ROADMAP A.9)")
+                    help="solve on N ranks (0 = single device): the "
+                         "per-rank DIA route, one card per rank")
     sp.add_argument("--precond",
                     choices=["jacobi", "bjacobi", "ic0", "amg", "mg"],
                     default="bjacobi",
@@ -406,7 +476,9 @@ def build_parser():
 
 
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
+    args.argv = argv
     return args.fn(args)
 
 

@@ -79,11 +79,14 @@ from pfemfort_tpu_torch.sparse.sliced import SliceLayout, SlicedELL, \
 from pfemfort_tpu_torch.utils.device import resolve_device, \
     synchronize as _sync
 
+
 class ImplicitResult(NamedTuple):
     u_full: np.ndarray          # (n_node*ndof,) solution incl. BC values
     u_reduced: torch.Tensor     # (total_dof,) solution on the device
     stats: SolveStats
     timings: dict
+    # (n_elem,) rank that assembled each element (sharded solves)
+    elem_part: Optional[np.ndarray] = None
 
 
 _SOLVERS = {"cg": cg_solve, "bicgstab": bicgstab_solve,

@@ -28,6 +28,7 @@ def gmres_solve(
     atol: float = 0.0,
     restart: int = 30,
     maxiter: int = 1000,
+    dot: Callable = torch.dot,
 ):
     """Left-preconditioned restarted GMRES.  Returns (x, SolveStats).
 
@@ -37,7 +38,9 @@ def gmres_solve(
     (KSP_NORM_PRECONDITIONED), unlike cg_solve's true-residual test.
     Arnoldi stops MID-CYCLE as soon as |g_j| <= tol, so a converged solve
     does not pay for the rest of its restart window.  `iters` counts
-    Arnoldi steps over all cycles.
+    Arnoldi steps over all cycles.  `dot` is the inner product of the
+    n-vectors (a local dot + all_reduce for a distributed solve); the
+    back-substitution's products of m-vectors stay local.
     """
     if precond is None:
         precond = lambda r: r
@@ -47,12 +50,12 @@ def gmres_solve(
     new = lambda *shape: b.new_zeros(shape)
 
     Mb = precond(b)
-    bnorm = torch.sqrt(torch.dot(Mb, Mb))
+    bnorm = torch.sqrt(dot(Mb, Mb))
     tol = torch.clamp_min(rtol * bnorm, atol)
 
     def arnoldi_cycle(x):
         r = precond(b - operator(x))
-        beta = torch.sqrt(torch.dot(r, r))
+        beta = torch.sqrt(dot(r, r))
         V = new(m + 1, n)
         H = new(m + 1, m)
         cs, sn, g = new(m), new(m), new(m + 1)
@@ -65,10 +68,10 @@ def gmres_solve(
             hcol = new(m + 1)
             # modified Gram-Schmidt against rows 0..j (rows > j are zero)
             for i in range(j + 1):
-                hij = torch.dot(w, V[i])
+                hij = dot(w, V[i])
                 w = w - hij * V[i]
                 hcol[i] = hij
-            hjp1 = torch.sqrt(torch.dot(w, w))
+            hjp1 = torch.sqrt(dot(w, w))
             hcol[j + 1] = hjp1
             V[j + 1] = w / torch.where(hjp1 > 0, hjp1, 1.0)
             # apply the previous Givens rotations to the new column
@@ -102,7 +105,7 @@ def gmres_solve(
         return x, torch.abs(g[j]), j
 
     r0 = precond(b - operator(x))
-    res = torch.sqrt(torch.dot(r0, r0))
+    res = torch.sqrt(dot(r0, r0))
     iters = 0
     while bool(res > tol) and iters < maxiter:
         x, res, jdone = arnoldi_cycle(x)

@@ -97,6 +97,40 @@ def spmv_dia(A: DIAMatrix, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def halo_extent(A: DIAMatrix, left: Optional[torch.Tensor],
+                right: Optional[torch.Tensor]) -> int:
+    """The halo width w of a (left, right) pair, None standing for zeros;
+    both given halos have w values and w covers every offset."""
+    given = [h for h in (left, right) if h is not None]
+    reach = max(max(A.offsets, default=0), -min(A.offsets, default=0), 0)
+    if not given:
+        return reach
+    w = given[0].shape[0]
+    if any(tuple(h.shape) != (w,) for h in given) or w < reach:
+        raise ValueError(f"halos of shapes {[tuple(h.shape) for h in given]}"
+                         f" for offsets reaching {reach}: each must be (w,) "
+                         "with w >= the largest |offset|")
+    return w
+
+
+def spmv_dia_halo_local(A: DIAMatrix, x_l: torch.Tensor,
+                        left: Optional[torch.Tensor],
+                        right: Optional[torch.Tensor]) -> torch.Tensor:
+    """y = A x for a rank's block of rows: x is [left (w) | x_l | right (w)]
+    (a None halo is zeros), each row summed in offset order.  The plain
+    version of kernel B1's halo entry (sparse/dia_spmv_cuda.py:
+    dia_spmv_halo)."""
+    w = halo_extent(A, left, right)
+    P = A.n_rows
+    zero = x_l.new_zeros(w)
+    x_ext = torch.cat([zero if left is None else left, x_l,
+                       zero if right is None else right])
+    y = torch.zeros_like(x_l)
+    for d, o in enumerate(A.offsets):
+        y = y + A.vals[d] * x_ext[w + o:w + o + P]
+    return y
+
+
 def dia_diagonal(A: DIAMatrix) -> torch.Tensor:
     try:
         d0 = A.offsets.index(0)

@@ -10,10 +10,11 @@ to 2 when b changes by a relative 1e-15, in the JAX package alone (dense
 against DIA operator, or b perturbed: 84 to 87 iterations at rtol 1e-8),
 so the two counts may differ by 2.
 The preconditioners, the full system (`--bc-mode full`), `--refine`,
-`--matrix-free`, `cfd` and `partition` run like the JAX CLI; `bench` and
-`--shards > 1`, which the port does not carry yet, raise
-NotImplementedError naming their ROADMAP item.  One run goes through a fresh process that
-never imports JAX.
+`--matrix-free`, `cfd`, `partition` and `--shards N` (the per-rank DIA
+route on N gloo ranks, which the port's CLI starts under torchrun) run like the JAX
+CLI; `bench`, which the port does not carry yet, raises
+NotImplementedError naming its ROADMAP item.  One run goes through a fresh
+process that never imports JAX.
 """
 
 import re
@@ -196,29 +197,66 @@ def test_vtktovtu_matches_jax(tet_prefix, tmp_path, capsys):
     (["cfd"], "A.8"),
 ])
 def test_options_outside_the_slice_raise(tet_prefix, cantilever, tmp_path,
-                                         capsys, argv, item):
-    """Options still outside the port (sharding) raise naming their ROADMAP
-    item; those of A.6, A.7 and A.8, ported since, now run like the JAX CLI
-    (Poisson on the box, elasticity on the cantilever, cfd on the box's
-    files with its Dirichlet rows as velocity BCs).  The refined elasticity
-    count is a sum of float32 inner CG counts, which move with the order of
-    the sums, so it may differ by 10%."""
+                                         capfd, argv, item):
+    """Options once outside the port, each ported since, run like the JAX
+    CLI: those of A.6, A.7 and A.8 on the box (Poisson), the cantilever
+    (elasticity) or the box's files with its Dirichlet rows as velocity BCs
+    (cfd); A.9's `--shards N` on meshes whose every rank holds at least a
+    halo's width of rows (the per-rank DIA route): Poisson on a 4x4x8 box,
+    3D elasticity on a clamped 3x3x16 box with a point load, with each
+    element's rank written as the VTK procid.  The refined elasticity count
+    is a sum of float32 inner CG counts, which move with the order of the
+    sums, so it may differ by 10%; sharded elasticity CG by 2 (its slow
+    tail moves with round-off).  capfd: the sharded ranks are processes
+    that write to the descriptors themselves."""
     cmd, opts = argv[0], argv[1:]
-    if item not in ("A.6", "A.7", "A.8"):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            t_main([cmd, *_files(tet_prefix), *opts, *CPU])
+    if item == "A.9":
+        _sharded_matches_jax(cmd, opts, tmp_path, capfd)
         return
     if cmd == "cfd":
-        _cfd_matches_jax(_files(tet_prefix), tmp_path, capsys)
+        _cfd_matches_jax(_files(tet_prefix), tmp_path, capfd)
         return
     files = _files(cantilever, force=True) if cmd == "elasticity" \
         else _files(tet_prefix)
     vj, vt = str(tmp_path / "j.vtk"), str(tmp_path / "t.vtk")
-    out_j, out_t = _run_both(capsys, [cmd, *files, *opts, "-o", vj],
+    out_j, out_t = _run_both(capfd, [cmd, *files, *opts, "-o", vj],
                              [cmd, *files, *opts, "-o", vt, *CPU])
     slack = int(0.1 * _iters(out_j)) if cmd == "elasticity" else 0
     assert abs(_iters(out_t) - _iters(out_j)) <= slack
     assert np.abs(_vtk_solution(vt) - _vtk_solution(vj)).max() <= VTK_TOL
+
+
+def _sharded_case(cmd, tmp_path):
+    """.dat files of a mesh the per-rank DIA route takes at 2 and 4 ranks."""
+    from pfemfort_tpu_torch.mesh import generate, io as mesh_io
+
+    prefix = str(tmp_path / f"{cmd}-sharded")
+    if cmd == "poisson":
+        mesh, dbc = generate.box_tet(0, 1, 4, 0, 1, 4, 0, 1, 8)
+        mesh_io.write_dat(prefix, mesh, dirichlet=dbc)
+        return _files(prefix)
+    mesh, _ = generate.box_tet(0, 1, 3, 0, 1, 3, 0, 1, 16)
+    base = np.nonzero(mesh.coords[:, 2] == 0.0)[0]
+    dbc = np.array([[n, d, 0.0] for n in base for d in (0, 1, 2)])
+    tip = int(np.argmax(mesh.coords[:, 2]))
+    mesh_io.write_dat(prefix, mesh, dirichlet=dbc,
+                      force=np.array([[tip, 0, 1.0]]))
+    return _files(prefix, force=True)
+
+
+def _sharded_matches_jax(cmd, opts, tmp_path, capfd):
+    files = _sharded_case(cmd, tmp_path)
+    vj, vt = str(tmp_path / "j.vtk"), str(tmp_path / "t.vtk")
+    out_j, out_t = _run_both(capfd, [cmd, *files, *opts, "-o", vj],
+                             [cmd, *files, *opts, "-o", vt, *CPU])
+    slack = 2 if cmd == "elasticity" else 0
+    assert abs(_iters(out_t) - _iters(out_j)) <= slack
+    assert out_t.count("Convergence in") == 1       # rank 0 alone reports
+    uj = _vtk_solution(vj)
+    assert np.abs(_vtk_solution(vt) - uj).max() <= VTK_TOL * max(
+        1.0, np.abs(uj).max())
+    cells = lambda p: Path(p).read_text().split("SCALARS procid int 1")[1]
+    assert cells(vt) == cells(vj)
 
 
 def _vtk_vector(path, ncomp):

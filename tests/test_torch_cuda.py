@@ -629,3 +629,83 @@ def test_cfd_on_the_card_matches_the_cpu(cuda):
                                        device=d) for d in ("cpu", cuda))
     assert np.abs(r_gpu.velocity - r_cpu.velocity).max() <= 1e-10
     assert np.abs(r_gpu.div_history - r_cpu.div_history).max() <= 1e-9
+
+
+# ---- B1's halo entry (the in-shard product of the sharded DIA route) ------
+
+def _halo_block(rng, P, offsets, w, dtype, device):
+    from pfemfort_tpu_torch.sparse.dia import DIAMatrix
+
+    A = DIAMatrix(vals=torch.as_tensor(rng.standard_normal((len(offsets), P)),
+                                       dtype=dtype, device=device),
+                  offsets=tuple(offsets), n_rows=P)
+    vec = lambda n: torch.as_tensor(rng.standard_normal(n), dtype=dtype,
+                                    device=device)
+    return A, vec(P), vec(w), vec(w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("halos", ["both", "none", "left", "right"])
+@pytest.mark.parametrize("shape", ["lattice", "w = P", "59 diagonals"])
+def test_halo_kernel_matches_plain(cuda, shape, halos, dtype):
+    """dia_spmv_halo against spmv_dia_halo_local (the plain form
+    parallel/halo.py sums in offset order): a 15-diagonal lattice stencil
+    shard, a block whose halo is as wide as its rows, and 59 diagonals
+    (the 3D elasticity census); None halos read zeros."""
+    from pfemfort_tpu_torch.parallel.halo import halo_width
+    from pfemfort_tpu_torch.sparse.dia import spmv_dia_halo_local
+
+    rng = np.random.default_rng(7)
+    if shape == "lattice":
+        plane, row = 23 * 23, 23
+        offsets = sorted({dz * plane + dy * row + dx
+                          for dz, dy, dx in [(0, 0, 0), (0, 0, 1), (0, 1, 0),
+                                             (0, 1, 1), (1, 0, 0), (1, 0, 1),
+                                             (1, 1, 0), (1, 1, 1)]}
+                         | {-(dz * plane + dy * row + dx)
+                            for dz, dy, dx in [(0, 0, 1), (0, 1, 0),
+                                               (0, 1, 1), (1, 0, 0),
+                                               (1, 0, 1), (1, 1, 0),
+                                               (1, 1, 1)]})
+        P = 7 * plane
+    elif shape == "w = P":
+        offsets, P = (-40, -1, 0, 1, 40), 40
+    else:
+        offsets = sorted({int(o) for o in rng.choice(
+            np.arange(-3000, 3001), 58, replace=False)} | {0})
+        offsets = (offsets + [3001])[:59]
+        P = 20_000
+    w = halo_width(tuple(offsets))
+    if shape == "w = P":
+        assert w == P
+    A, x, left, right = _halo_block(rng, P, offsets, w, dtype, cuda)
+    left = left if halos in ("both", "left") else None
+    right = right if halos in ("both", "right") else None
+    off = torch.tensor(A.offsets, dtype=torch.int32, device=cuda)
+    before = dict(dia_spmv_cuda.kernel.entry_launches)
+    y = dia_spmv_cuda.dia_spmv_halo(A, x, left, right, off)
+    torch.cuda.synchronize()
+    entry = "dia_spmv_halo_" + str(dtype)[-7:].replace("float", "f")
+    assert dia_spmv_cuda.kernel.entry_launches[entry] == \
+        before.get(entry, 0) + 1
+    assert _rel_err(y, spmv_dia_halo_local(A, x, left, right)) <= \
+        REL_TOL[dtype]
+
+
+def test_halo_kernel_rejects_what_it_does_not_take(cuda):
+    from pfemfort_tpu_torch.sparse.dia import DIAMatrix
+
+    A = DIAMatrix(vals=torch.ones(3, 16, device=cuda), offsets=(-8, 0, 8),
+                  n_rows=16)
+    off = torch.tensor(A.offsets, dtype=torch.int32, device=cuda)
+    x = torch.ones(16, device=cuda)
+    with pytest.raises(ValueError, match="largest"):     # w below the reach
+        dia_spmv_cuda.dia_spmv_halo(A, x, torch.ones(4, device=cuda), None,
+                                    off)
+    with pytest.raises(TypeError):
+        dia_spmv_cuda.dia_spmv_halo(A, x, torch.ones(8, device=cuda,
+                                                     dtype=torch.float64),
+                                    None, off)
+    with pytest.raises(ValueError, match="contiguous"):
+        dia_spmv_cuda.dia_spmv_halo(A, x, torch.ones(16, device=cuda)[::2],
+                                    None, off)
