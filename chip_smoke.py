@@ -54,8 +54,8 @@ of JAX.  Phases, one JSON line each:
                      the ELL path (B2, K = 16, B1 launches = 0); the two
                      solutions agree and so do the counts (+- 2);
   9. explicit        the tria preset on rect_tria [0,10]x[0,2] at 1000x200,
-                     x=0 clamped, probes 670/671, 5,000 steps: float32 twice
-                     bit for bit, 2,500 + checkpoint + 2,500 bit for bit,
+                     x=0 clamped, probes 670/671, 2,500 steps: float32 twice
+                     bit for bit, 1,250 + checkpoint + 1,250 bit for bit,
                      float64 against float32 on the probes; a quad preset
                      (hourglass) run, float64, card against CPU; ms per step;
  10. cli             `python -m pfemfort_tpu_torch` elasticity and explicit
@@ -108,9 +108,9 @@ of JAX.  Phases, one JSON line each:
                      residual; stage seconds and peak device memory;
  22. cfd             fractional_step_ns in float32: the lid-driven cavity on
                      rect_tria 512x512 (nu 0.01, dt 5e-5 under the viscous
-                     bound h^2/(4 nu), 100 steps; B1), the 3D Taylor-Green
+                     bound h^2/(4 nu), 50 steps; B1), the 3D Taylor-Green
                      vortex on box_tet 64x64x32 of [0,pi]^2 x [0,pi/2]
-                     (free slip, 250 steps; energy within 30% of
+                     (free slip, 125 steps; energy within 30% of
                      exp(-4 nu t); B1) and a renumbered 64x64 cavity (B2);
                      ms per step, CG iterations and launches per step, and
                      the steps whose pressure CG stopped at its cap;
@@ -159,14 +159,40 @@ of JAX.  Phases, one JSON line each:
                      the flag read) against the local pair; after each
                      solve, B1's halo entry against its plain version on
                      that solve's own (D, P) block, f32 and f64, with both
-                     halos None (as the solve launched it) and random ones;
+                     halos None (as the solve launched it) and random ones,
+                     and timed there in the solve's dtype with both halos
+                     None (n=96 f32, elasticity f64 Jacobi) beside its
+                     bound and cuSPARSE;
  27. dist_ell        distributed_cg_solve (the all-gather ELL route) at
                      world size 1 on the n=96 box's ELL system, f32, rtol
                      1e-6: 271 +- 10 iterations, B2 launches >= iterations;
- 28. cli             `poisson --shards 2 --device cpu` (two gloo ranks the
-                     CLI starts under torchrun) against the single-device CLI solve on the
-                     card (u within the VTK's 1e-6), and `--shards 2
-                     --device cuda`, which must fail naming the card count.
+ 28. dist_ell_halo   solve_implicit_sharded's ELL route (per-rank ELL
+                     assembly, the stash exchange, ghost-exchange Krylov on
+                     B2) at world size 1: the n=96 box renumbered by
+                     default_rng(0), recover=False, f32, rtol 1e-6, Jacobi
+                     (the bars of phase 4; B2 launches = iterations + 1)
+                     and per-rank IC(0) (within 10% of 90; B2 launches =
+                     7 (iterations + 1)); the renumbered phase-7 elasticity
+                     system, f64, block-Jacobi (within 1% of 1,044; u
+                     within 1e-6 of phase 26's); stage seconds, ms per
+                     iteration beside the single-device and DIA-route
+                     solves, peak device memory, the set-up's host and
+                     device bytes; after each solve, B2 against spmv_sliced
+                     on that solve's ghost-extended block (random x, ghost
+                     slots included) and IC(0) T and T^T, f32 and f64; B2
+                     at rank 1 of an 8-way RCB partition of the renumbered
+                     n=96 box (laid out on the host without a group), timed
+                     beside its bound and cuSPARSE, and the cost of the
+                     ghost-extended vector's concatenation; and
+                     solve_poisson_partitioned on one rank's files (a
+                     renumbered n=24 box) against the single-device solve
+                     (u within 1e-8, float64);
+ 29. cli             `poisson --shards 2 --device cpu` (two gloo ranks the
+                     CLI starts under torchrun) against the single-device
+                     CLI solve on the card (u within the VTK's 1e-6), on a
+                     box (the DIA route) and on a scrambled Delaunay n=12
+                     mesh (the ELL route), and `--shards 2 --device cuda`,
+                     which must fail naming the card count.
 
 Every launch count is set to 0 just before its path is driven and read just
 after; from phase 11 on, a plain SpMV called on a card tensor would also be
@@ -210,8 +236,13 @@ from pfemfort_tpu_torch.elements.poisson import poisson_element_matrices
 from pfemfort_tpu_torch.assembly.assemble import assemble_ell_values, \
     assemble_rhs, build_assembly_plan, dirichlet_rhs_correction
 from pfemfort_tpu_torch.drivers import sharded as sharded_driver
+from pfemfort_tpu_torch.drivers.partitioned import read_partitioned_local, \
+    solve_poisson_partitioned
 from pfemfort_tpu_torch.drivers.sharded import solve_implicit_sharded
+from pfemfort_tpu_torch.mesh.reorder import recover_structure
 from pfemfort_tpu_torch.parallel import multihost, shard_cg
+from pfemfort_tpu_torch.parallel.dist_assembly import build_dist_setup
+from pfemfort_tpu_torch.parallel.dist_ell import local_columns, reader_plan
 from pfemfort_tpu_torch.parallel.halo import halo_width
 from pfemfort_tpu_torch.parallel.shard import build_sharded_system
 from pfemfort_tpu_torch.solve import amg_device
@@ -226,7 +257,8 @@ from pfemfort_tpu_torch.sparse.dia import DIAMatrix, decompose_offsets, \
 from pfemfort_tpu_torch.sparse.formats import ELLMatrix, round_up
 from pfemfort_tpu_torch.sparse.ordering import coord_lex_order, \
     permuted_sorted_cols
-from pfemfort_tpu_torch.sparse.sliced import SLICE, ell_to_sliced, unslice
+from pfemfort_tpu_torch.sparse.sliced import SLICE, ell_to_sliced, \
+    slice_ell, unslice
 from pfemfort_tpu_torch.sparse.spmv import spmv_ell, spmv_sliced
 
 N_FLAGSHIP = 96
@@ -258,8 +290,9 @@ EL2D_CELLS = (1024, 512)
 EL2D_U_REL = 1e-8           # DIA vs ELL solutions, float64, rtol 1e-6
 # Explicit dynamics: the tria preset; float32 drifts from float64 by a few
 # per cent of the probes' range over 5,000 steps (up to 6% on a 250x50 mesh
-# on the CPU), so the bound is 25%.
-EXPLICIT_CELLS, EXPLICIT_STEPS = (1000, 200), 5000
+# on the CPU), so the bound is 25%.  Run for 2,500 steps (5,000 until PR 8,
+# cut to keep the whole script well inside its time limit).
+EXPLICIT_CELLS, EXPLICIT_STEPS = (1000, 200), 2500
 EXPLICIT_F32_VS_F64 = 0.25
 QUAD_CELLS, QUAD_STEPS = (200, 40), 500
 # Preconditioners, the full system and refinement.  Bars from the JAX
@@ -292,12 +325,14 @@ HIGHPREC_MAX_OUTER = 6
 JAX_48M_OUTER_INNER = (2, 13)
 # CFD: (cells per side, steps, dt, nu); the cavity's dt is half the viscous
 # bound h^2 / (4 nu) = 9.5e-5; Taylor-Green as the JAX test
-# (tests/test_cfd.py:86) at 64x64x32 cells.
-CFD_CAVITY = (512, 100, 5e-5, 0.01)
-CFD_TG3D = (64, 250, 2e-3, 0.05)
+# (tests/test_cfd.py:86) at 64x64x32 cells.  The bars are per step or
+# relative to exp(-4 nu t), so the step counts (100 and 250 until PR 8) were
+# halved to keep the whole script well inside its time limit.
+CFD_CAVITY = (512, 50, 5e-5, 0.01)
+CFD_TG3D = (64, 125, 2e-3, 0.05)
 CFD_RENUMBERED = (64, 20, 1e-3, 0.05)
 CFD_RTOL_P = 1e-6           # pressure CG, as every float32 solve here
-# The sharded DIA route (phases 25-28).  dist_kernel's shapes: one rank of
+# The sharded routes (phases 25-29).  dist_kernel's shapes: one rank of
 # the 8-way slab of box_tet n=200 (P = whole planes of the 199^3 lattice,
 # 15 diagonals) and of the 4-way slab of the 3D elasticity n=48 system (59
 # diagonals).  dist_dia's counts, u and ms per iteration against the
@@ -305,16 +340,33 @@ CFD_RTOL_P = 1e-6           # pressure CG, as every float32 solve here
 N_SLAB, SLAB_RANKS, EL3D_SLAB_RANKS = 200, 8, 4
 DIST_ITERS_SLACK = 2
 DIST_EL3D_U_REL = 1e-9
+# The sharded ELL route (phase 28).  At world size 1 the renumbered n=96
+# box takes the single-device bars (one rank: RCB with one part and the
+# geometric order within it give the lattice system), IC(0) within PC_BAND
+# of the JAX package's count; the renumbered elasticity system in f64 with
+# block-Jacobi within 1% of the 1,044 iterations the DIA route takes on the
+# H100 (PERF.md), u within the solves' relres of this run's DIA route.  B2
+# is timed at rank 1 of an ELL_RANKS-way RCB partition of the n=96 box.
+DIST_ELL_EL3D_BJ_ITERS, DIST_ELL_EL3D_BAND = 1044, 0.01
+DIST_ELL_EL3D_U_REL = 1e-6
+ELL_RANKS = 8
+N_PARTITIONED = 24
+PARTITIONED_U_TOL = 1e-8    # float64 solves to rtol 1e-10, two row orders
+N_DELAUNAY_CLI = 12
 CLI_SHARDED_U_TOL = 1e-6 * (1 + 1e-9)   # one unit of the VTK's 6 decimals
 # Plain SpMV calls made on a card tensor (the kernel wrappers route card
 # tensors to their kernels, so this must stay empty).
 PLAIN_ON_CARD = collections.Counter()
 # Launches by kernel, dtype and shape of each labelled counted path.
 SOLVE_SHAPES = {}
+# Every phase line carries its seconds since the script started (at_s).
+_START = time.perf_counter()
+
 
 
 def _phase(name, **fields):
-    print(json.dumps(dict(phase=name, **fields)), flush=True)
+    print(json.dumps(dict(phase=name, **fields,
+                          at_s=time.perf_counter() - _START)), flush=True)
 
 
 def _check(ok, what):
@@ -482,7 +534,7 @@ def _time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def _timed_pairs(plain, kernel, library, reps=200):
+def _timed_pairs(plain, kernel, library, reps=100):
     """Mean ms of (plain, kernel, library, kernel, plain) runs, and each
     run."""
     run = {"plain": plain, "kernel": kernel, "library": library}
@@ -1345,14 +1397,22 @@ def _pattern_native():
     _check(same, "the native ELL pattern differs from the numpy builder")
 
 
-def _delaunay_f32(dev, counted, errs, rng):
+def _timed_delaunay(n):
+    t0 = time.perf_counter()
+    md, dd = _scrambled_delaunay(n)
+    return md, dd, time.perf_counter() - t0
+
+
+def _delaunay_f32(dev, counted, errs, rng, mesh_future):
     """Phase 19: the scrambled Delaunay mesh at 205,379 rows in float32:
     the hybrid has dense diagonals and a remainder, so the solve launches
     B1 and B2; the hybrid against the plain ELL product of the same ordered
-    system, and each part against its plain version."""
+    system, and each part against its plain version.  The mesh comes from
+    `mesh_future`: qhull releases the GIL, so main() builds it in a thread
+    while the card runs the phases before this one."""
     t0 = time.perf_counter()
-    md, dd = _scrambled_delaunay(N_DELAUNAY_F32)
-    mesh_s = time.perf_counter() - t0
+    md, dd, mesh_s = mesh_future.result()
+    mesh_wait_s = time.perf_counter() - t0
     r, launches = _counted(lambda: solve_poisson(
         md, dd, device=dev, dtype=torch.float32, rtol=1e-6), counted,
         f"Delaunay n={N_DELAUNAY_F32} f32 hybrid")
@@ -1362,7 +1422,8 @@ def _delaunay_f32(dev, counted, errs, rng):
            nodes=md.n_node, elements=md.n_elem,
            rows=int(r.u_reduced.numel()), iters=r.stats.iters,
            relres=r.stats.relres, nodal_err=nodal_err, launches=launches,
-           mesh_s=mesh_s, **_per_iter(r, launches), **t)
+           mesh_s=mesh_s, mesh_wait_s=mesh_wait_s,
+           **_per_iter(r, launches), **t)
     _check(r.stats.converged and r.stats.relres <= 1e-6
            and bool(np.isfinite(r.u_full).all()), f"delaunay f32: {r.stats}")
     _check(r.u_reduced.numel() >= 200_000 and t.get("hybrid_diagonals", 0) > 0
@@ -1739,13 +1800,13 @@ def _dist_kernel(dev, errs, rng, A_lat, A_el3, smi, peak):
     return timing
 
 
-def _dist_stages(label, r, base, extra):
+def _dist_stages(label, r, base, extra, phase="dist_dia"):
     """Print a sharded solve's stages; `base`: the bytes the script held on
     the card when the solve began (the peak since then is printed above
     it too)."""
     it = max(r.stats.iters, 1)
     peak = torch.cuda.max_memory_allocated()
-    _phase("dist_dia", run=label, iters=r.stats.iters, relres=r.stats.relres,
+    _phase(phase, run=label, iters=r.stats.iters, relres=r.stats.relres,
            converged=r.stats.converged, ms_per_iter=1e3 * r.timings["solve_s"]
            / it, time_to_solution_s=_stage_seconds(r),
            peak_device_gb=peak / 1e9, peak_above_start_gb=(peak - base) / 1e9,
@@ -1773,33 +1834,57 @@ def _reduction_cost(v, reps=300):
             "dot_pair_all_reduce_ms": ms["reduced"]}
 
 
-@contextlib.contextmanager
-def _solve_blocks(into):
-    """Record in `into` the (offsets, vals (D, P)) block that each sharded
-    solve run inside hands its halo-exchange Krylov solve
-    (drivers/sharded.py)."""
-    solve = sharded_driver.distributed_cg_solve_dia
+def _timing_row(phase, label, run, bound, nnz, smi, peak, **extra):
+    """Time run = {"plain", "kernel", "library"} as phase 24 does (back to
+    back, then queued behind a sleep kernel) beside `bound` = (bound ms,
+    'bytes' or 'operations', bytes); print and return the row."""
+    ms, runs = _timed_pairs(run["plain"], run["kernel"], run["library"])
+    device, hidden = _timed_device(run)
+    bound_ms, bound_by, nbytes = bound
+    row = dict(shape=label, nnz=nnz, spmv_bytes=nbytes, bound_ms=bound_ms,
+               bound_by=bound_by, peak_gbps=peak, kernel_ms=ms["kernel"],
+               plain_ms=ms["plain"], library_ms=ms["library"],
+               kernel_ms_runs=runs["kernel"],
+               device_kernel_ms=device["kernel"],
+               device_plain_ms=device["plain"],
+               device_library_ms=device["library"],
+               device_host_hidden=hidden,
+               device_kernel_share_of_bound=bound_ms / device["kernel"],
+               device_kernel_over_library=device["kernel"]
+               / device["library"], **extra)
+    _phase(phase, card=smi, **row)
+    return row
 
-    def recorded(offsets, vals_l, *args, **kw):
-        into.append((tuple(offsets), vals_l))
-        return solve(offsets, vals_l, *args, **kw)
 
-    sharded_driver.distributed_cg_solve_dia = recorded
-    try:
-        yield
-    finally:
-        sharded_driver.distributed_cg_solve_dia = solve
-
-
-def _halo_entry_on_block(label, block, errs, rng):
+def _halo_entry_on_block(label, block, errs, rng, timed=None):
     """B1's halo entry on a sharded solve's own (D, P) block against its
     plain version, f32 and f64: with both halos None, as every launch of a
-    world-size-1 solve has them, and with random non-zero halos."""
+    world-size-1 solve has them, and with random non-zero halos.  With
+    `timed` = (smi, peak), also timed in the solve's dtype with both halos
+    None (the main path's launches), beside its byte bound and cuSPARSE on
+    the CSR of the same (P, P) block; returns that row."""
     offsets, vals = block
     P, dev = vals.shape[1], vals.device
     w = halo_width(offsets)
     off = torch.tensor(offsets, dtype=torch.int32, device=dev)
     x64, l64, r64 = (rng.standard_normal(n) for n in (P, w, w))
+    if timed is not None:
+        A = DIAMatrix(vals=vals, offsets=offsets, n_rows=P)
+        x = torch.as_tensor(x64, dtype=vals.dtype, device=dev)
+        csr, nnz = _csr_library(A)
+        kern = lambda: dia_spmv_cuda.dia_spmv_halo(A, x, None, None, off)
+        lib = lambda: csr @ x
+        _, lib_rel = _errors(lib(), kern())
+        _check(lib_rel <= REL_ERR_MAX[vals.dtype],
+               f"halo {label}: the library product differs by {lib_rel}")
+        row = _timing_row(
+            "dist_dia", f"{label} solve block, no neighbours",
+            {"plain": lambda: spmv_dia_halo_local(A, x, None, None),
+             "kernel": kern, "library": lib},
+            _bound(A, nnz, timed[1]), nnz, *timed, rows=P, w=w,
+            diagonals=len(offsets), dtype=str(vals.dtype)[6:],
+            library_rel_err=lib_rel)
+        del csr
     for dtype in (torch.float32, torch.float64):
         A = DIAMatrix(vals=vals.to(dtype), offsets=offsets, n_rows=P)
         x, left, right = (torch.as_tensor(v, dtype=dtype, device=dev)
@@ -1817,14 +1902,16 @@ def _halo_entry_on_block(label, block, errs, rng):
                    bound=REL_ERR_MAX[dtype])
             _check(rel_err <= REL_ERR_MAX[dtype],
                    f"dia_spmv_halo {case} {dtype}: rel err {rel_err}")
+    return row if timed is not None else None
 
 
-def _dist_dia(dev, counted, solve_dia, el3, errs, rng):
+def _dist_dia(dev, counted, solve_dia, el3, errs, rng, smi, peak):
     """Phase 26: solve_implicit_sharded on a world-size-1 NCCL group: the
     n=96 Poisson box (f32) and the phase-7 elasticity system (f64, Jacobi
     and block-Jacobi), every in-shard product on B1's halo entry; after
     each solve, B1's halo entry against its plain version on that solve's
-    own block."""
+    own block, and timed there (Jacobi) as the solve launches it.
+    Returns (the solves, the timing rows)."""
     wd = multihost.world()
     _check(wd.size == 1 and wd.device.type == "cuda",
            f"dist_dia: the group is {wd}")
@@ -1832,8 +1919,8 @@ def _dist_dia(dev, counted, solve_dia, el3, errs, rng):
     mesh, dbc = generate.box_tet(0, 1, n, 0, 1, n, 0, 1, n)
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    blocks = []
-    with _solve_blocks(blocks):
+    rec = {}
+    with _recorded(rec, "distributed_cg_solve_dia"):
         res, launches = _counted(lambda: solve_implicit_sharded(
             mesh, 1, dbc, _poisson_fn, dtype=torch.float32, rtol=1e-6,
             device=dev), counted, "sharded n=96 f32 jacobi (world 1)")
@@ -1857,8 +1944,10 @@ def _dist_dia(dev, counted, solve_dia, el3, errs, rng):
            f"{single_it}")
     _check(not PLAIN_ON_CARD, f"dist_dia: plain SpMVs on the card "
            f"{dict(PLAIN_ON_CARD)}")
+    blocks = rec.pop("distributed_cg_solve_dia")
     _check(len(blocks) == 1, f"dist_dia n={n}: {len(blocks)} blocks")
-    _halo_entry_on_block(f"box_tet n={n}", blocks.pop(), errs, rng)
+    rows = [_halo_entry_on_block(f"box_tet n={n}", blocks[0][0][:2], errs,
+                                 rng, (smi, peak))]
     runs = {"sharded n=96 f32 (world 1)": res}
     del res
 
@@ -1871,7 +1960,7 @@ def _dist_dia(dev, counted, solve_dia, el3, errs, rng):
     for pc in ("jacobi", "bjacobi"):
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        with _solve_blocks(blocks):
+        with _recorded(rec, "distributed_cg_solve_dia"):
             r, launches = _counted(lambda: solve_implicit_sharded(
                 m3, 3, d3, efn, dtype=torch.float64, rtol=1e-6, precond=pc,
                 device=dev), counted,
@@ -1893,12 +1982,259 @@ def _dist_dia(dev, counted, solve_dia, el3, errs, rng):
                    and rel <= DIST_EL3D_U_REL,
                    f"dist_dia elasticity: {r.stats.iters} iterations vs "
                    f"{ref.stats.iters}, u rel {rel}")
+        blocks = rec.pop("distributed_cg_solve_dia")
         _check(len(blocks) == 1, f"dist_dia elasticity {pc}: "
                f"{len(blocks)} blocks")
-        _halo_entry_on_block(f"elasticity3d n={N_EL3D} {pc}", blocks.pop(),
-                             errs, rng)
+        row = _halo_entry_on_block(f"elasticity3d n={N_EL3D} {pc}",
+                                   blocks[0][0][:2], errs, rng,
+                                   (smi, peak) if pc == "jacobi" else None)
+        rows += [row] if row else []
         runs[f"sharded elasticity3d f64 {pc} (world 1)"] = r
-    return runs
+    return runs, rows
+
+
+@contextlib.contextmanager
+def _recorded(into, *names):
+    """Record in into[name] the (args, kwargs, result) of every call that
+    drivers/sharded.py makes to each function of `names` while the block
+    runs."""
+    saved = {n: getattr(sharded_driver, n) for n in names}
+
+    def wrap(name, fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            into.setdefault(name, []).append((args, kw, out))
+            return out
+        return call
+
+    for name, fn in saved.items():
+        setattr(sharded_driver, name, wrap(name, fn))
+    try:
+        yield into
+    finally:
+        for name, fn in saved.items():
+            setattr(sharded_driver, name, fn)
+
+
+def _host_bytes(obj):
+    """Bytes of the numpy arrays held in obj's dataclass fields, nested."""
+    if isinstance(obj, np.ndarray):
+        return obj.nbytes
+    if dataclasses.is_dataclass(obj):
+        return sum(_host_bytes(getattr(obj, f.name))
+                   for f in dataclasses.fields(obj))
+    return 0
+
+
+def _b2_on_ell_block(label, call, errs, rng):
+    """B2 on a sharded ELL solve's own blocks against its plain version, f32
+    and f64: the ghost-extended (P, P + S*Wx) block laid out as the solve
+    lays it out, x random in every column, ghost slots included; and the
+    rank's IC(0) T and T^T when the solve had them."""
+    (cols_local, vals, _, halo), kw, _ = call
+    A = slice_ell(cols_local, halo.n_cols).pack(vals)
+    blocks = {f"{label} ghost-extended block": A}
+    if kw.get("ic0") is not None:
+        blocks[f"{label} IC(0) T"] = kw["ic0"].t
+        blocks[f"{label} IC(0) T^T"] = kw["ic0"].tt
+    for case, M in blocks.items():
+        _kernel_errors(case, M, errs, rng)
+
+
+def _dist_ell_halo(dev, counted, single, dia_bjacobi, errs, rng, smi, peak):
+    """Phase 28: solve_implicit_sharded's ELL route on a world-size-1 NCCL
+    group (per-rank ELL assembly, the stash exchange, the ghost-exchange
+    Krylov solve on B2): the renumbered n=96 box f32 with Jacobi and IC(0),
+    the renumbered 3D elasticity system f64 with block-Jacobi; B2 on each
+    solve's own blocks; B2 timed at one rank of an 8-way RCB partition of
+    the renumbered n=96 box, laid out on the host without a group; the
+    per-rank-file input mode against the single-device solve.  Returns
+    (the solves, the timing rows, the route's B2 launches)."""
+    wd = multihost.world()
+    _check(wd.size == 1 and wd.device.type == "cuda",
+           f"dist_ell_halo: the group is {wd}")
+    runs, b2 = {}, 0
+    pmesh, pdbc = _permuted_box(N_FLAGSHIP)
+    for pc in ("jacobi", "ic0"):
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        rec = {}
+        with _recorded(rec, "build_dist_ell_setup",
+                       "distributed_cg_solve_ell"):
+            res, launches = _counted(lambda: solve_implicit_sharded(
+                pmesh, 1, pdbc, _poisson_fn, dtype=torch.float32, rtol=1e-6,
+                recover=False, precond=pc, device=dev), counted,
+                f"sharded ELL renumbered n=96 f32 {pc} (world 1)")
+        st, t = res.stats, res.timings
+        b2 += launches["ell_spmv"]
+        nodal_err = float(np.abs(res.u_full
+                                 - (pmesh.coords ** 2).sum(1)).max())
+        # one product an iteration and one for r0; IC(0) adds 2(m - 1) = 6
+        # an application, one an iteration and one for z0
+        per_apply = 7 if pc == "ic0" else 1
+        setup = rec["build_dist_ell_setup"][0][2]
+        ref = single[pc]
+        _dist_stages(f"renumbered n={N_FLAGSHIP} f32 {pc}, ELL route", res,
+                     base, dict(
+                         nodal_err=nodal_err, launches=launches,
+                         b2_launches_expected=per_apply * (st.iters + 1),
+                         single_device=ref.timings.get("ordering", "lattice"),
+                         single_device_iters=ref.stats.iters,
+                         single_device_ms_per_iter=1e3
+                         * ref.timings["solve_s"] / max(ref.stats.iters, 1),
+                         host_global_bytes=_host_bytes(setup.sys),
+                         host_own_block_bytes=setup.coords.nbytes
+                         + setup.ubc.nbytes,
+                         device_index_bytes=sum(
+                             v.numel() * v.element_size() for v in (
+                                 setup.perm, setup.segids,
+                                 setup.recv_mat_dest, setup.recv_rhs_dest))),
+                     phase="dist_ell_halo")
+        _check(t["assembly_layout"] == "ell" and t["distributed_assembly"]
+               and t["inshard_kernel"] == "ell_spmv"
+               and t["precond_used"] == pc,
+               f"dist_ell_halo n=96 {pc}: {t}")
+        if pc == "jacobi":
+            _check_solve("dist_ell_halo", res, (pmesh.coords ** 2).sum(1))
+        else:
+            bar = PC_JAX_CPU_ITERS["ic0"]
+            _check(st.converged and st.relres <= 1e-6
+                   and abs(st.iters - bar) <= PC_BAND * bar
+                   and nodal_err <= NODAL_ERR_MAX,
+                   f"dist_ell_halo n=96 ic0: {st}, nodal {nodal_err}, "
+                   f"not within {PC_BAND:.0%} of {bar}")
+        _check(launches["ell_spmv"] == per_apply * (st.iters + 1)
+               and launches["dia_spmv"] == 0,
+               f"dist_ell_halo n=96 {pc}: launches {launches} vs "
+               f"{st.iters} iterations")
+        _check(not PLAIN_ON_CARD, f"dist_ell_halo: plain SpMVs on the card "
+               f"{dict(PLAIN_ON_CARD)}")
+        call = rec["distributed_cg_solve_ell"][0]
+        p_world1 = call[0][0].shape[0]
+        _b2_on_ell_block(f"sharded ELL n=96 {pc}", call, errs, rng)
+        runs[f"sharded ELL renumbered n=96 f32 {pc} (world 1)"] = res
+        del rec, setup, call
+
+    m3, _ = generate.box_tet(0, 1, N_EL3D, 0, 1, N_EL3D, 0, 1, N_EL3D)
+    perm, (rm3, rd3) = _renumber(m3, _clamped(m3))
+    D = dmat_3d(E_EL, NU_EL)
+    efn = lambda c: elasticity_stiffness(c, "tetra4", D,
+                                         bforce=(0.1, 0.0, 0.0))
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    rec = {}
+    with _recorded(rec, "distributed_cg_solve_ell"):
+        r, launches = _counted(lambda: solve_implicit_sharded(
+            rm3, 3, rd3, efn, dtype=torch.float64, rtol=1e-6,
+            precond="bjacobi", recover=False, device=dev), counted,
+            "sharded ELL renumbered elasticity3d f64 bjacobi (world 1)")
+    b2 += launches["ell_spmv"]
+    u = r.u_full.reshape(-1, 3)[perm].reshape(-1)
+    rel = float(np.abs(u - dia_bjacobi.u_full).max()
+                / np.abs(dia_bjacobi.u_full).max())
+    bar = DIST_ELL_EL3D_BJ_ITERS
+    _dist_stages(f"renumbered elasticity3d n={N_EL3D} f64 bjacobi, ELL "
+                 "route", r, base, dict(
+                     launches=launches, dia_route_iters=dia_bjacobi.stats.iters,
+                     dia_route_ms_per_iter=1e3 * dia_bjacobi.timings["solve_s"]
+                     / max(dia_bjacobi.stats.iters, 1),
+                     u_rel_vs_dia_route=rel), phase="dist_ell_halo")
+    _check(r.stats.converged and r.stats.relres <= 1e-6
+           and r.timings["assembly_layout"] == "ell"
+           and r.timings["precond_used"] == "bjacobi",
+           f"dist_ell_halo elasticity: {r.stats} {r.timings}")
+    _check(abs(r.stats.iters - bar) <= DIST_ELL_EL3D_BAND * bar
+           and rel <= DIST_ELL_EL3D_U_REL,
+           f"dist_ell_halo elasticity: {r.stats.iters} iterations, not "
+           f"within {DIST_ELL_EL3D_BAND:.0%} of {bar}; u rel {rel}")
+    _check(launches["ell_spmv"] == r.stats.iters + 1
+           and launches["dia_spmv"] == 0,
+           f"dist_ell_halo elasticity: launches {launches}")
+    _b2_on_ell_block("sharded ELL elasticity3d bjacobi",
+                     rec["distributed_cg_solve_ell"][0], errs, rng)
+    runs["sharded ELL renumbered elasticity3d f64 bjacobi (world 1)"] = r
+    del rec
+
+    # B2 at one rank of an 8-way RCB partition: the block that rank's every
+    # product reads, laid out here without a process group
+    t0 = time.perf_counter()
+    S, rk = ELL_RANKS, 1
+    sys_ = build_sharded_system(pmesh, 1, pdbc, S, method="rcb",
+                                layout="ell")
+    P, n_rows = sys_.rows_per_shard, sys_.n_rows_padded
+    Ke, _ = _poisson_fn(torch.as_tensor(to_element_minor(
+        pmesh.elem_coords()), dtype=torch.float32, device=dev))
+    A_all = assemble_ell_values(Ke, build_assembly_plan(sys_.pattern, dev))
+    del Ke
+    plans = [reader_plan(A_all.cols[t * P:(t + 1) * P], t, S, n_rows)
+             for t in range(S)]
+    wx = round_up(max(max(int(p.counts.max()) for p in plans), 1), 8)
+    cols = local_columns(A_all.cols[rk * P:(rk + 1) * P], plans[rk], rk, S,
+                         n_rows, wx)
+    A = slice_ell(cols, P + S * wx).pack(A_all.vals[rk * P:(rk + 1) * P])
+    torch.cuda.synchronize()
+    layout_s = time.perf_counter() - t0
+    del A_all
+    label = f"renumbered box_tet n={N_FLAGSHIP}, rank {rk} of {S} (rcb)"
+    _kernel_errors(f"{label} ghost-extended block", A, errs, rng)
+    x = torch.as_tensor(rng.standard_normal(A.n_cols), dtype=torch.float32,
+                        device=dev)
+    csr, nnz = _csr_library(A)
+    _, lib_rel = _errors(csr @ x, ell_spmv_cuda.ell_spmv(A, x))
+    _check(lib_rel <= REL_ERR_MAX[torch.float32],
+           f"dist_ell_halo {label}: the library product differs by {lib_rel}")
+    row = _timing_row(
+        "dist_ell_halo", label,
+        {"plain": lambda: spmv_sliced(A, x),
+         "kernel": lambda: ell_spmv_cuda.ell_spmv(A, x),
+         "library": lambda: csr @ x}, _bound(A, nnz, peak), nnz, smi, peak,
+        rows=P, n_cols=A.n_cols, wx=wx,
+        ghosts=int(plans[rk].counts.sum()), max_width=A.max_width,
+        slots=A.n_slots, dtype="float32", host_layout_s=layout_s,
+        library_rel_err=lib_rel)
+    del csr
+    # what the exchange's concatenation [x_l | ghosts] costs a product, at
+    # this rank's shape and at world size 1's (8 ghost slots)
+    cat = {}
+    for name, (p_rows, n_ghost) in {
+            "rank 1 of 8": (P, S * wx),
+            "world size 1": (p_world1, 8)}.items():
+        x_l = torch.ones(p_rows, device=dev)
+        ghosts = torch.zeros(n_ghost, device=dev)
+        fn = lambda: torch.cat([x_l, ghosts])
+        cat[name] = dict(rows=p_rows, ghost_slots=n_ghost,
+                         device_ms=_device_ms(fn)[0],
+                         back_to_back_ms=_time_ms(fn, 200))
+    _phase("dist_ell_halo", case="ghost-extended vector by concatenation",
+           card=smi, **cat)
+    row["concatenation"] = cat
+
+    # the per-rank-file input mode (triapoissonparallelimpl2): one rank's
+    # files, against the single-device solve of the mesh they hold
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh, dbc = _permuted_box(N_PARTITIONED)
+        prefix = str(Path(tmp) / "box")
+        mesh_io.write_partitioned(prefix, mesh, 1, dirichlet=dbc,
+                                  method="rcb")
+        rmesh, res = solve_poisson_partitioned(
+            prefix, 1, multiprocess=True, dtype=torch.float64, rtol=1e-10,
+            recover=False, device=dev)
+        lmesh, ldbc = read_partitioned_local(prefix, [0])
+    ref = solve_implicit(lmesh, 1, ldbc, _poisson_fn, dtype=torch.float64,
+                         rtol=1e-10, recover=False, device=dev)
+    diff = float(np.abs(res.u_full - ref.u_full).max())
+    nodal_err = float(np.abs(res.u_full - (rmesh.coords ** 2).sum(1)).max())
+    _phase("dist_ell_halo", case=f"solve_poisson_partitioned, renumbered "
+           f"box_tet n={N_PARTITIONED}, one rank's files", nodes=rmesh.n_node,
+           iters=res.stats.iters, single_device_iters=ref.stats.iters,
+           max_abs_u_diff=diff, bound=PARTITIONED_U_TOL, nodal_err=nodal_err,
+           **res.timings)
+    _check(res.stats.converged and res.timings["assembly_layout"] == "ell"
+           and np.array_equal(rmesh.coords, lmesh.coords)
+           and diff <= PARTITIONED_U_TOL and nodal_err <= 1e-6,
+           f"solve_poisson_partitioned: {res.stats}, u differs by {diff}, "
+           f"nodal {nodal_err}")
+    return runs, [row], b2
 
 
 def _dist_ell(dev, counted):
@@ -1949,9 +2285,23 @@ def _vtk_point_values(path):
     return np.array(body.split(), dtype=np.float64)
 
 
+def _route(mesh, dbc, ranks):
+    """The route solve_implicit_sharded takes for a Poisson mesh on `ranks`
+    ranks (after its structure recovery): 'dia' or 'ell'."""
+    rec = recover_structure(mesh, 1, dbc, None)
+    if rec is not None:
+        mesh, dbc = rec[0], rec[1]
+    try:
+        build_dist_setup(mesh, 1, dbc, ranks, 0)
+    except ValueError:
+        return "ell"
+    return "dia"
+
+
 def _cli_sharded(dev):
-    """Phase 28: `poisson --shards 2 --device cpu` (two gloo ranks started
-    by the CLI) against the single-device CLI solve on the card, and
+    """Phase 29: `poisson --shards 2 --device cpu` (two gloo ranks started
+    by the CLI) against the single-device CLI solve on the card, on a box
+    (the DIA route) and on a scrambled Delaunay mesh (the ELL route), and
     `--shards 2 --device cuda` on this one-card machine, which must fail
     naming the card count."""
     def run(label, *argv):
@@ -1964,28 +2314,48 @@ def _cli_sharded(dev):
                stderr_tail=proc.stderr.strip().splitlines()[-2:])
         return proc
 
+    meshes = {"box_tet 8x8x16": generate.box_tet(0, 1, 8, 0, 1, 8, 0, 1, 16),
+              f"scrambled Delaunay n={N_DELAUNAY_CLI}":
+                  _scrambled_delaunay(N_DELAUNAY_CLI)}
     with tempfile.TemporaryDirectory() as tmp:
-        mesh, dbc = generate.box_tet(0, 1, 8, 0, 1, 8, 0, 1, 16)
-        prefix = str(Path(tmp) / "box")
-        mesh_io.write_dat(prefix, mesh, dirichlet=dbc)
-        files = [prefix + s for s in ("-nodes.dat", "-elems.dat",
-                                      "-DirichBC.dat")]
-        vs, vd = str(Path(tmp) / "single.vtk"), str(Path(tmp) / "dist.vtk")
-        single = run("poisson (single device)", "poisson", *files,
-                     "--device", dev.type, "--dtype", "float64", "-o", vs)
-        dist = run("poisson --shards 2 --device cpu", "poisson", *files,
-                   "--shards", "2", "--device", "cpu", "--dtype", "float64",
-                   "-o", vd)
-        _check(single.returncode == 0 and dist.returncode == 0,
-               f"CLI sharded poisson: {dist.stdout}{dist.stderr}")
-        _check(dist.stdout.count("Convergence in") == 1
-               and "Mesh statistics" in dist.stdout,
-               f"CLI sharded poisson: rank 0's report {dist.stdout}")
-        diff = float(np.abs(_vtk_point_values(vd)
-                            - _vtk_point_values(vs)).max())
-        _phase("cli", subcommand="poisson --shards 2 vs single device",
-               max_abs_u_diff=diff, bound=CLI_SHARDED_U_TOL)
-        _check(diff <= CLI_SHARDED_U_TOL, f"CLI sharded u differs by {diff}")
+        for (name, (mesh, dbc)), route in zip(meshes.items(),
+                                              ("dia", "ell")):
+            _check(_route(mesh, dbc, 2) == route,
+                   f"CLI sharded {name}: not the {route} route at 2 ranks")
+            prefix = str(Path(tmp) / name.split()[0])
+            mesh_io.write_dat(prefix, mesh, dirichlet=dbc)
+            files = [prefix + s for s in ("-nodes.dat", "-elems.dat",
+                                          "-DirichBC.dat")]
+            vd = prefix + "-dist.vtk"
+            if route == "dia":
+                vs = prefix + "-single.vtk"
+                single = run(f"poisson {name} (single device)", "poisson",
+                             *files, "--device", dev.type, "--dtype",
+                             "float64", "-o", vs)
+                _check(single.returncode == 0, f"CLI poisson {name}: "
+                       f"{single.stdout}{single.stderr}")
+                u_single = _vtk_point_values(vs)
+            else:
+                # the single-device solve of the same files, in this
+                # process (one interpreter start fewer)
+                m_r, d_r, _ = mesh_io.read_problem(prefix)
+                u_single = solve_poisson(m_r, d_r, device=dev,
+                                         dtype=torch.float64).u_full
+            dist = run(f"poisson {name} --shards 2 --device cpu ({route} "
+                       "route)", "poisson", *files, "--shards", "2",
+                       "--device", "cpu", "--dtype", "float64", "-o", vd)
+            _check(dist.returncode == 0,
+                   f"CLI sharded poisson {name}: {dist.stdout}{dist.stderr}")
+            _check(dist.stdout.count("Convergence in") == 1
+                   and "Mesh statistics" in dist.stdout,
+                   f"CLI sharded poisson {name}: rank 0's report "
+                   f"{dist.stdout}")
+            diff = float(np.abs(_vtk_point_values(vd) - u_single).max())
+            _phase("cli", subcommand=f"poisson {name} --shards 2 vs single "
+                   "device", route=route, max_abs_u_diff=diff,
+                   bound=CLI_SHARDED_U_TOL)
+            _check(diff <= CLI_SHARDED_U_TOL,
+                   f"CLI sharded {name}: u differs by {diff}")
         bad = run("poisson --shards 2 --device cuda", "poisson", *files,
                   "--shards", "2", "--device", "cuda")
         found = torch.cuda.device_count()
@@ -2012,6 +2382,8 @@ def main():
     kind = torch.cuda.get_device_name(0)
     _phase("device", kind=kind, count=torch.cuda.device_count(),
            nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
+    mesher = ThreadPoolExecutor(1)
+    delaunay_mesh = mesher.submit(_timed_delaunay, N_DELAUNAY_F32)
 
     # 2. build: one compiler process per source (nvcc for the kernels, the
     # host C++ compiler for the host library), started together
@@ -2200,7 +2572,8 @@ def main():
     # 19.-21. the hybrid with both parts; matrix-free and the 1e-8 float64
     # solve at n=96
     pc_runs["delaunay f32 hybrid"], _, hybrid_blocks = _delaunay_f32(
-        dev, counted, errs, rng)
+        dev, counted, errs, rng, delaunay_mesh)
+    mesher.shutdown()
     pc_runs["matfree n=96"] = _matfree(dev, counted, mesh, dbc, solve_dia)
     highprec = {N_FLAGSHIP: _highprec(dev, counted, mesh, dbc)}
 
@@ -2331,13 +2704,20 @@ def main():
                time_to_solution_s=sum(v for k, v in timings.items()
                                       if k.endswith("_s")), **timings)
 
-    # 25.-28. the sharded DIA route on one card: B1's halo entry at real
-    # per-rank shapes, the sharded solves at world size 1 (NCCL), the
-    # all-gather ELL route on B2, the command line's --shards
+    # 25.-29. the sharded routes on one card: B1's halo entry at real
+    # per-rank shapes, the sharded DIA solves at world size 1 (NCCL), the
+    # all-gather and the ghost-exchange ELL routes on B2, the command
+    # line's --shards
     halo_timing = _dist_kernel(dev, errs, rng, A32, A_el3, smi, peak)
     multihost.initialize(device="cuda")
-    dist_runs = _dist_dia(dev, counted, solve_dia, el3, errs, rng)
+    dist_runs, main_halo_timing = _dist_dia(dev, counted, solve_dia, el3,
+                                            errs, rng, smi, peak)
     _dist_ell(dev, counted)
+    ell_runs, ghost_timing, ghost_launches = _dist_ell_halo(
+        dev, counted, {"jacobi": solve_ell, "ic0": pc_runs["ic0"]},
+        dist_runs["sharded elasticity3d f64 bjacobi (world 1)"], errs, rng,
+        smi, peak)
+    dist_runs.update(ell_runs)
     _cli_sharded(dev)
     for label, r in dist_runs.items():
         _phase("timing", stages=label, card=smi, cg_iters=r.stats.iters,
@@ -2366,13 +2746,14 @@ def main():
                       "flagship", torch.float32)
     dia_entry["halo_entry"] = {
         "replaces": "pfemfort_tpu/sparse/pallas_spmv.py:167",
-        "launches": counted["dia_spmv_halo"], "shapes": halo_timing}
-    print(json.dumps({"kernels": [
-        dia_entry,
-        entry("ell_spmv", "pfemfort_tpu_torch/csrc/ell_spmv.cu",
-              "pfemfort_tpu/sparse/slotgather.py:403", "ell_el2d",
-              "elasticity2d renumbered, ordered", torch.float64)]}),
-          flush=True)
+        "launches": counted["dia_spmv_halo"],
+        "shapes": halo_timing + main_halo_timing}
+    ell_entry = entry("ell_spmv", "pfemfort_tpu_torch/csrc/ell_spmv.cu",
+                      "pfemfort_tpu/sparse/slotgather.py:403", "ell_el2d",
+                      "elasticity2d renumbered, ordered", torch.float64)
+    ell_entry["ghost_block"] = {"launches": ghost_launches,
+                                "shapes": ghost_timing}
+    print(json.dumps({"kernels": [dia_entry, ell_entry]}), flush=True)
     multihost.shutdown()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

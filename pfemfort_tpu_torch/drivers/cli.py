@@ -20,8 +20,9 @@ cuda; without a card the run fails, pass `--device cpu` to run on the
 CPU) and `--dtype` (float32 by default, as the JAX CLI without x64; the
 port's counterpart of `jax_enable_x64` is `--dtype float64`).
 
-`poisson` and `elasticity` take `--shards N`: the per-rank DIA solve of
-drivers/sharded.py on N ranks.  Under torchrun (RANK in the environment)
+`poisson` and `elasticity` take `--shards N`: the per-rank solve of
+drivers/sharded.py on N ranks (the DIA route, or the ELL route for a mesh
+without a per-rank DIA layout; `--precond ic0|bjacobi` applies there).  Under torchrun (RANK in the environment)
 each process is one rank of the group torchrun set up; launched by hand,
 the command re-runs itself under torchrun with N rank processes
 (parallel/multihost.py:torchrun_ranks).  `--device cuda` needs N cards (one per rank,
@@ -382,7 +383,7 @@ def build_parser():
                     help="volume source (default: 0 in 2D, -6 for tetra)")
     sp.add_argument("--shards", type=int, default=0,
                     help="solve on N ranks (0 = single device): the "
-                         "per-rank DIA route, one card per rank")
+                         "per-rank DIA or ELL route, one card per rank")
     sp.add_argument("--bc-mode", choices=["reduced", "full"],
                     default="reduced",
                     help="reduced = BC-eliminated system (impl1/2); "
@@ -411,7 +412,7 @@ def build_parser():
                     default="cg")
     sp.add_argument("--shards", type=int, default=0,
                     help="solve on N ranks (0 = single device): the "
-                         "per-rank DIA route, one card per rank")
+                         "per-rank DIA or ELL route, one card per rank")
     sp.add_argument("--precond",
                     choices=["jacobi", "bjacobi", "ic0", "amg", "mg"],
                     default="bjacobi",

@@ -1,4 +1,4 @@
-# Ported from pfemfort_tpu/drivers/sharded.py (the per-shard DIA route).
+# Ported from pfemfort_tpu/drivers/sharded.py (the per-rank DIA and ELL routes).
 """Multi-rank implicit solve: partition -> PER-RANK assembly -> Krylov.
 
 The port's form of the reference's parallel drivers
@@ -6,18 +6,25 @@ The port's form of the reference's parallel drivers
 partition replaces METIS, shard-contiguous renumbering replaces
 node_start/node_end, each rank assembles ONLY its own elements (the
 reference's elem_procid ownership loop, triapoissonparallelimpl1.F:849-905)
-with one point-to-point ghost reduction in place of PETSc's MatAssembly
-stash exchange, and the halo-exchange Krylov solve replaces KSPSolve over
-MPI.  Full-size coordinates, element matrices and A never exist on any
-one device.
+with a point-to-point ghost reduction in place of PETSc's MatAssembly
+stash exchange, and a halo- or ghost-exchange Krylov solve replaces
+KSPSolve over MPI.  Full-size coordinates, element matrices and A never
+exist on any one device.
 
 Every rank calls `solve_implicit_sharded` together, in a process group set
 up by parallel/multihost.py:initialize (NCCL on the card, one card per
-rank; gloo on the CPU).  The route is the DIA one: a mesh whose
-shard-ordered pattern is not a DIA census (or whose halo is wider than a
-rank's rows) raises NotImplementedError, since the unstructured per-rank
-ELL route is ROADMAP A.9b; precond='mg' (the distributed multigrid) is
-A.9c.
+rank; gloo on the CPU).  Two routes, recorded in
+timings["assembly_layout"]:
+  * 'dia': a mesh whose shard-ordered pattern is a DIA census with a halo
+    no wider than a rank's rows (parallel/dist_assembly.py; the in-shard
+    product is kernel B1's halo entry on the card);
+  * 'ell': every other mesh (parallel/dist_ell.py: per-rank ELL assembly
+    with the point-to-point stash exchange; the in-shard product is kernel
+    B2 on the rank's ghost-extended block).  The ELL route partitions with
+    'rcb' when asked for 'slab', as the JAX package does.
+Unlike the JAX package, no mesh falls back to replicated assembly.
+precond='mg' (the distributed multigrid) and, on the ELL route, 'amg' (the
+distributed SA-AMG) are ROADMAP A.9c and raise.
 """
 
 from __future__ import annotations
@@ -34,9 +41,13 @@ from pfemfort_tpu_torch.mesh.core import Mesh
 from pfemfort_tpu_torch.mesh.reorder import recover_structure
 from pfemfort_tpu_torch.parallel.dist_assembly import DistSetup, \
     assemble_dia_local, build_dist_setup, local_plan
+from pfemfort_tpu_torch.parallel.dist_ell import DistELLSetup, \
+    assemble_ell_local, build_dist_ell_setup, build_ell_halo, ell_local_plan
 from pfemfort_tpu_torch.parallel.multihost import world
-from pfemfort_tpu_torch.parallel.shard_cg import distributed_cg_solve_dia
+from pfemfort_tpu_torch.parallel.shard_cg import distributed_cg_solve_dia, \
+    distributed_cg_solve_ell
 from pfemfort_tpu_torch.solve.cg import SolveStats
+from pfemfort_tpu_torch.solve.ic0 import build_ic0_shard_block
 from pfemfort_tpu_torch.utils.device import resolve_device, \
     synchronize as _sync
 
@@ -80,11 +91,46 @@ def assemble_implicit_sharded(
     Fe = Fe_src + dirichlet_rhs_correction(Ke, as_dev(setup.ubc))
     del Fe_src
     vals, b = assemble_dia_local(Ke, Fe, plan)
-    if force_bc is not None and len(force_bc):
-        fext = _force_vector(sys_.dofmap, sys_.eq_perm, sys_.n_rows_padded,
-                             force_bc)
-        b = b + as_dev(fext[s * P:(s + 1) * P])
-    return vals, b
+    fext = _own_force(setup, device, dtype, force_bc)
+    return vals, (b if fext is None else b + fext)
+
+
+def _own_force(setup, device, dtype, force_bc) -> Optional[torch.Tensor]:
+    """This rank's rows of the shard-ordered ForceBC vector, or None."""
+    if force_bc is None or not len(force_bc):
+        return None
+    sys_, s = setup.sys, setup.rank
+    P = sys_.rows_per_shard
+    fext = _force_vector(sys_.dofmap, sys_.eq_perm, sys_.n_rows_padded,
+                         force_bc)
+    return torch.as_tensor(fext[s * P:(s + 1) * P], dtype=dtype,
+                           device=device)
+
+
+def assemble_implicit_sharded_ell(
+    setup: DistELLSetup,
+    element_fn: Callable,
+    dtype: torch.dtype,
+    device,
+    force_bc: Optional[np.ndarray] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """This rank's element kernels, one sorted local ELL scatter and the
+    stash exchange with the ranks it shares rows with (the general-mesh
+    MatAssembly, parallel/dist_ell.py).  Every rank calls it together.
+
+    Returns (vals (P, K), b (P,)): the rank's rows [rank*P, (rank+1)*P)
+    of the shard-ordered ELL system, on `device`."""
+    s = world().rank
+    if setup.rank != s:
+        raise ValueError(f"rank {s} was given the block of rank "
+                         f"{setup.rank}")
+    as_dev = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    Ke, Fe_src = element_fn(as_dev(setup.coords))
+    Fe = Fe_src + dirichlet_rhs_correction(Ke, as_dev(setup.ubc))
+    del Fe_src
+    vals, b = assemble_ell_local(Ke, Fe, ell_local_plan(setup))
+    fext = _own_force(setup, device, dtype, force_bc)
+    return vals, (b if fext is None else b + fext)
 
 
 def solve_implicit_sharded(
@@ -111,18 +157,22 @@ def solve_implicit_sharded(
     NCCL) or 'cpu' (gloo), and must match the group's backend.
     `method`: 'cg' | 'bicgstab' | 'gmres', the distributed Krylov menu
     (the reference's -ksp_type switch, PFEMFort src/solverpetsc.F:198).
-    `precond`: 'jacobi', or 'bjacobi' (per-node blocks, ndof > 1); on this
-    layout any other name but 'mg' runs Jacobi, and timings["precond_used"]
-    says so; 'mg' raises (ROADMAP A.9c).  With `recover`, a structure-less
-    mesh is first renumbered geometrically (mesh/reorder.py) so that its
-    pattern can be a DIA census; the solution comes back in the caller's
-    numbering.
+    `precond`, under every method: 'jacobi'; 'bjacobi' (per-node blocks,
+    ndof > 1 with rows per rank a multiple of ndof); 'ic0' (one IC(0)
+    block per rank, ELL route only); 'mg' raises, and so does 'amg' on
+    the ELL route (ROADMAP A.9c); any other name runs Jacobi, and
+    timings["precond_used"] says which ran.  With `recover`, a
+    structure-less mesh is first renumbered geometrically
+    (mesh/reorder.py) so that its pattern can be a DIA census; the
+    solution comes back in the caller's numbering.
 
     Returns an ImplicitResult on every rank: the whole solution, and
     elem_part, the rank that assembled each element.  Timings: pattern_s
-    (the host set-up), assemble_s, solve_s (each ends in a device
-    synchronise), assembly_layout 'dia', distributed_assembly True,
-    precond_requested, precond_used."""
+    (the host and device set-up), assemble_s, solve_s (each ends in a
+    device synchronise), assembly_layout 'dia' or 'ell',
+    distributed_assembly True, precond_requested, precond_used; on the
+    ELL route also inshard_kernel ('ell_spmv' on the card, 'spmv_sliced'
+    on the CPU) and, with IC(0), ic0_setup_s."""
     wd = world()
     device = resolve_device(device)
     if device.type != wd.device.type:
@@ -164,36 +214,73 @@ def solve_implicit_sharded(
     try:
         setup = build_dist_setup(mesh, ndof, dirichlet, n_shards, wd.rank,
                                  method=partition_method)
-    except ValueError as ex:
-        raise NotImplementedError(
-            f"this mesh has no per-rank DIA layout ({ex}): the unstructured "
-            "per-rank ELL route is ROADMAP A.9b") from ex
-    t_pattern = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    vals, b = assemble_implicit_sharded(setup, element_fn, dtype, device,
-                                        force_bc)
-    _sync(device)
-    t_asm = time.perf_counter() - t0
+    except ValueError:
+        setup = None          # no per-rank DIA layout: the ELL route
+    if setup is not None:
+        t_pattern = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        vals, b = assemble_implicit_sharded(setup, element_fn, dtype, device,
+                                            force_bc)
+        _sync(device)
+        timings = dict(pattern_s=t_pattern,
+                       assemble_s=time.perf_counter() - t0)
+        bjacobi = precond == "bjacobi" and ndof > 1 \
+            and setup.rows_per_shard % ndof == 0
+        t0 = time.perf_counter()
+        x, stats = distributed_cg_solve_dia(
+            setup.offsets, vals, b, rtol=rtol, maxiter=maxiter,
+            ndof_block=ndof if bjacobi else 1, method=method)
+        _sync(device)
+        timings.update(solve_s=time.perf_counter() - t0,
+                       assembly_layout="dia")
+        precond_used = "bjacobi" if bjacobi else "jacobi"
+    else:
+        if precond == "amg":
+            raise NotImplementedError(
+                "precond='amg' on the sharded ELL route is the distributed "
+                "smoothed-aggregation AMG of ROADMAP A.9c")
+        setup = build_dist_ell_setup(
+            mesh, ndof, dirichlet, n_shards, wd.rank,
+            method="rcb" if partition_method == "slab" else partition_method,
+            device=device)
+        halo = build_ell_halo(setup.sys, wd.rank, device=device)
+        _sync(device)
+        t_pattern = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        vals, b = assemble_implicit_sharded_ell(setup, element_fn, dtype,
+                                                device, force_bc)
+        _sync(device)
+        timings = dict(pattern_s=t_pattern,
+                       assemble_s=time.perf_counter() - t0)
+        ic0 = None
+        if precond == "ic0":
+            t0 = time.perf_counter()
+            ic0 = build_ic0_shard_block(
+                halo.cols_local.cpu().numpy(),
+                vals.cpu().to(torch.float64).numpy(), dtype=dtype,
+                device=device)
+            _sync(device)
+            timings["ic0_setup_s"] = time.perf_counter() - t0
+        bjacobi = ic0 is None and precond == "bjacobi" and ndof > 1 \
+            and setup.rows_per_shard % ndof == 0
+        t0 = time.perf_counter()
+        x, stats = distributed_cg_solve_ell(
+            halo.cols_local, vals, b, halo, rtol=rtol, maxiter=maxiter,
+            ndof_block=ndof if bjacobi else 1, ic0=ic0, method=method)
+        _sync(device)
+        timings.update(solve_s=time.perf_counter() - t0,
+                       assembly_layout="ell",
+                       inshard_kernel="ell_spmv" if device.type == "cuda"
+                       else "spmv_sliced")
+        precond_used = "ic0" if ic0 is not None \
+            else "bjacobi" if bjacobi else "jacobi"
 
     sys_ = setup.sys
-    P = sys_.rows_per_shard
-    bjacobi = precond == "bjacobi" and ndof > 1 and P % ndof == 0
-    t0 = time.perf_counter()
-    x, stats = distributed_cg_solve_dia(
-        setup.offsets, vals, b, rtol=rtol, maxiter=maxiter,
-        ndof_block=ndof if bjacobi else 1, method=method)
-    _sync(device)
-    t_solve = time.perf_counter() - t0
-
     x_orig = sys_.reduce_solution(x.cpu().to(torch.float64).numpy())
-    u_full = sys_.dofmap.expand_solution(x_orig)
-    timings = dict(pattern_s=t_pattern, assemble_s=t_asm, solve_s=t_solve,
-                   assembly_layout="dia", distributed_assembly=True,
-                   precond_requested=precond,
-                   precond_used="bjacobi" if bjacobi else "jacobi")
+    timings.update(distributed_assembly=True, precond_requested=precond,
+                   precond_used=precond_used)
     return ImplicitResult(
-        u_full=u_full,
+        u_full=sys_.dofmap.expand_solution(x_orig),
         u_reduced=torch.as_tensor(x_orig, dtype=dtype, device=device),
         stats=SolveStats(iters=int(stats.iters), relres=float(stats.relres),
                          converged=bool(stats.converged)),

@@ -1,4 +1,4 @@
-# Copied from pfemfort_tpu/mesh/io.py (all but the partitioned readers and writers).
+# Copied from pfemfort_tpu/mesh/io.py.
 """Readers/writers for the reference's ASCII `.dat` mesh format.
 
 Format (1-based, whitespace separated; counts discovered by counting lines,
@@ -102,3 +102,48 @@ def write_dat(prefix: str, mesh: Mesh, dirichlet: Optional[np.ndarray] = None,
         with open(prefix + "-ForceBC.dat", "w") as f:
             for n, d, v in force:
                 f.write(f"{int(n) + 1}\t{int(d) + 1}\t{v:.8f}\n")
+
+
+def write_partitioned(prefix: str, mesh: Mesh, n_parts: int,
+                      dirichlet: Optional[np.ndarray] = None,
+                      method: str = "slab") -> np.ndarray:
+    """Write per-rank mesh files `<prefix>-p<k>-{nodes,elems,DirichBC,gids}.dat`.
+
+    The scalable input mode triapoissonparallelimpl2 sketches (per-rank
+    filename suffix, each rank reading only its subdomain;
+    PFEMFort src/triapoissonparallelimpl2.F:188-231).  Local files use
+    local 1-based node numbering; `-gids.dat` maps local -> global (1-based).
+    Returns the element partition array.
+    """
+    from pfemfort_tpu_torch.parallel.partition import partition_elements
+
+    part = partition_elements(mesh, n_parts, method=method)
+    for k in range(n_parts):
+        els = np.nonzero(part == k)[0]
+        conn_k = mesh.conn[els]
+        gnodes = np.unique(conn_k)
+        l_of_g = np.full(mesh.n_node, -1, dtype=np.int64)
+        l_of_g[gnodes] = np.arange(len(gnodes))
+        sub = Mesh(mesh.etype, mesh.coords[gnodes], l_of_g[conn_k])
+        dbc_k = None
+        if dirichlet is not None and len(dirichlet):
+            keep = l_of_g[dirichlet[:, 0].astype(np.int64)] >= 0
+            dbc_k = dirichlet[keep].copy()
+            dbc_k[:, 0] = l_of_g[dbc_k[:, 0].astype(np.int64)]
+        write_dat(f"{prefix}-p{k}", sub, dirichlet=dbc_k)
+        with open(f"{prefix}-p{k}-gids.dat", "w") as f:
+            for i, g in enumerate(gnodes):
+                f.write(f"{i + 1}\t{g + 1}\n")
+    return part
+
+
+def read_partitioned(prefix: str, rank: int):
+    """Read rank-local mesh files written by `write_partitioned`.
+
+    Returns (mesh_local, dirichlet_local, node_gids) with node_gids the
+    0-based global node id of each local node.
+    """
+    mesh, dbc, _ = read_problem(f"{prefix}-p{rank}")
+    arr = _loadtxt(f"{prefix}-p{rank}-gids.dat")
+    gids = arr[:, 1].astype(np.int64) - 1
+    return mesh, dbc, gids

@@ -1,4 +1,4 @@
-# Ported from pfemfort_tpu/parallel/shard_cg.py (the DIA halo route and the all-gather ELL route).
+# Ported from pfemfort_tpu/parallel/shard_cg.py (the DIA halo route, the all-gather ELL route and the ghost-exchange ELL route).
 """Distributed Krylov solves over the default process group.
 
 The reference's multi-rank solve is PETSc KSP over MPI: SpMV with a halo
@@ -6,8 +6,10 @@ exchange plus dot-product allreduces (PFEMFort src/solverpetsc.F:476,
 SURVEY §2.6).  Every rank calls these functions with its own block of rows
 and runs the same Krylov body (solve/cg.py, solve/gmres.py) with
   * its in-shard SpMV: the halo-exchange DIA product (parallel/halo.py;
-    kernel B1's halo entry on the card) or, on the all-gather route, the
-    gathered x times the rank's rows (kernel B2 on the card);
+    kernel B1's halo entry on the card), the ghost-exchange ELL product
+    (parallel/dist_ell.py; kernel B2 on the ghost-extended block) or, on
+    the all-gather route, the gathered x times the rank's rows (kernel B2
+    on the card);
   * dots = a local torch.dot followed by one all_reduce (PETSc's VecDot
     allreduce); `dot2` stacks CG's two dots after the preconditioner into
     ONE all_reduce.  Every rank reads the same reduced scalars, so every
@@ -19,16 +21,18 @@ A card tensor always takes the kernels, at every size and in both dtypes.
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
+from pfemfort_tpu_torch.parallel.dist_ell import EllHalo, spmv_ell_halo
 from pfemfort_tpu_torch.parallel.halo import halo_width, spmv_dia_halo, \
     spmv_dia_halo_b1
 from pfemfort_tpu_torch.solve.cg import SolveStats, bicgstab_solve, \
     cg_solve, jacobi_preconditioner
 from pfemfort_tpu_torch.solve.gmres import gmres_solve
+from pfemfort_tpu_torch.solve.ic0 import IC0Arrays, ic0_preconditioner
 from pfemfort_tpu_torch.sparse.dia import DIAMatrix
 from pfemfort_tpu_torch.sparse.ell_spmv_cuda import ell_spmv
 from pfemfort_tpu_torch.sparse.sliced import slice_ell
@@ -138,6 +142,35 @@ def block_jacobi_dia_preconditioner(offsets, vals_l: torch.Tensor,
     return apply
 
 
+def block_jacobi_ell_preconditioner(cols_local: torch.Tensor,
+                                    vals_l: torch.Tensor,
+                                    nd: int) -> Callable:
+    """PC=BJACOBI with per-node (nd x nd) blocks from the rank's LOCAL ELL
+    block: the reference's default preconditioner (solverpetsc.F:206) on
+    the unstructured distributed route.  Needs the node-aligned row layout
+    (parallel/shard.py: each node owns nd consecutive local rows), so entry
+    (r, c) is in its block iff c is an OWN column (< P) of the same
+    nd-aligned group; padding rows invert to identity."""
+    P_, K = vals_l.shape
+    m = P_ // nd
+    c = cols_local.long()
+    rows = torch.arange(P_, dtype=torch.int64, device=c.device)[:, None]
+    inblk = (c < P_) & (torch.div(c, nd, rounding_mode="floor")
+                        == torch.div(rows, nd, rounding_mode="floor"))
+    contrib = torch.where(inblk, vals_l, 0.0)
+    cmod = torch.where(inblk, c % nd, nd)             # nd = dropped
+    cols = []
+    for a in range(nd):
+        c_a, v_a = cmod[a::nd], contrib[a::nd]        # (m, K)
+        cols.append(torch.stack([torch.where(c_a == b, v_a, 0.0).sum(1)
+                                 for b in range(nd)], -1))
+    Binv = _inv_small_blocks(torch.stack(cols, -2))   # (m, nd, nd)
+
+    def apply(r):
+        return torch.einsum("kab,kb->ka", Binv, r.reshape(m, nd)).reshape(-1)
+    return apply
+
+
 def distributed_cg_solve(
     cols_l: torch.Tensor,     # (P, K) int32 GLOBAL column ids, sentinel N
     vals_l: torch.Tensor,     # (P, K)
@@ -167,6 +200,51 @@ def distributed_cg_solve(
     dot, dot2 = _reduced_dots()
     x_l, stats = krylov(operator, b_l, jacobi_preconditioner(diag), rtol,
                         maxiter, dot, dot2)
+    return _gathered(x_l), stats
+
+
+def distributed_cg_solve_ell(
+    cols_local: torch.Tensor,   # (P, K) int32 ghost-extended column ids
+    vals_l: torch.Tensor,       # (P, K) this rank's rows
+    b_l: torch.Tensor,          # (P,)
+    halo: EllHalo,
+    rtol: float = 1e-8,
+    maxiter: int = 10_000,
+    ndof_block: int = 1,
+    ic0: Optional[IC0Arrays] = None,
+    method: str = "cg",
+) -> Tuple[torch.Tensor, SolveStats]:
+    """Krylov solve over the unstructured per-rank ELL blocks with the
+    pairwise ghost exchange (parallel/dist_ell.py:spmv_ell_halo): per
+    iteration the partition surface's values plus the dot all_reduces, not
+    the whole vector.
+
+    The rank's block is laid out once in the sliced layout of its
+    ghost-extended column space; every product on a card tensor is kernel
+    B2 (spmv_sliced on a CPU tensor).  The preconditioner: `ic0`, the
+    rank's IC(0) block (solve/ic0.py:build_ic0_shard_block; PC=BJACOBI
+    with one ILU-class factorization per rank, its T and T^T products on
+    B2 too), under every Krylov method; else per-node block-Jacobi for
+    ndof_block > 1 with P % ndof_block == 0; else Jacobi from the local
+    diagonal.
+
+    Returns (x (N,) on every rank, SolveStats)."""
+    P_ = b_l.shape[0]
+    krylov = _krylov_body(method)
+    A_l = slice_ell(cols_local, halo.n_cols).pack(vals_l)
+    if ic0 is not None:
+        precond = ic0_preconditioner(ic0)
+    elif ndof_block > 1 and P_ % ndof_block == 0:
+        precond = block_jacobi_ell_preconditioner(cols_local, vals_l,
+                                                  ndof_block)
+    else:
+        rows = torch.arange(P_, dtype=torch.int64,
+                            device=b_l.device)[:, None]
+        precond = jacobi_preconditioner(
+            torch.where(cols_local.long() == rows, vals_l, 0).sum(1))
+    dot, dot2 = _reduced_dots()
+    x_l, stats = krylov(lambda x: spmv_ell_halo(A_l, halo, x), b_l, precond,
+                        rtol, maxiter, dot, dot2)
     return _gathered(x_l), stats
 
 

@@ -1,4 +1,4 @@
-# Ported from pfemfort_tpu/solve/ic0.py (single device).
+# Ported from pfemfort_tpu/solve/ic0.py (single device, and the per-rank blocks of build_ic0_shard_blocks).
 """IC(0) preconditioning with truncated-Neumann triangular application.
 
 The reference's serial drivers default to PC=ILU
@@ -127,6 +127,36 @@ def build_ic0_from_csr(indptr, indices, vals, n: int, lane_pad: int = 8,
         vals=torch.as_tensor(v, dtype=dtype, device=device), n_cols=n)
     return IC0Arrays(t=ell(t_cols, t_vals), tt=ell(tt_cols, tt_vals),
                      dinv=torch.as_tensor(dinv, dtype=dtype, device=device))
+
+
+def build_ic0_shard_block(cols_local: np.ndarray, vals: np.ndarray,
+                          lane_pad: int = 8, dtype=torch.float32, *,
+                          device) -> IC0Arrays:
+    """IC(0) of one rank's OWN diagonal block: the reference's parallel
+    default, PC=BJACOBI with one ILU-class factorization per rank
+    (PFEMFort src/solverpetsc.F:206: block-Jacobi whose default sub-PC is
+    ILU).  Ghost columns (>= P) are outside the block, exactly PETSc's
+    per-rank SeqAIJ diagonal block; a row without a diagonal entry
+    (padding) gets a unit pivot.
+
+    cols_local: (P, K) local ELL columns of the rank's rows (sentinel >= P
+    outside the block); vals: (P, K) values.  The block's lower CSR goes
+    through build_ic0_from_csr (the host library's factor, no size cap)."""
+    c = np.asarray(cols_local, dtype=np.int64)
+    P = c.shape[0]
+    rows = np.arange(P, dtype=np.int64)[:, None]
+    lower = (c < P) & (c <= rows)
+    miss = np.nonzero(~(lower & (c == rows)).any(axis=1))[0]
+    r_idx, k_idx = np.nonzero(lower)
+    rr = np.concatenate([r_idx, miss])
+    cc = np.concatenate([c[r_idx, k_idx], miss])
+    vv = np.concatenate([np.asarray(vals, dtype=np.float64)[r_idx, k_idx],
+                         np.ones(len(miss))])
+    order = np.lexsort((cc, rr))
+    indptr = np.zeros(P + 1, dtype=np.int64)
+    np.cumsum(np.bincount(rr, minlength=P), out=indptr[1:])
+    return build_ic0_from_csr(indptr, cc[order], vv[order], P, lane_pad,
+                              dtype, device=device)
 
 
 def ic0_apply(t_mv: Callable, tt_mv: Callable, dinv: torch.Tensor,

@@ -709,3 +709,41 @@ def test_halo_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         dia_spmv_cuda.dia_spmv_halo(A, x, torch.ones(16, device=cuda)[::2],
                                     None, off)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ell_kernel_on_a_ghost_extended_block(cuda, dtype):
+    """B2 on one rank's block of the sharded ELL route (parallel/dist_ell.py):
+    rank 1 of a 4-way RCB partition of a scrambled box, P rows by P + S*Wx
+    columns, its padding on the sentinel column P + S*Wx, random values
+    and a random x, the ghost slots included."""
+    from pfemfort_tpu_torch.parallel.dist_ell import local_columns, \
+        reader_plan
+    from pfemfort_tpu_torch.parallel.shard import build_sharded_system
+    from pfemfort_tpu_torch.sparse.sliced import slice_ell
+
+    mesh, dbc = _permuted_box(12)
+    S, r = 4, 1
+    sys_ = build_sharded_system(mesh, 1, dbc, S, method="rcb", layout="ell")
+    P, n_rows = sys_.rows_per_shard, sys_.n_rows_padded
+    cols = torch.as_tensor(sys_.pattern.ell_cols, device=cuda)
+    plans = [reader_plan(cols[t * P:(t + 1) * P], t, S, n_rows)
+             for t in range(S)]
+    wx = 8 * -(-max(int(p.counts.max()) for p in plans) // 8)
+    c = local_columns(cols[r * P:(r + 1) * P], plans[r], r, S, n_rows, wx)
+    n_cols = P + S * wx
+    assert int((c >= P).sum()) and int((c == n_cols).sum())
+    rng = np.random.default_rng(3)
+    vals = torch.as_tensor(rng.standard_normal(tuple(c.shape)), dtype=dtype,
+                           device=cuda)
+    A = slice_ell(c, n_cols).pack(vals)
+    x = torch.as_tensor(rng.standard_normal(n_cols), dtype=dtype,
+                        device=cuda)
+    before = ell_spmv_cuda.kernel.launches
+    y = ell_spmv_cuda.ell_spmv(A, x)
+    torch.cuda.synchronize()
+    assert ell_spmv_cuda.kernel.launches == before + 1
+    padded = ELLMatrix(cols=c, vals=torch.where(c < n_cols, vals, 0.0),
+                       n_cols=n_cols)
+    for y_ref in (spmv_sliced(A, x), spmv_ell(padded, x)):
+        assert _rel_err(y, y_ref) <= REL_TOL[dtype]

@@ -7,7 +7,7 @@ the VTK file, with each element's rank as its procid.  Against the JAX
 CLI's `--shards N` in this process (virtual CPU devices), float64: the
 printed iteration counts, the VTK solutions (the writer's 6 decimals) and
 the procid cells.  `--device cuda` needs one card per rank, and a mesh
-without a per-rank DIA layout fails on every rank with a non-zero exit.
+without a per-rank DIA layout solves on the ELL route.
 """
 
 import re
@@ -108,10 +108,15 @@ def test_sharded_cli_cuda_needs_a_card_per_rank(box):
         t_main(["poisson", *box, "--shards", str(n)])
 
 
-def test_sharded_cli_fails_on_every_rank_without_a_dia_layout(tmp_path):
-    """A scrambled 3x3x4 box: no recovery (too few rows) and its DIA census
-    is wider than a rank's rows, so every rank raises naming A.9b and the
-    launcher exits non-zero, in a process that never imports JAX."""
+def test_sharded_cli_fails_on_every_rank_without_a_dia_layout(tmp_path,
+                                                              capfd):
+    """The name is the refusal this case checked before the ELL route
+    existed; it now checks that the mesh SOLVES.  A scrambled 3x3x4 box:
+    no recovery (too few rows) and its DIA census is wider than a rank's
+    rows, so both ranks take the ELL route.  Launched by hand in a process
+    that never imports JAX, it exits 0 and prints and writes what the JAX
+    CLI's `--shards 2` does on the same files: the same iteration count,
+    the same VTK solution and procid cells."""
     mesh, dbc = generate.box_tet(0, 1, 3, 0, 1, 3, 0, 1, 4)
     perm = np.random.default_rng(0).permutation(mesh.n_node)
     mesh = mesh.renumbered(perm.astype(np.int64))
@@ -119,14 +124,22 @@ def test_sharded_cli_fails_on_every_rank_without_a_dia_layout(tmp_path):
     dbc[:, 0] = perm[dbc[:, 0].astype(np.int64)]
     prefix = str(tmp_path / "scrambled")
     mesh_io.write_dat(prefix, mesh, dirichlet=dbc)
+    vj, vt = str(tmp_path / "j.vtk"), str(tmp_path / "t.vtk")
+    argv = ["poisson", *_files(prefix), "--shards", "2"]
     code = ("import sys, runpy\n"
-            f"sys.argv = ['pfemfort_tpu_torch', 'poisson', *{_files(prefix)!r},"
-            " '--shards', '2', *" + repr(CPU) + "]\n"
+            f"sys.argv = ['pfemfort_tpu_torch', *{argv!r}, '-o', {vt!r},"
+            " *" + repr(CPU) + "]\n"
             "try:\n"
             "    runpy.run_module('pfemfort_tpu_torch', run_name='__main__')\n"
             "except SystemExit as e:\n"
             "    print('RC', e.code, 'jax' in sys.modules)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
-    assert proc.stdout.strip().splitlines()[-1] == "RC 1 False"
-    assert proc.stderr.count("ROADMAP A.9b") >= 2
+    assert proc.stdout.strip().splitlines()[-1] == "RC 0 False", proc.stderr
+    assert proc.stdout.count("Convergence in") == 1
+    assert j_main([*argv, "-o", vj]) == 0
+    out_j = capfd.readouterr().out
+    assert _iters(proc.stdout) == _iters(out_j)
+    assert np.abs(_solution(vt) - _solution(vj)).max() <= VTK_TOL
+    assert _cells(vt) == _cells(vj)
+    assert set(_procids(vt).tolist()) == {0, 1}

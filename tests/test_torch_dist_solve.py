@@ -8,8 +8,10 @@ torchrun; the rank processes never import JAX) and runs, on every rank:
   * `distributed_cg_solve`, the all-gather ELL route (B2 on the card), on
     the rcb-sharded ELL system of a 4x4x4 box, rtol 1e-11: x within 1e-10
     of JAX's, the same count;
-  * the refusals: a scrambled mesh (no per-rank DIA census) raises
-    NotImplementedError naming ROADMAP A.9b, precond='mg' one naming A.9c.
+  * a scrambled mesh (no per-rank DIA census, recover=False): it solves on
+    the ELL route (parallel/dist_ell.py): u within 1e-10 of JAX's, the same
+    count;
+  * the refusal: precond='mg' raises NotImplementedError naming A.9c.
 float64 throughout; the JAX side runs in this process under shard_map.
 """
 
@@ -73,14 +75,17 @@ def _ranks(outdir):
     x, st = distributed_cg_solve(A.cols[sl], A.vals[sl], b[sl], rtol=1e-11)
     out["ell_x"], out["ell_iters"] = x.numpy(), st.iters
 
-    for name, kw in (("scrambled", dict(recover=False)),
-                     ("mg", dict(precond="mg"))):
-        m, d = _scrambled() if name == "scrambled" else (mesh, dbc)
-        try:
-            solve_implicit_sharded(m, 1, d, _poisson, device="cpu", **kw)
-            out[f"{name}_error"] = "no error"
-        except NotImplementedError as ex:
-            out[f"{name}_error"] = str(ex)
+    m, d = _scrambled()
+    res = solve_implicit_sharded(m, 1, d, _poisson, dtype=torch.float64,
+                                 recover=False, device="cpu")
+    out["scrambled_u"], out["scrambled_iters"] = res.u_full, res.stats.iters
+    out["scrambled_layout"] = res.timings["assembly_layout"]
+    try:
+        solve_implicit_sharded(mesh, 1, dbc, _poisson, device="cpu",
+                               precond="mg")
+        out["mg_error"] = "no error"
+    except NotImplementedError as ex:
+        out["mg_error"] = str(ex)
     np.savez(Path(outdir) / f"rank{rank}.npz", **out)
     assert "jax" not in sys.modules
 
@@ -156,8 +161,25 @@ def test_all_gather_ell_route_matches_jax(ranks, size):
 @pytest.mark.parametrize("size", WORLDS)
 def test_refusals_name_their_roadmap_item(ranks, size):
     for r in ranks[size]:
-        assert "ROADMAP A.9b" in str(r["scrambled_error"])
         assert "ROADMAP A.9c" in str(r["mg_error"])
+
+
+@pytest.mark.parametrize("size", WORLDS)
+def test_scrambled_mesh_solves_on_the_ell_route(ranks, size):
+    """The mesh whose solve raised before the ELL route existed."""
+    from pfemfort_tpu.drivers.sharded import solve_implicit_sharded as j_solve
+    from pfemfort_tpu.elements.poisson import poisson_element_matrices as jp
+    from pfemfort_tpu.mesh import generate as jgen
+
+    mesh, dbc = _scrambled(jgen)
+    ref = j_solve(mesh, 1, dbc, lambda c: _poisson(c, jp),
+                  device_mesh=_device_mesh(size), recover=False)
+    assert ref.timings["assembly_layout"] == "ell"
+    for r in ranks[size]:
+        assert str(r["scrambled_layout"]) == "ell"
+        assert int(r["scrambled_iters"]) == int(ref.stats.iters)
+        np.testing.assert_allclose(r["scrambled_u"], ref.u_full, rtol=0,
+                                   atol=1e-10)
 
 
 if __name__ == "__main__":      # one rank, as the `ranks` fixture starts it
