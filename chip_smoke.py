@@ -13,7 +13,9 @@ of JAX.  Phases, one JSON line each:
   3. kernel          each kernel against its plain PyTorch SpMV on the card,
                      in float32 (relative error <= 1e-5) and float64
                      (<= 1e-12).  DIA: the box_tet n=96 lattice system and a
-                     ragged one.  ELL (B2 takes the sliced layout of
+                     ragged one, each also through the halo entry with both
+                     halos None, which must give the same bits (every DIA
+                     case of the script is held so, and launched twice).  ELL (B2 takes the sliced layout of
                      sparse/sliced.py; every block checked to hold no slice
                      wider than its longest row, and a block laid out here
                      also against spmv_ell on its padded (N, K) form):
@@ -122,7 +124,8 @@ of JAX.  Phases, one JSON line each:
                      from the same matrix and checked against the kernel) of
                      B1 on the n=96 lattice system and of B2 on the same
                      matrix in the solve's row order, in lattice order and
-                     unordered; of B1 (59 diagonals) and B2 (the same
+                     unordered; of B1 (59 diagonals; float32, and float64
+                     as the f64 solve launches it) and B2 (the same
                      matrix as ELL) on the 3D elasticity system, of B1 (17
                      diagonals) and B2 (K = 16, renumbered, the solve's row
                      order) on the 2D one; of the phase-16 blocks and the
@@ -747,7 +750,9 @@ def _ell_errors(label, A, x, errs):
 
 
 def _kernel_errors(label, A, errs, rng):
-    """Each kernel against its plain version on A in float32 and float64."""
+    """Each kernel against its plain version on A in float32 and float64;
+    B1 also through its halo entry with both halos None and launched
+    twice, each bit for bit the single-device product."""
     dev = A.vals.device
     is_dia = isinstance(A, DIAMatrix)
     x64 = rng.standard_normal(A.n_rows if is_dia else A.n_cols)
@@ -758,15 +763,19 @@ def _kernel_errors(label, A, errs, rng):
             continue
         Ad = DIAMatrix(vals=A.vals.to(dtype), offsets=A.offsets,
                        n_rows=A.n_rows, lattice=A.lattice)
-        offsets = torch.tensor(A.offsets, dtype=torch.int32, device=dev)
-        abs_err, rel_err = _errors(dia_spmv_cuda.dia_spmv(Ad, x, offsets),
-                                   spmv_dia(Ad, x))
+        y = dia_spmv_cuda.dia_spmv(Ad, x)
+        abs_err, rel_err = _errors(y, spmv_dia(Ad, x))
+        same = {"halo entry, halos None": torch.equal(
+                    y, dia_spmv_cuda.dia_spmv_halo(Ad, x, None, None)),
+                "second launch": torch.equal(y, dia_spmv_cuda.dia_spmv(Ad, x))}
         errs[("dia_spmv", label, dtype)] = abs_err
         _phase("kernel", kernel="dia_spmv", case=label, dtype=str(dtype),
                rows=A.n_rows, diagonals=len(A.offsets), max_abs_err=abs_err,
-               max_rel_err=rel_err, bound=REL_ERR_MAX[dtype])
-        _check(rel_err <= REL_ERR_MAX[dtype],
-               f"dia_spmv {label} {dtype}: rel err {rel_err}")
+               max_rel_err=rel_err, bound=REL_ERR_MAX[dtype],
+               bit_equal=same)
+        _check(rel_err <= REL_ERR_MAX[dtype] and all(same.values()),
+               f"dia_spmv {label} {dtype}: rel err {rel_err}, bit equal "
+               f"{same}")
 
 
 def _counted(fn, counted, label=None):
@@ -1068,12 +1077,12 @@ def _shapes_recorded(into):
     counts in its kernel's own total, once."""
     for name, k in KERNELS.items():
         def launch(entry, *args, name=name, inner=k.launch):
-            # dia: (vals, offsets, D, n, ...); ell: (vals, cols, slice_ptr,
-            # n_rows, n_cols, ...), and the widest slice of the block, the
-            # wrapper's `A`, tells two blocks of one size apart; the
-            # entry's suffix is the dtype
+            # dia: (vals, plan, ...), the plan holding n and D; ell: (vals,
+            # cols, slice_ptr, n_rows, n_cols, ...), and the widest slice
+            # of the block, the wrapper's `A`, tells two blocks of one size
+            # apart; the entry's suffix is the dtype
             if name == "dia_spmv":
-                key = (entry, int(args[3]), int(args[2]))
+                key = (entry, int(args[1].n), int(args[1].n_diag))
             else:
                 key = (entry, int(args[3]), int(args[4]),
                        sys._getframe(1).f_locals["A"].max_width)
@@ -1114,9 +1123,9 @@ def _mg(dev, counted):
     rows = collections.Counter()
     launch = sparse_ops.dia_spmv
 
-    def recorded(A, x, offsets):
+    def recorded(A, x):
         rows[A.n_rows] += 1
-        return launch(A, x, offsets)
+        return launch(A, x)
 
     run = lambda: solve_poisson(mesh, dbc, device=dev, dtype=torch.float32,
                                 rtol=1e-6, maxiter=100, bc_mode="full",
@@ -1504,9 +1513,9 @@ def _highprec(dev, counted, mesh, dbc):
     rows = collections.Counter()
     launch = sparse_ops.dia_spmv
 
-    def recorded(A, x, offsets):
+    def recorded(A, x):
         rows[(A.n_rows, str(x.dtype)[6:])] += 1
-        return launch(A, x, offsets)
+        return launch(A, x)
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1739,7 +1748,6 @@ def _dist_kernel(dev, errs, rng, A_lat, A_el3, smi, peak):
                f"dist_kernel {label}: w {w}, {len(A.offsets)} diagonals")
         x64, l64, r64 = (rng.standard_normal(n)
                          for n in (A.n_rows, w, w))
-        off = torch.tensor(A.offsets, dtype=torch.int32, device=dev)
         for dtype in (torch.float32, torch.float64):
             Ad = DIAMatrix(vals=A.vals.to(dtype), offsets=A.offsets,
                            n_rows=A.n_rows)
@@ -1748,7 +1756,7 @@ def _dist_kernel(dev, errs, rng, A_lat, A_el3, smi, peak):
             for halos, (lh, rh) in (("halos", (left, right)),
                                     ("edge rank", (None, right))):
                 abs_err, rel_err = _errors(
-                    dia_spmv_cuda.dia_spmv_halo(Ad, x, lh, rh, off),
+                    dia_spmv_cuda.dia_spmv_halo(Ad, x, lh, rh),
                     spmv_dia_halo_local(Ad, x, lh, rh))
                 case = f"halo {label}, {halos}"
                 errs[("dia_spmv", case, dtype)] = abs_err
@@ -1763,8 +1771,8 @@ def _dist_kernel(dev, errs, rng, A_lat, A_el3, smi, peak):
                           for v in (x64, l64, r64))
         csr, nnz = _halo_csr(A, w)
         x_ext = torch.cat([left, x, right])
-        kern = lambda A=A, x=x, l=left, r=right, o=off: \
-            dia_spmv_cuda.dia_spmv_halo(A, x, l, r, o)
+        kern = lambda A=A, x=x, l=left, r=right: \
+            dia_spmv_cuda.dia_spmv_halo(A, x, l, r)
         plain = lambda A=A, x=x, l=left, r=right: \
             spmv_dia_halo_local(A, x, l, r)
         lib = lambda csr=csr, xe=x_ext: csr @ xe
@@ -1866,13 +1874,12 @@ def _halo_entry_on_block(label, block, errs, rng, timed=None):
     offsets, vals = block
     P, dev = vals.shape[1], vals.device
     w = halo_width(offsets)
-    off = torch.tensor(offsets, dtype=torch.int32, device=dev)
     x64, l64, r64 = (rng.standard_normal(n) for n in (P, w, w))
     if timed is not None:
         A = DIAMatrix(vals=vals, offsets=offsets, n_rows=P)
         x = torch.as_tensor(x64, dtype=vals.dtype, device=dev)
         csr, nnz = _csr_library(A)
-        kern = lambda: dia_spmv_cuda.dia_spmv_halo(A, x, None, None, off)
+        kern = lambda: dia_spmv_cuda.dia_spmv_halo(A, x, None, None)
         lib = lambda: csr @ x
         _, lib_rel = _errors(lib(), kern())
         _check(lib_rel <= REL_ERR_MAX[vals.dtype],
@@ -1892,7 +1899,7 @@ def _halo_entry_on_block(label, block, errs, rng, timed=None):
         for halos, (lh, rh) in (("no neighbours", (None, None)),
                                 ("halos", (left, right))):
             abs_err, rel_err = _errors(
-                dia_spmv_cuda.dia_spmv_halo(A, x, lh, rh, off),
+                dia_spmv_cuda.dia_spmv_halo(A, x, lh, rh),
                 spmv_dia_halo_local(A, x, lh, rh))
             case = f"halo {label} solve block, {halos}"
             errs[("dia_spmv", case, dtype)] = abs_err
@@ -2410,20 +2417,22 @@ def main():
     for label, A in {"flagship": A32,
                      "ragged": _ragged_dia(dev, torch.float32, rng)}.items():
         x64 = rng.standard_normal(A.n_rows)
-        offsets = torch.tensor(A.offsets, dtype=torch.int32, device=dev)
         for dtype in (torch.float32, torch.float64):
             Ad = DIAMatrix(vals=A.vals.to(dtype), offsets=A.offsets,
                            n_rows=A.n_rows, lattice=A.lattice)
             x = torch.as_tensor(x64, dtype=dtype, device=dev)
-            abs_err, rel_err = _errors(dia_spmv_cuda.dia_spmv(Ad, x, offsets),
-                                       spmv_dia(Ad, x))
+            y = dia_spmv_cuda.dia_spmv(Ad, x)
+            abs_err, rel_err = _errors(y, spmv_dia(Ad, x))
+            same = torch.equal(y, dia_spmv_cuda.dia_spmv_halo(Ad, x, None,
+                                                              None))
             errs[("dia_spmv", label, dtype)] = abs_err
             _phase("kernel", kernel="dia_spmv", case=label, dtype=str(dtype),
                    rows=A.n_rows, diagonals=len(A.offsets),
                    max_abs_err=abs_err, max_rel_err=rel_err,
-                   bound=REL_ERR_MAX[dtype])
-            _check(rel_err <= REL_ERR_MAX[dtype],
-                   f"dia_spmv {label} {dtype}: rel err {rel_err}")
+                   bound=REL_ERR_MAX[dtype], bit_equal_halo_none=same)
+            _check(rel_err <= REL_ERR_MAX[dtype] and same,
+                   f"dia_spmv {label} {dtype}: rel err {rel_err}, halo "
+                   f"entry bit equal {same}")
 
     assemble, coords, ordering, setup_s, lex = _flagship_ell(dev,
                                                               torch.float32)
@@ -2599,7 +2608,8 @@ def main():
     # on the n=96 lattice system; B2 on the same matrix in the solve's row
     # order, in lattice order (lex, the numbering B1 runs in) and
     # unordered; the elasticity matrices (3D in float32: B1 59 diagonals,
-    # B2 the same matrix as ELL; 2D in float64, the dtype of its solves:
+    # B2 the same matrix as ELL; B1 also on its values in float64, the
+    # shape of the f64 Jacobi solve; 2D in float64, the dtype of its solves:
     # B1 17 diagonals, B2 K = 16 renumbered in the solve's row order); the
     # phase-16 blocks and the Delaunay hybrid's parts in float32
     peak = next((v for k, v in PEAK_GBPS.items() if k in kind),
@@ -2615,6 +2625,9 @@ def main():
     scratch = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     mats = {"dia": A32, "ell_ordered": A_ord, "ell_lex": A_lex,
             "ell_unordered": ell_to_sliced(A_un), "dia_el3d": A_el3,
+            "dia_el3d_f64": DIAMatrix(vals=A_el3.vals.to(torch.float64),
+                                      offsets=A_el3.offsets,
+                                      n_rows=A_el3.n_rows),
             "ell_el3d": A_el3_ell,
             "dia_el2d": A_el2, "ell_el2d": A_el2_ell, **blocks,
             **hybrid_blocks}
@@ -2627,9 +2640,8 @@ def main():
         csr, nnz = _csr_library(A)
         lib = lambda csr=csr, x=x: csr @ x
         if is_dia:
-            off = torch.tensor(A.offsets, dtype=torch.int32, device=dev)
             plain = lambda A=A, x=x: spmv_dia(A, x)
-            kern = lambda A=A, x=x, off=off: dia_spmv_cuda.dia_spmv(A, x, off)
+            kern = lambda A=A, x=x: dia_spmv_cuda.dia_spmv(A, x)
             run = {"plain": plain, "kernel": kern, "library": lib}
         else:
             _check(_tight(A), f"timing {label}: a slice is wider than its "

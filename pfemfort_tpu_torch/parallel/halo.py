@@ -65,12 +65,11 @@ def spmv_dia_halo(offsets: Tuple[int, ...], vals_local: torch.Tensor,
     return spmv_dia_halo_local(A, x_local, *exchange_halos(x_local, w))
 
 
-def spmv_dia_halo_b1(A_local: DIAMatrix, x_local: torch.Tensor, w: int,
-                     offsets: torch.Tensor) -> torch.Tensor:
+def spmv_dia_halo_b1(A_local: DIAMatrix, x_local: torch.Tensor,
+                     w: int) -> torch.Tensor:
     """y_local = (A x)_local through kernel B1's halo entry (a CPU tensor
     takes its plain version): the halos exchanged, then one launch that
-    reads them in place.  `offsets`: A_local.offsets as an int32 tensor on
-    its device, made once outside the iteration loop."""
+    reads them in place."""
     left, right = exchange_halos(x_local, w)
-    return dia_spmv_halo(A_local, x_local, left, right, offsets)
+    return dia_spmv_halo(A_local, x_local, left, right)
 

@@ -276,10 +276,8 @@ def distributed_cg_solve_dia(
         raise ValueError(f"halo width {w} exceeds the {P_} rows of a rank")
     A_l = DIAMatrix(vals=vals_l, offsets=offsets, n_rows=P_)
     if b_l.is_cuda:
-        off_t = torch.tensor(offsets, dtype=torch.int32, device=b_l.device)
-
         def operator(x_l):
-            return spmv_dia_halo_b1(A_l, x_l, w, off_t)
+            return spmv_dia_halo_b1(A_l, x_l, w)
     else:
         def operator(x_l):
             return spmv_dia_halo(offsets, vals_l, x_l, w)

@@ -70,14 +70,12 @@ route_calls: collections.Counter = collections.Counter()
 @dataclasses.dataclass(frozen=True)
 class DeviceEll:
     """A static sparse block in the form chosen for it: exactly one of
-    `ell`, `dia` (with its offsets as an int32 tensor), `hybrid` or `dense`
-    is set."""
+    `ell`, `dia`, `hybrid` or `dense` is set."""
     kind: str                         # 'ell' | 'dia' | 'hybrid' | 'dense'
     n_rows: int
     n_cols: int
     ell: Optional[SlicedELL] = None
     dia: Optional[DIAMatrix] = None
-    dia_offsets: Optional[torch.Tensor] = None
     dense: Optional[torch.Tensor] = None
     hybrid: Optional[HybridMatrix] = None
 
@@ -124,9 +122,7 @@ def build_device_ell(cols: np.ndarray, vals: np.ndarray, n_cols: int,
         offsets, dvals = dia
         return DeviceEll(
             kind="dia", n_rows=n, n_cols=n_cols,
-            dia=DIAMatrix(vals=as_t(dvals), offsets=offsets, n_rows=n),
-            dia_offsets=torch.tensor(offsets, dtype=torch.int32,
-                                     device=device))
+            dia=DIAMatrix(vals=as_t(dvals), offsets=offsets, n_rows=n))
     if kind == "dense":
         dense = np.zeros((n, n_cols), dtype=np.float64)
         ok = cols < n_cols
@@ -146,7 +142,7 @@ def device_ell_apply(d: DeviceEll, x: torch.Tensor) -> torch.Tensor:
         return torch.matmul(d.dense, x)
     if d.kind == "dia":
         route_calls["dia"] += 1
-        return dia_spmv(d.dia, x, d.dia_offsets)
+        return dia_spmv(d.dia, x)
     if d.kind == "hybrid":
         route_calls["hybrid"] += 1
         return apply_hybrid(d.hybrid, x)

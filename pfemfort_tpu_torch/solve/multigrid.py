@@ -387,9 +387,8 @@ def gmg_preconditioner(arrays: GMGArrays, meta: GMGMeta) -> Callable:
     """r -> M^{-1} r: one symmetric V-cycle on the free subspace, identity
     on Dirichlet entries (matching the full-system identity BC rows).
 
-    The level operators (kernel B1 on the card) are built HERE, once, outside
-    the Krylov loop (sparse/ops.py:dia_operator copies the offsets to the
-    device once)."""
+    The level operators (kernel B1 on the card) are built here, once,
+    outside the Krylov loop."""
     from pfemfort_tpu_torch.sparse.ops import dia_operator
 
     fine_mask = arrays.masks[0]

@@ -174,7 +174,6 @@ class HybridMatrix:
     sliced ELL remainder for kernel B2 (None when it is empty)."""
     n_rows: int
     dia: Optional[DIAMatrix]
-    dia_offsets: Optional[torch.Tensor]   # int32, A.offsets on the device
     rem: Optional[SlicedELL]
 
     def diagonal(self) -> torch.Tensor:
@@ -191,7 +190,6 @@ class HybridLayout:
     (N, K) ELL values into a HybridMatrix with one gather per part."""
     n_rows: int
     offsets: Tuple[int, ...]
-    dia_offsets: Optional[torch.Tensor]
     dia_src: Optional[torch.Tensor]      # (D, N) int64, -1 empty
     rem: Optional[SliceLayout]           # sliced, sourced from the values
 
@@ -204,8 +202,7 @@ class HybridLayout:
                                              0.0),
                             offsets=self.offsets, n_rows=self.n_rows)
         return HybridMatrix(
-            n_rows=self.n_rows, dia=dia, dia_offsets=self.dia_offsets,
-            rem=None if self.rem is None else self.rem.pack(flat))
+            n_rows=self.n_rows, dia=dia, rem=None if self.rem is None else self.rem.pack(flat))
 
 
 def hybrid_layout(plan: HybridPlan, device) -> HybridLayout:
@@ -220,7 +217,6 @@ def hybrid_layout(plan: HybridPlan, device) -> HybridLayout:
                         plan.n_rows).compose(as_t(plan.rem_src, torch.int64))
     return HybridLayout(
         n_rows=plan.n_rows, offsets=plan.offsets,
-        dia_offsets=as_t(plan.offsets, torch.int32) if has_dia else None,
         dia_src=as_t(plan.dia_src, torch.int64) if has_dia else None,
         rem=rem)
 
@@ -238,7 +234,7 @@ def apply_hybrid(H: HybridMatrix, x: torch.Tensor) -> torch.Tensor:
     on a CPU tensor)."""
     y = None
     if H.dia is not None:
-        y = dia_spmv(H.dia, x, H.dia_offsets)
+        y = dia_spmv(H.dia, x)
     if H.rem is not None:
         y_rem = ell_spmv(H.rem, x)
         y = y_rem if y is None else y + y_rem

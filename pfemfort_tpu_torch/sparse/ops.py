@@ -26,11 +26,8 @@ Matrix = Union[DIAMatrix, ELLMatrix, SlicedELL]
 
 
 def dia_operator(A: DIAMatrix) -> Callable:
-    """x -> A x.  Call this OUTSIDE any iteration loop: it copies the
-    offsets to A's device once."""
-    offsets = torch.tensor(A.offsets, dtype=torch.int32,
-                           device=A.vals.device)
-    return lambda x: dia_spmv(A, x, offsets)
+    """x -> A x."""
+    return lambda x: dia_spmv(A, x)
 
 
 def operator_and_diag(A: Matrix) -> Tuple[Callable, torch.Tensor]:

@@ -681,9 +681,8 @@ def test_halo_kernel_matches_plain(cuda, shape, halos, dtype):
     A, x, left, right = _halo_block(rng, P, offsets, w, dtype, cuda)
     left = left if halos in ("both", "left") else None
     right = right if halos in ("both", "right") else None
-    off = torch.tensor(A.offsets, dtype=torch.int32, device=cuda)
     before = dict(dia_spmv_cuda.kernel.entry_launches)
-    y = dia_spmv_cuda.dia_spmv_halo(A, x, left, right, off)
+    y = dia_spmv_cuda.dia_spmv_halo(A, x, left, right)
     torch.cuda.synchronize()
     entry = "dia_spmv_halo_" + str(dtype)[-7:].replace("float", "f")
     assert dia_spmv_cuda.kernel.entry_launches[entry] == \
@@ -697,18 +696,16 @@ def test_halo_kernel_rejects_what_it_does_not_take(cuda):
 
     A = DIAMatrix(vals=torch.ones(3, 16, device=cuda), offsets=(-8, 0, 8),
                   n_rows=16)
-    off = torch.tensor(A.offsets, dtype=torch.int32, device=cuda)
     x = torch.ones(16, device=cuda)
     with pytest.raises(ValueError, match="largest"):     # w below the reach
-        dia_spmv_cuda.dia_spmv_halo(A, x, torch.ones(4, device=cuda), None,
-                                    off)
+        dia_spmv_cuda.dia_spmv_halo(A, x, torch.ones(4, device=cuda), None)
     with pytest.raises(TypeError):
         dia_spmv_cuda.dia_spmv_halo(A, x, torch.ones(8, device=cuda,
                                                      dtype=torch.float64),
-                                    None, off)
+                                    None)
     with pytest.raises(ValueError, match="contiguous"):
         dia_spmv_cuda.dia_spmv_halo(A, x, torch.ones(16, device=cuda)[::2],
-                                    None, off)
+                                    None)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -747,3 +744,95 @@ def test_ell_kernel_on_a_ghost_extended_block(cuda, dtype):
                        n_cols=n_cols)
     for y_ref in (spmv_sliced(A, x), spmv_ell(padded, x)):
         assert _rel_err(y, y_ref) <= REL_TOL[dtype]
+
+
+def _b1_block(shape, device, dtype):
+    """A B1 block at the shapes of the bit-equality cases: the lattice
+    system, the 59-diagonal 3D elasticity census, a ragged block whose
+    offsets reach past +-n, a hexa8 3D elasticity census (99 diagonals,
+    the most a generated mesh gives), an empty interior, w = P and a
+    single row."""
+    rng = np.random.default_rng(11)
+    if shape == "lattice":
+        return _lattice_system(12, device, dtype)
+    if shape == "59 diagonals":
+        return _elasticity_system("3d", device, dtype)
+    if shape == "99 diagonals":
+        from pfemfort_tpu_torch.assembly.pattern import build_pattern
+        from pfemfort_tpu_torch.dofs.dofmap import build_dofmap
+
+        mesh = generate.box_hexa(0, 1, 6, 0, 1, 6, 0, 1, 6)
+        dm = build_dofmap(mesh, 3, _clamped(mesh))
+        offsets = build_pattern(dm.elem_dof,
+                                int(dm.elem_dof.max()) + 1).dia_offsets
+        n = int(dm.elem_dof.max()) + 1
+    else:
+        offsets, n = {"ragged": ((-(40_000 + 5), -3, 7, 0, -1, 77, 40_002),
+                                 40_000),
+                      "empty interior": ((-700, 0, 5, 700), 1_000),
+                      "w = P": ((-40, -1, 0, 1, 40), 40),
+                      "single row": ((-1, 0, 1), 1)}[shape]
+    return DIAMatrix(vals=torch.as_tensor(
+        rng.standard_normal((len(offsets), n)), dtype=dtype, device=device),
+        offsets=tuple(offsets), n_rows=n)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", ["lattice", "59 diagonals", "ragged",
+                                   "99 diagonals", "empty interior", "w = P",
+                                   "single row"])
+def test_b1_entries_are_one_body_bit_for_bit(cuda, shape, dtype):
+    """dia_spmv and dia_spmv_halo(..., None, None) are one kernel body:
+    the same bits on the same block, the same bits on a second launch,
+    and the plain version's values; each launch counted on its entry."""
+    A = _b1_block(shape, cuda, dtype)
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal(A.n_rows),
+                        dtype=dtype, device=cuda)
+    suffix = "f32" if dtype == torch.float32 else "f64"
+    before = dict(dia_spmv_cuda.kernel.entry_launches)
+    y = dia_spmv_cuda.dia_spmv(A, x)
+    y_halo = dia_spmv_cuda.dia_spmv_halo(A, x, None, None)
+    y_again = dia_spmv_cuda.dia_spmv(A, x)
+    torch.cuda.synchronize()
+    after = dia_spmv_cuda.kernel.entry_launches
+    assert after[f"dia_spmv_{suffix}"] == before.get(f"dia_spmv_{suffix}",
+                                                     0) + 2
+    assert after[f"dia_spmv_halo_{suffix}"] == before.get(
+        f"dia_spmv_halo_{suffix}", 0) + 1
+    assert torch.equal(y, y_halo) and torch.equal(y, y_again)
+    assert _rel_err(y, spmv_dia(A, x)) <= REL_TOL[dtype]
+
+
+@pytest.mark.parametrize("shape", ["empty interior", "w = P", "single row"])
+def test_b1_halo_entry_on_edge_plans(cuda, shape):
+    """Blocks with no interior block, a halo as wide as the rows, one row:
+    the halo entry with both halos against its plain version."""
+    from pfemfort_tpu_torch.sparse.dia import spmv_dia_halo_local
+
+    A = _b1_block(shape, cuda, torch.float64)
+    w = max(max(A.offsets), -min(A.offsets))
+    rng = np.random.default_rng(4)
+    x, left, right = (torch.as_tensor(rng.standard_normal(k),
+                                      dtype=torch.float64, device=cuda)
+                      for k in (A.n_rows, w, w))
+    y = dia_spmv_cuda.dia_spmv_halo(A, x, left, right)
+    assert _rel_err(y, spmv_dia_halo_local(A, x, left, right)) <= \
+        REL_TOL[torch.float64]
+
+
+def test_b1_raises_above_its_diagonal_cap(cuda):
+    """More diagonals than the kernel's launch parameters hold raise,
+    naming the count, on both entries; the cap itself runs."""
+    n, D = 500, dia_spmv_cuda.MAX_DIAGONALS
+    for count, ok in ((D, True), (D + 1, False)):
+        offsets = tuple(range(-(count // 2), count - count // 2))
+        A = DIAMatrix(vals=torch.ones(count, n, device=cuda),
+                      offsets=offsets, n_rows=n)
+        x = torch.ones(n, device=cuda)
+        if ok:
+            assert torch.equal(dia_spmv_cuda.dia_spmv(A, x), spmv_dia(A, x))
+            continue
+        with pytest.raises(ValueError, match=str(count)):
+            dia_spmv_cuda.dia_spmv(A, x)
+        with pytest.raises(ValueError, match=str(count)):
+            dia_spmv_cuda.dia_spmv_halo(A, x, None, None)

@@ -282,8 +282,7 @@ def test_b1_halo_wrapper_on_cpu_is_its_plain_version(halos):
     dense = np.zeros((P, P + 2 * w))
     for d, o in enumerate(offs):
         dense[np.arange(P), w + np.arange(P) + o] = A.vals[d].numpy()
-    y = dia_spmv_halo(A, x, left, right, torch.tensor(offs,
-                                                      dtype=torch.int32))
+    y = dia_spmv_halo(A, x, left, right)
     np.testing.assert_allclose(y.numpy(), dense @ ext, rtol=0, atol=1e-12)
     assert torch.equal(y, spmv_dia_halo_local(A, x, left, right))
     with pytest.raises(ValueError, match="largest"):
