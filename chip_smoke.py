@@ -195,7 +195,38 @@ of JAX.  Phases, one JSON line each:
                      CLI solve on the card (u within the VTK's 1e-6), on a
                      box (the DIA route) and on a scrambled Delaunay n=12
                      mesh (the ELL route), and `--shards 2 --device cuda`,
-                     which must fail naming the card count.
+                     which must fail naming the card count;
+ 30. dist_mg         precond='mg' at world size 1 (parallel/dist_mg.py):
+                     box_tet n=96 f32, rtol 1e-6 (the full system, 912,673
+                     rows; iterations within 1 of phase 11's, nodal error
+                     <= 2e-4, precond_used 'mg', distributed_mg) and the
+                     phase-7 elasticity system f32 (under half of phase 7's
+                     f32 Jacobi count, within 2e-3 of its f64 solution);
+                     B1 halo-entry launches >= 3 x iterations, coarse B1
+                     launches > 0, no B2; after each solve B1's halo entry
+                     against its plain version on the solve's own fine
+                     block (f32, f64; halos None and random), timed there;
+                     stage seconds, ms per iteration, peak device memory;
+ 31. dist_amg        precond='amg' on the sharded ELL route at world size
+                     1: the n=96 box renumbered by default_rng(2),
+                     recover=False, f32, rtol 1e-6 (<= 20 iterations, nodal
+                     error <= 2e-4, precond_used 'amg', layout 'ell'); B2
+                     launches on the ghost-extended block and on the P0_s
+                     and P0_s^T blocks (each >= iterations), each against
+                     spmv_sliced (f32, f64); amg_setup_s, the levels and
+                     ms per iteration beside phase 13's;
+ 32. dist_partition  rcb_partition_device on the element centroids of
+                     box_tet n=200 (48M, made on the card), 8 parts: every
+                     part within 1.05 E/8 + 64 and non-empty, every part's
+                     extent product under 0.35 of the volume, the same ids
+                     as the port's CPU run; seconds on the card and the CPU;
+ 33. dist_explicit   explicit_dynamics_sharded on phase 9's tria case
+                     (2,500 steps, probes 670/671) at world size 1: f32
+                     twice bit for bit, within 1e-6 (f32) and 1e-12 (f64)
+                     relative of phase 9's single-device runs on disp and
+                     the probes; ms per step beside phase 9's;
+ 34. dryrun          pfemfort_tpu_torch.dryrun's four cases at world size 1
+                     with the JAX package's assertions, their iterations.
 
 Every launch count is set to 0 just before its path is driven and read just
 after; from phase 11 on, a plain SpMV called on a card tensor would also be
@@ -243,7 +274,10 @@ from pfemfort_tpu_torch.drivers.partitioned import read_partitioned_local, \
     solve_poisson_partitioned
 from pfemfort_tpu_torch.drivers.sharded import solve_implicit_sharded
 from pfemfort_tpu_torch.mesh.reorder import recover_structure
-from pfemfort_tpu_torch.parallel import multihost, shard_cg
+from pfemfort_tpu_torch import dryrun
+from pfemfort_tpu_torch.dynamics.sharded import explicit_dynamics_sharded
+from pfemfort_tpu_torch.parallel import dist_mg, multihost, shard_cg
+from pfemfort_tpu_torch.parallel.dist_partition import rcb_partition_device
 from pfemfort_tpu_torch.parallel.dist_assembly import build_dist_setup
 from pfemfort_tpu_torch.parallel.dist_ell import local_columns, reader_plan
 from pfemfort_tpu_torch.parallel.halo import halo_width
@@ -356,6 +390,15 @@ ELL_RANKS = 8
 N_PARTITIONED = 24
 PARTITIONED_U_TOL = 1e-8    # float64 solves to rtol 1e-10, two row orders
 N_DELAUNAY_CLI = 12
+# Phases 30-34.  dist_mg holds the single-device bars of phases 11 and 14
+# (MG_SLACK, EL_MG_FRACTION, EL3D_F32_VS_F64), dist_amg phase 13's
+# (AMG_ITERS_MAX).  dist_partition: 8 parts of the n=200 box's element
+# centroids; the JAX test's bars (tests/test_dist_partition.py): each part
+# within 5% (+64) of E/8, and each part's extent product under 0.35 of the
+# box's volume (1).  dist_explicit: the sharded loop at world size 1
+# against the single-device loop of phase 9 on disp and the probes.
+RCB_PARTS, RCB_EXTENT_SHARE = 8, 0.35
+DIST_EXPLICIT_REL = {torch.float32: 1e-6, torch.float64: 1e-12}
 CLI_SHARDED_U_TOL = 1e-6 * (1 + 1e-9)   # one unit of the VTK's 6 decimals
 # Plain SpMV calls made on a card tensor (the kernel wrappers route card
 # tensors to their kernels, so this must stay empty).
@@ -984,6 +1027,7 @@ def _explicit(dev):
            "explicit probes")
     _check(float(rel.max()) <= EXPLICIT_F32_VS_F64,
            f"explicit f32 vs f64 probes: {rel}")
+    single = {"ms_per_step": ms_step, torch.float32: a, torch.float64: c}
 
     q = presets.QUAD_EXPLICIT
     qx, qy = QUAD_CELLS
@@ -998,7 +1042,7 @@ def _explicit(dev):
            seconds=tq, u_max=float(np.abs(qc.disp).max()))
     _check(qrel <= 1e-10 and np.abs(qc.disp).max() > 0,
            f"quad preset card vs CPU: {qrel}")
-    return ms_step
+    return single
 
 
 def _cli(dev):
@@ -1864,7 +1908,8 @@ def _timing_row(phase, label, run, bound, nnz, smi, peak, **extra):
     return row
 
 
-def _halo_entry_on_block(label, block, errs, rng, timed=None):
+def _halo_entry_on_block(label, block, errs, rng, timed=None,
+                         phase="dist_dia"):
     """B1's halo entry on a sharded solve's own (D, P) block against its
     plain version, f32 and f64: with both halos None, as every launch of a
     world-size-1 solve has them, and with random non-zero halos.  With
@@ -1885,7 +1930,7 @@ def _halo_entry_on_block(label, block, errs, rng, timed=None):
         _check(lib_rel <= REL_ERR_MAX[vals.dtype],
                f"halo {label}: the library product differs by {lib_rel}")
         row = _timing_row(
-            "dist_dia", f"{label} solve block, no neighbours",
+            phase, f"{label} solve block, no neighbours",
             {"plain": lambda: spmv_dia_halo_local(A, x, None, None),
              "kernel": kern, "library": lib},
             _bound(A, nnz, timed[1]), nnz, *timed, rows=P, w=w,
@@ -1903,7 +1948,7 @@ def _halo_entry_on_block(label, block, errs, rng, timed=None):
                 spmv_dia_halo_local(A, x, lh, rh))
             case = f"halo {label} solve block, {halos}"
             errs[("dia_spmv", case, dtype)] = abs_err
-            _phase("dist_dia", kernel="dia_spmv (halo entry)", case=case,
+            _phase(phase, kernel="dia_spmv (halo entry)", case=case,
                    dtype=str(dtype), rows=P, w=w, diagonals=len(offsets),
                    max_abs_err=abs_err, max_rel_err=rel_err,
                    bound=REL_ERR_MAX[dtype])
@@ -2000,12 +2045,18 @@ def _dist_dia(dev, counted, solve_dia, el3, errs, rng, smi, peak):
     return runs, rows
 
 
-@contextlib.contextmanager
 def _recorded(into, *names):
     """Record in into[name] the (args, kwargs, result) of every call that
     drivers/sharded.py makes to each function of `names` while the block
     runs."""
-    saved = {n: getattr(sharded_driver, n) for n in names}
+    return _recorded_in(sharded_driver, into, *names)
+
+
+@contextlib.contextmanager
+def _recorded_in(module, into, *names):
+    """Record in into[name] the (args, kwargs, result) of every call that
+    `module` makes to each function of `names` while the block runs."""
+    saved = {n: getattr(module, n) for n in names}
 
     def wrap(name, fn):
         def call(*args, **kw):
@@ -2015,12 +2066,12 @@ def _recorded(into, *names):
         return call
 
     for name, fn in saved.items():
-        setattr(sharded_driver, name, wrap(name, fn))
+        setattr(module, name, wrap(name, fn))
     try:
         yield into
     finally:
         for name, fn in saved.items():
-            setattr(sharded_driver, name, fn)
+            setattr(module, name, fn)
 
 
 def _host_bytes(obj):
@@ -2372,6 +2423,248 @@ def _cli_sharded(dev):
                f"{bad.returncode} {bad.stderr}")
 
 
+def _b1_entry_launches(halo):
+    """B1's launches of the last counted path through its halo entries
+    (halo=True) or its single-device entries."""
+    return sum(v for e, v in dia_spmv_cuda.kernel.entry_launches.items()
+               if e.startswith("dia_spmv_halo") == halo)
+
+
+def _dist_mg(dev, counted, mg_single, el3, errs, rng, smi, peak):
+    """Phase 30: precond='mg' on the world-size-1 NCCL group, the
+    distributed geometric multigrid (parallel/dist_mg.py): box_tet n=96
+    f32 (the full system, 912,673 rows) and the phase-7 elasticity system
+    f32 with the port's vector smoothing; every fine product on B1's halo
+    entry, the replicated coarse levels on B1; after each solve, B1's halo
+    entry against its plain version on the solve's own fine block.
+    Returns (the solves, the timing rows)."""
+    n = N_FLAGSHIP
+    mesh, dbc = generate.box_tet(0, 1, n, 0, 1, n, 0, 1, n)
+    D = dmat_3d(E_EL, NU_EL)
+    m3, _ = generate.box_tet(0, 1, N_EL3D, 0, 1, N_EL3D, 0, 1, N_EL3D)
+    cases = {
+        f"box_tet n={n} f32": (mesh, 1, dbc, _poisson_fn),
+        f"elasticity3d n={N_EL3D} f32": (
+            m3, 3, _clamped(m3), lambda c: elasticity_stiffness(
+                c, "tetra4", D, bforce=(0.1, 0.0, 0.0)))}
+    runs, rows = {}, []
+    for label, (m, ndof, d, efn) in cases.items():
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        rec = {}
+        with _recorded_in(dist_mg, rec, "fine_spmv_factory"):
+            r, launches = _counted(lambda: solve_implicit_sharded(
+                m, ndof, d, efn, dtype=torch.float32, rtol=1e-6,
+                maxiter=100 if ndof == 1 else 1000, precond="mg",
+                device=dev), counted, f"sharded {label} mg (world 1)")
+        halo, coarse = _b1_entry_launches(True), _b1_entry_launches(False)
+        it = r.stats.iters
+        extra = dict(launches=launches, halo_launches=halo,
+                     coarse_b1_launches=coarse, rows=m.n_node * ndof)
+        if ndof == 1:
+            nodal_err = float(np.abs(r.u_full - (m.coords ** 2).sum(1)).max())
+            extra.update(nodal_err=nodal_err,
+                         single_device_iters=mg_single.stats.iters,
+                         single_device_ms_per_iter=1e3 * mg_single.timings[
+                             "solve_s"] / mg_single.stats.iters)
+            _check(abs(it - mg_single.stats.iters) <= MG_SLACK
+                   and nodal_err <= NODAL_ERR_MAX,
+                   f"dist_mg {label}: {it} iterations (single device "
+                   f"{mg_single.stats.iters}), nodal error {nodal_err}")
+        else:
+            u64 = el3[torch.float64].u_full
+            rel = float(np.abs(r.u_full - u64).max() / np.abs(u64).max())
+            bar = EL_MG_FRACTION * el3[torch.float32].stats.iters
+            extra.update(rel_to_f64_reduced=rel, bound=EL3D_F32_VS_F64,
+                         jacobi_f32_iters=el3[torch.float32].stats.iters,
+                         bar=bar)
+            _check(it < bar and rel <= EL3D_F32_VS_F64,
+                   f"dist_mg {label}: {it} iterations (bar {bar}), u rel "
+                   f"{rel}")
+        _dist_stages(label, r, base, extra, phase="dist_mg")
+        _check(r.stats.converged and r.stats.relres <= 1e-6
+               and bool(np.isfinite(r.u_full).all()),
+               f"dist_mg {label}: {r.stats}")
+        _check(r.timings.get("distributed_mg") is True
+               and r.timings["precond_used"] == "mg",
+               f"dist_mg {label}: {r.timings}")
+        _check(halo >= 3 * it and coarse > 0 and launches["ell_spmv"] == 0,
+               f"dist_mg {label}: B1 halo {halo}, coarse {coarse}, "
+               f"{launches} for {it} iterations")
+        _check(not PLAIN_ON_CARD, f"dist_mg: plain SpMVs on the card "
+               f"{dict(PLAIN_ON_CARD)}")
+        calls = rec.pop("fine_spmv_factory")
+        _check(len(calls) == 1, f"dist_mg {label}: {len(calls)} fine blocks")
+        (setup, vals_l), _, _ = calls[0]
+        row = _halo_entry_on_block(f"dist_mg {label}",
+                                   (tuple(setup.offsets), vals_l), errs, rng,
+                                   (smi, peak), phase="dist_mg")
+        rows.append(row)
+        runs[f"sharded {label} mg (world 1)"] = r
+        del calls, setup, vals_l
+    return runs, rows
+
+
+def _dist_amg(dev, counted, amg_single, errs, rng):
+    """Phase 31: precond='amg' on the sharded ELL route at world size 1:
+    the renumbered n=96 box (default_rng(2), recover=False), f32; B2 on the
+    solve's ghost-extended block and on its P0_s and P0_s^T blocks against
+    spmv_sliced, each launched during the solve.  Returns the solve."""
+    pmesh, pdbc = _permuted_box(N_FLAGSHIP, seed=2)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    rec = {}
+    label = "sharded renumbered n=96 rng(2) f32 amg (world 1)"
+    with _recorded(rec, "distributed_cg_solve_ell"):
+        r, launches = _counted(lambda: solve_implicit_sharded(
+            pmesh, 1, pdbc, _poisson_fn, dtype=torch.float32, rtol=1e-6,
+            recover=False, precond="amg", device=dev), counted, label)
+    nodal_err = float(np.abs(r.u_full - (pmesh.coords ** 2).sum(1)).max())
+    call = rec.pop("distributed_cg_solve_ell")[0]
+    (cols_local, vals, _, halo), kw, _ = call
+    amg = kw["amg"]
+    ghost = slice_ell(cols_local, halo.n_cols).pack(vals)
+    shapes = SOLVE_SHAPES[label]
+    by_block = {name: shapes[_shape_key(A)]
+                for name, A in (("ghost-extended block", ghost),
+                                ("P0_s", amg.p0), ("P0_s^T", amg.p0t))}
+    it = r.stats.iters
+    _dist_stages("renumbered n=96 rng(2) f32 amg", r, base, dict(
+        nodal_err=nodal_err, launches=launches,
+        b2_launches_by_block=by_block,
+        single_device_iters=amg_single.stats.iters,
+        single_device_levels=amg_single.timings["amg_levels"],
+        single_device_amg_setup_s=amg_single.timings["amg_setup_s"],
+        single_device_ms_per_iter=1e3 * amg_single.timings["solve_s"]
+        / amg_single.stats.iters), phase="dist_amg")
+    _check(r.stats.converged and r.stats.relres <= 1e-6
+           and it <= AMG_ITERS_MAX and nodal_err <= NODAL_ERR_MAX,
+           f"dist_amg: {r.stats}, nodal error {nodal_err}")
+    _check(r.timings["precond_used"] == "amg"
+           and r.timings["assembly_layout"] == "ell",
+           f"dist_amg: {r.timings}")
+    _check(by_block["ghost-extended block"] >= it
+           and by_block["P0_s"] >= it and by_block["P0_s^T"] >= it,
+           f"dist_amg: B2 launches by block {by_block} for {it} "
+           "iterations")
+    _check(not PLAIN_ON_CARD, f"dist_amg: plain SpMVs on the card "
+           f"{dict(PLAIN_ON_CARD)}")
+    for name, A in (("ghost-extended block", ghost), ("P0_s", amg.p0),
+                    ("P0_s^T", amg.p0t)):
+        _kernel_errors(f"dist_amg {name}", A, errs, rng)
+    return r
+
+
+def _dist_partition(dev):
+    """Phase 32: rcb_partition_device on the 48M element centroids of
+    box_tet n=200, made on the card, 8 parts: balance, the JAX test's
+    geometric bar, and the same ids as the port's CPU run on the same
+    centroids."""
+    n, k = N_LARGE, RCB_PARTS
+    coords_em = generate.box_tet_coords_em_device(0, 1, n, 0, 1, n, 0, 1, n,
+                                                  device=dev)
+    cent = coords_em.mean(dim=0).t().contiguous()
+    del coords_em
+    E = cent.shape[0]
+    torch.cuda.synchronize()
+    secs = {}
+    for rep in ("first", "second"):
+        t0 = time.perf_counter()
+        part = rcb_partition_device(cent, k, device=dev)
+        torch.cuda.synchronize()
+        secs[rep] = time.perf_counter() - t0
+    counts = torch.bincount(part, minlength=k).cpu().numpy()
+    idx = part.long()[:, None].expand(E, 3)
+    lo = torch.full((k, 3), float("inf"), device=dev).scatter_reduce_(
+        0, idx, cent, reduce="amin")
+    hi = torch.full((k, 3), -float("inf"), device=dev).scatter_reduce_(
+        0, idx, cent, reduce="amax")
+    ext = (hi - lo + 1e-9).prod(dim=1).cpu().numpy()
+    del idx, lo, hi
+    cent_h = cent.cpu()
+    part_h = part.cpu().numpy()
+    del cent, part
+    t0 = time.perf_counter()
+    cpu = rcb_partition_device(cent_h, k, device="cpu").numpy()
+    cpu_s = time.perf_counter() - t0
+    same = bool(np.array_equal(part_h, cpu))
+    bal = 1.05 * E / k + 64
+    _phase("dist_partition", n=n, elements=E, parts=k, counts=counts.tolist(),
+           balance_bound=bal, extent_products=ext.tolist(),
+           extent_bound=RCB_EXTENT_SHARE, card_s=secs["second"],
+           card_first_s=secs["first"], cpu_s=cpu_s, card_equals_cpu=same)
+    _check(counts.min() > 0 and counts.max() <= bal,
+           f"dist_partition: counts {counts.tolist()}")
+    _check(float(ext.max()) < RCB_EXTENT_SHARE,
+           f"dist_partition: extent products {ext.tolist()}")
+    _check(same, "dist_partition: the card's part ids differ from the CPU's")
+
+
+def _dist_explicit(dev, single):
+    """Phase 33: explicit_dynamics_sharded on phase 9's tria case at world
+    size 1: float32 twice, bit for bit; against the single-device loop of
+    phase 9 (float32 within 1e-6 relative, float64 within 1e-12) on disp
+    and the probes; ms per step beside phase 9's."""
+    p = presets.TRIA_EXPLICIT
+    nx, ny = EXPLICIT_CELLS
+    mesh = generate.rect_tria(0, 10, nx, 0, 2, ny)
+    dbc = _clamped(mesh)
+
+    def run(dtype, nsteps):
+        bforce = torch.tensor(p.bforce, dtype=dtype, device=dev)
+        pulse = torch.tensor(p.pulse_t, dtype=dtype, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = explicit_dynamics_sharded(
+            mesh, dbc, p.E, p.nu, p.dens, p.dt, nsteps,
+            bforce_fn=lambda t: bforce * torch.where(t <= pulse, 1.0, 0.0),
+            probe_dofs=p.probe_dofs, dtype=dtype, device=dev)
+        return res, time.perf_counter() - t0
+
+    half = EXPLICIT_STEPS // 2
+    (a, ta), (b, _), (_, th) = (run(torch.float32, s) for s in
+                                (EXPLICIT_STEPS, EXPLICIT_STEPS, half))
+    c, t64 = run(torch.float64, EXPLICIT_STEPS)
+    fields = ("disp", "velo", "acce", "probe_history")
+    repeat = all(np.array_equal(getattr(a, f), getattr(b, f))
+                 for f in fields)
+
+    def rel(x, ref):
+        return float(np.abs(x - ref).max() / np.abs(ref).max())
+
+    errs = {str(dt)[6:]: {f: rel(getattr(r, f), getattr(single[dt], f))
+                          for f in ("disp", "probe_history")}
+            for dt, r in ((torch.float32, a), (torch.float64, c))}
+    ms_step = 1e3 * (ta - th) / (EXPLICIT_STEPS - half)
+    _phase("dist_explicit", preset="tria", cells=[nx, ny],
+           elements=mesh.n_elem, steps=EXPLICIT_STEPS,
+           bit_identical_repeat=repeat, rel_to_single_device=errs,
+           bound={"float32": DIST_EXPLICIT_REL[torch.float32],
+                  "float64": DIST_EXPLICIT_REL[torch.float64]},
+           seconds_f32=ta, seconds_f64=t64, ms_per_step_f32=ms_step,
+           single_device_ms_per_step_f32=single["ms_per_step"],
+           finite=bool(np.isfinite(a.disp).all()))
+    _check(repeat, "dist_explicit: float32 does not repeat bit for bit")
+    for dt, r in ((torch.float32, a), (torch.float64, c)):
+        worst = max(errs[str(dt)[6:]].values())
+        _check(worst <= DIST_EXPLICIT_REL[dt] and np.isfinite(r.disp).all(),
+               f"dist_explicit {dt}: {errs[str(dt)[6:]]}")
+
+
+def _dryrun(dev, counted):
+    """Phase 34: the port's dry run (pfemfort_tpu_torch/dryrun.py) at world
+    size 1 on the card, float32, with the JAX package's assertions."""
+    t0 = time.perf_counter()
+    iters, launches = _counted(lambda: dryrun.dryrun(device=dev,
+                                                     verbose=False), counted)
+    _phase("dryrun", world_size=multihost.world().size, iters=iters,
+           launches=launches, seconds=time.perf_counter() - t0)
+    _check(set(iters) == {"halo/dia", "dist/ell", "dist_mg", "dist_amg"},
+           f"dryrun: {iters}")
+    _check(launches["dia_spmv"] > 0 and launches["ell_spmv"] > 0,
+           f"dryrun: launches {launches}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -2558,7 +2851,7 @@ def main():
     A_el3, A_el3_ell, el3 = _elasticity3d(dev, counted, errs, rng)
     A_el2, A_el2_ell, el2_dia, el2_ell = _elasticity2d(dev, counted, errs,
                                                        rng)
-    _explicit(dev)
+    explicit_single = _explicit(dev)
     _cli(dev)
 
     # 11.-14. preconditioners and the full system
@@ -2731,6 +3024,19 @@ def main():
         smi, peak)
     dist_runs.update(ell_runs)
     _cli_sharded(dev)
+
+    # 30.-34. the distributed preconditioners, the device RCB, the sharded
+    # explicit loop and the dry run, in the same world-size-1 group
+    mg_runs, mg_timing = _dist_mg(dev, counted, pc_runs["mg"], el3, errs,
+                                  rng, smi, peak)
+    dist_runs.update(mg_runs)
+    dist_runs["sharded renumbered n=96 f32 amg (world 1)"] = _dist_amg(
+        dev, counted, amg_runs["amg"][0], errs, rng)
+    torch.cuda.empty_cache()
+    _dist_partition(dev)
+    torch.cuda.empty_cache()
+    _dist_explicit(dev, explicit_single)
+    _dryrun(dev, counted)
     for label, r in dist_runs.items():
         _phase("timing", stages=label, card=smi, cg_iters=r.stats.iters,
                cg_ms_per_iter=1e3 * r.timings["solve_s"]
@@ -2759,7 +3065,7 @@ def main():
     dia_entry["halo_entry"] = {
         "replaces": "pfemfort_tpu/sparse/pallas_spmv.py:167",
         "launches": counted["dia_spmv_halo"],
-        "shapes": halo_timing + main_halo_timing}
+        "shapes": halo_timing + main_halo_timing + mg_timing}
     ell_entry = entry("ell_spmv", "pfemfort_tpu_torch/csrc/ell_spmv.cu",
                       "pfemfort_tpu/sparse/slotgather.py:403", "ell_el2d",
                       "elasticity2d renumbered, ordered", torch.float64)

@@ -22,7 +22,10 @@ port's counterpart of `jax_enable_x64` is `--dtype float64`).
 
 `poisson` and `elasticity` take `--shards N`: the per-rank solve of
 drivers/sharded.py on N ranks (the DIA route, or the ELL route for a mesh
-without a per-rank DIA layout; `--precond ic0|bjacobi` applies there).  Under torchrun (RANK in the environment)
+without a per-rank DIA layout; `--precond ic0|bjacobi|amg` applies there,
+and `--precond mg` takes the distributed multigrid's Jacobi fall-back: a
+mesh read from files has no generator structure, as in the JAX CLI).
+Under torchrun (RANK in the environment)
 each process is one rank of the group torchrun set up; launched by hand,
 the command re-runs itself under torchrun with N rank processes
 (parallel/multihost.py:torchrun_ranks).  `--device cuda` needs N cards (one per rank,

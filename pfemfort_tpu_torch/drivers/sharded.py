@@ -1,4 +1,4 @@
-# Ported from pfemfort_tpu/drivers/sharded.py (the per-rank DIA and ELL routes).
+# Ported from pfemfort_tpu/drivers/sharded.py (the per-rank DIA, ELL and MG routes).
 """Multi-rank implicit solve: partition -> PER-RANK assembly -> Krylov.
 
 The port's form of the reference's parallel drivers
@@ -23,8 +23,11 @@ timings["assembly_layout"]:
     B2 on the rank's ghost-extended block).  The ELL route partitions with
     'rcb' when asked for 'slab', as the JAX package does.
 Unlike the JAX package, no mesh falls back to replicated assembly.
-precond='mg' (the distributed multigrid) and, on the ELL route, 'amg' (the
-distributed SA-AMG) are ROADMAP A.9c and raise.
+precond='mg' takes a third route on a coarsenable box_tet lattice without
+ForceBCs: the distributed geometric multigrid (parallel/dist_mg.py, the
+full node-dof system, CG; timings["distributed_mg"]); elsewhere it runs
+(block-)Jacobi and says why in timings["mg_refused"].  precond='amg' on the
+ELL route is the distributed SA-AMG (solve/amg.py:build_dist_samg).
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import numpy as np
 import torch
 
 from pfemfort_tpu_torch.assembly.assemble import dirichlet_rhs_correction
+from pfemfort_tpu_torch.dofs.dofmap import build_dofmap
 from pfemfort_tpu_torch.drivers.common import ImplicitResult
 from pfemfort_tpu_torch.mesh.core import Mesh
 from pfemfort_tpu_torch.mesh.reorder import recover_structure
@@ -44,8 +48,10 @@ from pfemfort_tpu_torch.parallel.dist_assembly import DistSetup, \
 from pfemfort_tpu_torch.parallel.dist_ell import DistELLSetup, \
     assemble_ell_local, build_dist_ell_setup, build_ell_halo, ell_local_plan
 from pfemfort_tpu_torch.parallel.multihost import world
-from pfemfort_tpu_torch.parallel.shard_cg import distributed_cg_solve_dia, \
-    distributed_cg_solve_ell
+from pfemfort_tpu_torch.parallel.dist_mg import solve_sharded_mg
+from pfemfort_tpu_torch.parallel.shard_cg import _gathered, \
+    distributed_cg_solve_dia, distributed_cg_solve_ell
+from pfemfort_tpu_torch.solve.amg import build_dist_samg
 from pfemfort_tpu_torch.solve.cg import SolveStats
 from pfemfort_tpu_torch.solve.ic0 import build_ic0_shard_block
 from pfemfort_tpu_torch.utils.device import resolve_device, \
@@ -159,9 +165,13 @@ def solve_implicit_sharded(
     (the reference's -ksp_type switch, PFEMFort src/solverpetsc.F:198).
     `precond`, under every method: 'jacobi'; 'bjacobi' (per-node blocks,
     ndof > 1 with rows per rank a multiple of ndof); 'ic0' (one IC(0)
-    block per rank, ELL route only); 'mg' raises, and so does 'amg' on
-    the ELL route (ROADMAP A.9c); any other name runs Jacobi, and
-    timings["precond_used"] says which ran.  With `recover`, a
+    block per rank, ELL route only); 'amg' (the distributed SA-AMG, ELL
+    route only; Jacobi where the system does not coarsen); any other name
+    runs Jacobi, and timings["precond_used"] says which ran.  'mg' is the
+    distributed geometric multigrid on a coarsenable box_tet lattice
+    without ForceBCs, solved with CG whatever `method` says (as in the JAX
+    package); elsewhere (block-)Jacobi, with the reason in
+    timings["mg_refused"].  With `recover`, a
     structure-less mesh is first renumbered geometrically
     (mesh/reorder.py) so that its pattern can be a DIA census; the
     solution comes back in the caller's numbering.
@@ -172,7 +182,9 @@ def solve_implicit_sharded(
     device synchronise), assembly_layout 'dia' or 'ell',
     distributed_assembly True, precond_requested, precond_used; on the
     ELL route also inshard_kernel ('ell_spmv' on the card, 'spmv_sliced'
-    on the CPU) and, with IC(0), ic0_setup_s."""
+    on the CPU) and, with IC(0), ic0_setup_s; with SA-AMG amg_setup_s,
+    amg_levels and amg_host_bytes (the values all-gathered to each rank's
+    host).  The MG route's timings are solve_sharded_mg's."""
     wd = world()
     device = resolve_device(device)
     if device.type != wd.device.type:
@@ -187,10 +199,6 @@ def solve_implicit_sharded(
                          f"{wd.size} ranks: one shard per rank")
     if dtype is None:
         dtype = torch.get_default_dtype()
-    if precond == "mg":
-        raise NotImplementedError(
-            "precond='mg' on a sharded solve is the distributed multigrid "
-            "of ROADMAP A.9c")
 
     if recover and mesh.structure is None:
         rec = recover_structure(mesh, ndof, dirichlet, force_bc)
@@ -209,6 +217,22 @@ def solve_implicit_sharded(
                 stats=res.stats,
                 timings=dict(res.timings, structure_recovered=True),
                 elem_part=res.elem_part)
+
+    precond_requested = precond
+    mg_refused = None
+    if precond == "mg":
+        if force_bc is None or not len(force_bc):
+            try:
+                res = _solve_mg_sharded(mesh, ndof, dirichlet, element_fn,
+                                        dtype, rtol, maxiter, device)
+                res.timings.update(precond_requested="mg",
+                                   precond_used="mg")
+                return res
+            except ValueError as ex:
+                mg_refused = str(ex)
+        else:
+            mg_refused = "distributed MG does not support ForceBCs"
+        precond = "bjacobi" if ndof > 1 else "jacobi"
 
     t0 = time.perf_counter()
     try:
@@ -235,10 +259,6 @@ def solve_implicit_sharded(
                        assembly_layout="dia")
         precond_used = "bjacobi" if bjacobi else "jacobi"
     else:
-        if precond == "amg":
-            raise NotImplementedError(
-                "precond='amg' on the sharded ELL route is the distributed "
-                "smoothed-aggregation AMG of ROADMAP A.9c")
         setup = build_dist_ell_setup(
             mesh, ndof, dirichlet, n_shards, wd.rank,
             method="rcb" if partition_method == "slab" else partition_method,
@@ -252,7 +272,16 @@ def solve_implicit_sharded(
         _sync(device)
         timings = dict(pattern_s=t_pattern,
                        assemble_s=time.perf_counter() - t0)
-        ic0 = None
+        amg = ic0 = None
+        if precond == "amg":
+            t0 = time.perf_counter()
+            amg, host_bytes = _dist_samg(setup.sys, mesh, ndof, vals, dtype,
+                                         device)
+            _sync(device)
+            timings.update(amg_setup_s=time.perf_counter() - t0,
+                           amg_host_bytes=host_bytes)
+            if amg is not None:
+                timings["amg_levels"] = list(amg.metas[0].sizes)
         if precond == "ic0":
             t0 = time.perf_counter()
             ic0 = build_ic0_shard_block(
@@ -261,24 +290,28 @@ def solve_implicit_sharded(
                 device=device)
             _sync(device)
             timings["ic0_setup_s"] = time.perf_counter() - t0
-        bjacobi = ic0 is None and precond == "bjacobi" and ndof > 1 \
-            and setup.rows_per_shard % ndof == 0
+        bjacobi = ic0 is None and amg is None and precond == "bjacobi" \
+            and ndof > 1 and setup.rows_per_shard % ndof == 0
         t0 = time.perf_counter()
         x, stats = distributed_cg_solve_ell(
             halo.cols_local, vals, b, halo, rtol=rtol, maxiter=maxiter,
-            ndof_block=ndof if bjacobi else 1, ic0=ic0, method=method)
+            ndof_block=ndof if bjacobi else 1, ic0=ic0, method=method,
+            amg=amg)
         _sync(device)
         timings.update(solve_s=time.perf_counter() - t0,
                        assembly_layout="ell",
                        inshard_kernel="ell_spmv" if device.type == "cuda"
                        else "spmv_sliced")
-        precond_used = "ic0" if ic0 is not None \
-            else "bjacobi" if bjacobi else "jacobi"
+        precond_used = "amg" if amg is not None else "ic0" \
+            if ic0 is not None else "bjacobi" if bjacobi else "jacobi"
 
     sys_ = setup.sys
     x_orig = sys_.reduce_solution(x.cpu().to(torch.float64).numpy())
-    timings.update(distributed_assembly=True, precond_requested=precond,
+    timings.update(distributed_assembly=True,
+                   precond_requested=precond_requested,
                    precond_used=precond_used)
+    if mg_refused is not None:
+        timings["mg_refused"] = mg_refused
     return ImplicitResult(
         u_full=sys_.dofmap.expand_solution(x_orig),
         u_reduced=torch.as_tensor(x_orig, dtype=dtype, device=device),
@@ -286,3 +319,54 @@ def solve_implicit_sharded(
                          converged=bool(stats.converged)),
         timings=timings,
         elem_part=setup.elem_owner)
+
+
+def _dist_samg(sys_, mesh: Mesh, ndof: int, vals: torch.Tensor,
+               dtype: torch.dtype, device):
+    """This rank's share of the distributed SA-AMG hierarchy of the ELL
+    route's system, and the bytes of values gathered to its host.  Every
+    rank's (P, K) values are all-gathered in the solve's dtype and cast to
+    float64 on the host (the JAX package's `_host_values(...)
+    .astype(np.float64)`), with the rigid-body near-nullspace rows for
+    ndof > 1; every rank then builds the same hierarchy."""
+    pat = sys_.pattern
+    vals_h = _gathered(vals.reshape(-1)).cpu()
+    host_bytes = vals_h.numel() * vals_h.element_size()
+    vals_h = vals_h.to(torch.float64).numpy().reshape(pat.n_rows, -1)
+    row_deg = np.diff(pat.indptr)
+    within = (np.arange(pat.nnz, dtype=np.int64)
+              - np.repeat(pat.indptr[:-1], row_deg))
+    csr_row = np.repeat(np.arange(pat.n_rows, dtype=np.int64), row_deg)
+    rows_xyz = np.zeros((sys_.n_rows_padded, mesh.ndim))
+    rows_comp = np.zeros(sys_.n_rows_padded, dtype=np.int64)
+    nodedof = sys_.dofmap.assy_for_soln
+    rows_xyz[sys_.eq_perm] = mesh.coords[nodedof // ndof]
+    rows_comp[sys_.eq_perm] = nodedof % ndof
+    amg = build_dist_samg(
+        pat.indptr, pat.indices, vals_h[csr_row, within],
+        sys_.n_rows_padded, sys_.n_shards, world().rank, ndof=ndof,
+        coords_rows=rows_xyz, comp_rows=rows_comp, dtype=dtype,
+        device=device)
+    return amg, host_bytes
+
+
+def _solve_mg_sharded(mesh: Mesh, ndof: int, dirichlet: np.ndarray,
+                      element_fn: Callable, dtype: torch.dtype, rtol: float,
+                      maxiter: int, device) -> ImplicitResult:
+    """precond='mg': the distributed V-cycle CG
+    (parallel/dist_mg.py:solve_sharded_mg), its full-system solution mapped
+    back to the ImplicitResult contract (no elem_part, as in the JAX
+    package)."""
+    u_full, stats, timings = solve_sharded_mg(
+        mesh, ndof, dirichlet, element_fn, dtype=dtype, rtol=rtol,
+        maxiter=maxiter, device=device)
+    dofmap = build_dofmap(mesh, ndof, dirichlet)
+    # exact BC values on Dirichlet rows (the identity rows carry them
+    # already; merged from the dofmap for float64 exactness)
+    u_full = np.where(dofmap.free_mask_full(), u_full, dofmap.bc_values_full)
+    timings["distributed_assembly"] = True
+    return ImplicitResult(
+        u_full=u_full,
+        u_reduced=torch.as_tensor(u_full[dofmap.assy_for_soln], dtype=dtype,
+                                  device=device),
+        stats=stats, timings=timings)

@@ -145,3 +145,57 @@ def ic0_from_numpy(arrays, *, device,
         tt=ell_from_numpy(arrays.tt_cols, arrays.tt_vals, n, device=device,
                           dtype=dtype),
         dinv=_tensor(arrays.dinv, device, dtype))
+
+
+def _samg_meta(meta) -> SAMGMeta:
+    return SAMGMeta(sizes=tuple(int(s) for s in meta.sizes), nu=int(meta.nu),
+                    omega_smooth=float(meta.omega_smooth))
+
+
+def dist_samg_from_numpy(p0_cols_s, p0_vals_s, om0, tail, metas, rank: int,
+                         *, device, dtype: Optional[torch.dtype] = None):
+    """Rank `rank`'s share of a JAX distributed SA-AMG hierarchy
+    (pfemfort_tpu.solve.amg.DistSAMG and its (meta, tail_meta)) as the
+    port's solve/amg.py:DistSAMG: `p0_cols_s`/`p0_vals_s` the (S, P, K0)
+    tentative-prolongator row blocks, `om0` the level-0 weight, `tail` with
+    the fields of a JAX SAMGArrays (levels 1+), `metas` the two metas with
+    sizes, nu and omega_smooth."""
+    from pfemfort_tpu_torch.solve.amg import dist_samg_from_blocks
+
+    meta, tail_meta = (_samg_meta(m) for m in metas)
+    tail_arrs, _ = samg_from_numpy(tail, tail_meta, device="cpu",
+                                   dtype=dtype)
+    return dist_samg_from_blocks(
+        np.asarray(p0_cols_s)[rank], np.asarray(p0_vals_s)[rank], float(om0),
+        tail_arrs, (meta, tail_meta),
+        dtype=dtype or torch.get_default_dtype(), device=device)
+
+
+def dist_mg_setup_from_numpy(setup, rank: int, *, device,
+                             dtype: Optional[torch.dtype] = None):
+    """Rank `rank`'s parallel/dist_mg.py:DistMGSetup from a JAX DistMGSetup
+    (`setup` with its fields: the stacked per-shard coords_s/validz_s, the
+    padded bc_mask_pad/bc_vals_pad, the plan's nex/ney/nez and the coarse
+    (GMGArrays, GMGMeta)), the coarse hierarchy staged on `device`."""
+    from pfemfort_tpu_torch.assembly.structured import build_structured_plan
+    from pfemfort_tpu_torch.parallel.dist_mg import DistMGSetup
+
+    plan = build_structured_plan(int(setup.plan.nex), int(setup.plan.ney),
+                                 int(setup.plan.nez), ndof=int(setup.ndof))
+    if tuple(plan.offsets) != tuple(int(o) for o in setup.offsets):
+        raise ValueError("the setup's offsets are not its plan's")
+    P = int(setup.planes_per_shard) * int(setup.nny) * int(setup.nnx) \
+        * int(setup.ndof)
+    rows = slice(rank * P, (rank + 1) * P)
+    return DistMGSetup(
+        n_shards=int(setup.n_shards), rank=rank, ndof=int(setup.ndof),
+        nnx=int(setup.nnx), nny=int(setup.nny),
+        nnz_true=int(setup.nnz_true),
+        planes_per_shard=int(setup.planes_per_shard), offsets=plan.offsets,
+        w=int(setup.w), plan=plan,
+        coords=np.asarray(setup.coords_s, dtype=np.float64)[rank],
+        validz=np.asarray(setup.validz_s, dtype=np.float64)[rank],
+        bc_mask=np.asarray(setup.bc_mask_pad, dtype=bool)[rows],
+        bc_vals=np.asarray(setup.bc_vals_pad, dtype=np.float64)[rows],
+        coarse=gmg_from_numpy(*setup.coarse, device=device, dtype=dtype),
+        nu=int(setup.nu), omega=float(setup.omega))

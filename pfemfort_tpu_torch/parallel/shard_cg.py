@@ -213,6 +213,7 @@ def distributed_cg_solve_ell(
     ndof_block: int = 1,
     ic0: Optional[IC0Arrays] = None,
     method: str = "cg",
+    amg=None,
 ) -> Tuple[torch.Tensor, SolveStats]:
     """Krylov solve over the unstructured per-rank ELL blocks with the
     pairwise ghost exchange (parallel/dist_ell.py:spmv_ell_halo): per
@@ -226,25 +227,36 @@ def distributed_cg_solve_ell(
     with one ILU-class factorization per rank, its T and T^T products on
     B2 too), under every Krylov method; else per-node block-Jacobi for
     ndof_block > 1 with P % ndof_block == 0; else Jacobi from the local
-    diagonal.
+    diagonal.  `amg`, the rank's share of a distributed SA-AMG hierarchy
+    (solve/amg.py:build_dist_samg), takes precedence over `ic0` and
+    `ndof_block`, as in the JAX package; its fine smoother is this solve's
+    own ghost-exchange operator.
 
     Returns (x (N,) on every rank, SolveStats)."""
     P_ = b_l.shape[0]
     krylov = _krylov_body(method)
     A_l = slice_ell(cols_local, halo.n_cols).pack(vals_l)
-    if ic0 is not None:
+
+    def operator(x_l):
+        return spmv_ell_halo(A_l, halo, x_l)
+
+    rows = torch.arange(P_, dtype=torch.int64, device=b_l.device)[:, None]
+    if amg is not None:
+        from pfemfort_tpu_torch.solve.amg import dist_samg_preconditioner
+
+        d = torch.where(cols_local.long() == rows, vals_l, 0).sum(1)
+        precond = dist_samg_preconditioner(
+            amg, torch.where(d != 0, 1.0 / d, 0.0), operator)
+    elif ic0 is not None:
         precond = ic0_preconditioner(ic0)
     elif ndof_block > 1 and P_ % ndof_block == 0:
         precond = block_jacobi_ell_preconditioner(cols_local, vals_l,
                                                   ndof_block)
     else:
-        rows = torch.arange(P_, dtype=torch.int64,
-                            device=b_l.device)[:, None]
         precond = jacobi_preconditioner(
             torch.where(cols_local.long() == rows, vals_l, 0).sum(1))
     dot, dot2 = _reduced_dots()
-    x_l, stats = krylov(lambda x: spmv_ell_halo(A_l, halo, x), b_l, precond,
-                        rtol, maxiter, dot, dot2)
+    x_l, stats = krylov(operator, b_l, precond, rtol, maxiter, dot, dot2)
     return _gathered(x_l), stats
 
 

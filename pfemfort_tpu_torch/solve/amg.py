@@ -1,5 +1,5 @@
-# Ported from pfemfort_tpu/solve/amg.py (single device: set-up and the portable V-cycle).
-"""Smoothed-aggregation algebraic multigrid (serial, any SPD mesh).
+# Ported from pfemfort_tpu/solve/amg.py (set-up, the portable V-cycle and the distributed form).
+"""Smoothed-aggregation algebraic multigrid (any SPD mesh, one rank or many).
 
 The reference's scalable-preconditioner story is PETSc's options-file
 escape hatch to hypre/AMG (PFEMFort src/solverpetsc.F:1-8, 198-209).
@@ -24,6 +24,13 @@ construction (Vanek/Mandel/Brezina):
   the card, the plain gather on the CPU); solve/amg_device.py routes each
   block to B1, B2 or a dense product and applies the transfers factored.
 
+  Distributed form (`build_dist_samg`, `dist_samg_preconditioner`): the
+  whole hierarchy is built on the host of every rank, identically; each
+  rank keeps its row block of the level-0 tentative prolongator (and its
+  transpose) and smooths the fine level with the sharded solve's own
+  operator; the coarse residual is one all_reduce and the tail runs,
+  replicated, on the routed blocks.
+
 The reference findings in this construction are reproduced, not fixed
 (ROADMAP C): `aggressive_levels` stays 0 and the lumping can shrink a
 diagonal.
@@ -36,11 +43,13 @@ from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed
 
 from pfemfort_tpu_torch import host_native
 from pfemfort_tpu_torch.sparse.ell_spmv_cuda import ell_spmv
 from pfemfort_tpu_torch.sparse.formats import ELLMatrix, round_up
-from pfemfort_tpu_torch.sparse.sliced import ell_to_sliced
+from pfemfort_tpu_torch.sparse.sliced import SlicedELL, ell_to_sliced, \
+    slice_ell
 
 
 # ---------------------------------------------------------------------------
@@ -402,3 +411,135 @@ def samg_preconditioner(arrs: SAMGArrays, meta: SAMGMeta) -> Callable:
     blocks = tuple(tuple(ell_to_sliced(A) for A in group)
                    for group in (arrs.a, arrs.p, arrs.pt))
     return lambda r: _vcycle(blocks, arrs, meta, 0, r)
+
+
+# ---------------------------------------------------------------------------
+# distributed form: per-rank fine smoothing + replicated algebraic tail
+# (pfemfort_tpu/solve/amg.py:513-617)
+# ---------------------------------------------------------------------------
+
+class DistSAMG(NamedTuple):
+    """One rank's share of a distributed SA-AMG hierarchy: its row block of
+    the level-0 TENTATIVE prolongator and that block's transpose (both laid
+    out sliced on the rank's device), the level-0 smoothing weight, and the
+    replicated tail, levels 1+ routed as solve/amg_device.py routes a
+    single-device hierarchy (SAMGDevice, with its own level-0 operator).
+
+    The fine operator itself is not here: the distributed Krylov solve has
+    it (the per-rank ELL block with the ghost exchange).  Transfers are
+    FACTORED: P^T rf = P0^T (I - om0 A D^-1) rf and P ec = (I - om0 D^-1 A)
+    (P0 ec), the smoothing factor applied through that operator."""
+    p0: SlicedELL                 # (P, n_coarse) this rank's P0 rows
+    p0t: SlicedELL                # (n_coarse, P) their transpose
+    om0: float                    # level-0 prolongator smoothing weight
+    tail: object                  # solve/amg_device.py:SAMGDevice
+    metas: Tuple[SAMGMeta, SAMGMeta]   # (whole hierarchy, tail)
+
+
+def dist_samg_from_blocks(p0_cols_l: np.ndarray, p0_vals_l: np.ndarray,
+                          om0: float, tail: SAMGArrays,
+                          metas: Tuple[SAMGMeta, SAMGMeta],
+                          dtype=torch.float32, *, device) -> DistSAMG:
+    """A rank's DistSAMG from its (P, K0) tentative-prolongator rows (host
+    arrays, sentinel column n_coarse), the level-0 weight and the tail's
+    blocks.  The transpose (n_coarse, P) is formed on the host once, so the
+    restriction is a product (kernel B2), not a scatter: no atomics, and the
+    same bits on every run."""
+    import scipy.sparse as ssp
+
+    from pfemfort_tpu_torch.solve.amg_device import build_samg_device
+
+    n_coarse = int(metas[1].sizes[0])
+    cols = np.asarray(p0_cols_l, dtype=np.int64)
+    vals = np.asarray(p0_vals_l, dtype=np.float64)
+    P = cols.shape[0]
+    ok = cols < n_coarse
+    rows = np.broadcast_to(np.arange(P, dtype=np.int64)[:, None], cols.shape)
+    pt = ssp.csr_matrix((vals[ok], (cols[ok], rows[ok])),
+                        shape=(n_coarse, P))
+    t_cols, t_vals = _csr_to_ell(pt)
+    as_dev = lambda c, v, n: slice_ell(
+        torch.as_tensor(c.astype(np.int32), device=device), n).pack(
+        torch.as_tensor(v, dtype=dtype, device=device))
+    return DistSAMG(
+        p0=as_dev(cols, vals, n_coarse), p0t=as_dev(t_cols, t_vals, P),
+        om0=float(om0),
+        tail=build_samg_device(tail, metas[1].sizes, dtype=dtype,
+                               device=device),
+        metas=metas)
+
+
+def build_dist_samg(indptr, indices, vals, n_rows_padded: int,
+                    n_shards: int, rank: int, ndof: int = 1,
+                    coords_rows: Optional[np.ndarray] = None,
+                    comp_rows: Optional[np.ndarray] = None,
+                    dtype=torch.float32, *, device, **kw
+                    ) -> Optional[DistSAMG]:
+    """Build the global SA hierarchy from the shard-ordered padded system
+    (zero padding rows aggregate to singletons and never couple), on the
+    host, identically on every rank, and keep rank `rank`'s share of it
+    (`DistSAMG`) on `device`.  The shard layout is node-aligned for
+    ndof > 1 (parallel/shard.py), so aggregation runs on the node graph;
+    with per-row coordinates the tentative prolongators carry the rigid-body
+    near-nullspace (translations and rotations).  None when the system does
+    not coarsen (the caller then runs Jacobi and says so)."""
+    ns = None
+    if ndof > 1 and coords_rows is not None and comp_rows is not None:
+        ns = _rigid_body_modes(np.asarray(coords_rows),
+                               np.asarray(comp_rows), ndof)
+    built = build_samg(indptr, indices, vals, n_rows_padded, ndof=ndof,
+                       node_block=ndof, nullspace=ns, dtype=dtype,
+                       device="cpu", **kw)
+    if built is None:
+        return None
+    arrs, meta = built
+    if len(arrs.a) < 2:
+        return None
+    P = n_rows_padded // n_shards
+    p0 = arrs.p0[0]
+    tail = SAMGArrays(a=arrs.a[1:], p=arrs.p[1:], pt=arrs.pt[1:],
+                      p0=arrs.p0[1:], p0t=arrs.p0t[1:],
+                      omegas=arrs.omegas[1:], inv_diags=arrs.inv_diags[1:],
+                      coarse_inv=arrs.coarse_inv)
+    tail_meta = SAMGMeta(sizes=meta.sizes[1:], nu=meta.nu,
+                         omega_smooth=meta.omega_smooth)
+    sl = slice(rank * P, (rank + 1) * P)
+    return dist_samg_from_blocks(
+        p0.cols[sl].numpy(), p0.vals[sl].to(torch.float64).numpy(),
+        arrs.omegas[0], tail, (meta, tail_meta), dtype=dtype, device=device)
+
+
+def dist_samg_preconditioner(amg: DistSAMG, inv_diag_l: torch.Tensor,
+                             spmv_l: Callable) -> Callable:
+    """r_l -> M^-1 r_l on this rank.  `spmv_l`: the rank's fine operator
+    (the distributed solve's own ghost-exchange product, kernel B2 on the
+    card); `inv_diag_l`: 1/diag of the rank's rows.  Build it outside the
+    Krylov loop.
+
+    Per application: 2*(nu+1) ghost exchanges inside spmv_l, the
+    restriction P0_s^T rf2 as one B2 product on the transposed block and
+    ONE all_reduce(SUM) of the O(N_coarse) coarse residual, the replicated
+    tail V-cycle (the same bits on every rank: its input is that
+    all_reduce's result and nothing in it uses atomics), the prolongation
+    as one B2 product on the P0_s block."""
+    from pfemfort_tpu_torch.solve.amg_device import _vcycle_device
+
+    meta, tail_meta = amg.metas
+    om, om0 = meta.omega_smooth, amg.om0
+
+    def precond(r_l):
+        e = om * inv_diag_l * r_l
+        for _ in range(meta.nu - 1):
+            e = e + om * inv_diag_l * (r_l - spmv_l(e))
+        rf = r_l - spmv_l(e)
+        rf2 = rf - om0 * spmv_l(inv_diag_l * rf)
+        rc = ell_spmv(amg.p0t, rf2)
+        torch.distributed.all_reduce(rc)
+        ec = _vcycle_device(amg.tail, tail_meta, 0, rc, None)
+        pe = ell_spmv(amg.p0, ec)
+        e = e + pe - om0 * inv_diag_l * spmv_l(pe)
+        for _ in range(meta.nu):
+            e = e + om * inv_diag_l * (r_l - spmv_l(e))
+        return e
+
+    return precond

@@ -383,17 +383,14 @@ def _vcycle(arrays: GMGArrays, meta: GMGMeta, level: int,
     return e
 
 
-def gmg_preconditioner(arrays: GMGArrays, meta: GMGMeta) -> Callable:
-    """r -> M^{-1} r: one symmetric V-cycle on the free subspace, identity
-    on Dirichlet entries (matching the full-system identity BC rows).
-
-    The level operators (kernel B1 on the card) are built here, once,
-    outside the Krylov loop."""
+def cycle_operators(arrays: GMGArrays, meta: GMGMeta):
+    """(ops, coarse_apply) for `_vcycle`: each level's product (kernel B1
+    on the card) and, when the coarsening chain stuck above the
+    dense-inverse cap, the Chebyshev coarsest solve (else None).  Build
+    them once, outside the Krylov loop."""
     from pfemfort_tpu_torch.sparse.ops import dia_operator
 
-    fine_mask = arrays.masks[0]
     ops = tuple(dia_operator(A) for A in arrays.mats)
-
     coarse_apply = None
     if meta.coarse_cheby is not None:
         from pfemfort_tpu_torch.solve.precond import chebyshev_preconditioner
@@ -403,6 +400,17 @@ def gmg_preconditioner(arrays: GMGArrays, meta: GMGMeta) -> Callable:
         diag_c = torch.where(inv_d != 0, 1.0 / inv_d, 1.0)
         coarse_apply = chebyshev_preconditioner(
             ops[-1], diag_c, lmax=lmax, lmin=lmin, degree=deg)
+    return ops, coarse_apply
+
+
+def gmg_preconditioner(arrays: GMGArrays, meta: GMGMeta) -> Callable:
+    """r -> M^{-1} r: one symmetric V-cycle on the free subspace, identity
+    on Dirichlet entries (matching the full-system identity BC rows).
+
+    The level operators (kernel B1 on the card) are built here, once,
+    outside the Krylov loop."""
+    fine_mask = arrays.masks[0]
+    ops, coarse_apply = cycle_operators(arrays, meta)
 
     def precond(r):
         z = _vcycle(arrays, meta, 0, fine_mask * r, ops, coarse_apply)

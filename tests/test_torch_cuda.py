@@ -836,3 +836,123 @@ def test_b1_raises_above_its_diagonal_cap(cuda):
             dia_spmv_cuda.dia_spmv(A, x)
         with pytest.raises(ValueError, match=str(count)):
             dia_spmv_cuda.dia_spmv_halo(A, x, None, None)
+
+
+# ---------------------------------------------------------------------------
+# the distributed preconditioners and the sharded explicit loop, at world
+# size 1 (a one-rank NCCL group)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def nccl1(cuda):
+    from pfemfort_tpu_torch.parallel import multihost
+
+    multihost.initialize(device="cuda")
+    yield cuda
+    multihost.shutdown()
+
+
+def test_dist_mg_on_the_card_matches_single_device_gmg(nccl1):
+    """At world size 1 the distributed multigrid is the single-device
+    full-system GMG (levels 1+ the same hierarchy, the padding planes
+    decoupled identity rows): the same count, u within 1e-10 in float64;
+    every fine product is a launch of B1's halo entry."""
+    from pfemfort_tpu_torch.drivers.sharded import solve_implicit_sharded
+    from pfemfort_tpu_torch.elements.poisson import poisson_element_matrices
+
+    mesh, dbc = generate.box_tet(0, 1, 16, 0, 1, 16, 0, 1, 16)
+    ref = solve_poisson(mesh, dbc, device="cpu", dtype=torch.float64,
+                        rtol=1e-8, bc_mode="full", precond="mg")
+    dia_spmv_cuda.kernel.entry_launches.clear()
+    before_b2 = ell_spmv_cuda.kernel.launches
+    res = solve_implicit_sharded(
+        mesh, 1, dbc, lambda c: poisson_element_matrices(c, "tetra4",
+                                                         source=-6.0),
+        dtype=torch.float64, rtol=1e-8, maxiter=100, precond="mg",
+        device=nccl1)
+    halo = sum(v for e, v in dia_spmv_cuda.kernel.entry_launches.items()
+               if "halo" in str(e))
+    assert res.timings["distributed_mg"] and res.stats.converged
+    assert res.stats.iters == ref.stats.iters
+    assert np.abs(res.u_full - ref.u_full).max() <= 1e-10
+    assert halo >= 3 * res.stats.iters
+    assert ell_spmv_cuda.kernel.launches == before_b2
+
+
+def test_dist_amg_blocks_on_the_card_match_plain(nccl1):
+    """B2 on a rank's P0_s and P0_s^T blocks of a distributed SA-AMG
+    hierarchy (a renumbered box_tet n=12), float32 and float64, against
+    spmv_sliced on the same blocks."""
+    from pfemfort_tpu_torch.parallel.shard import build_sharded_system
+    from pfemfort_tpu_torch.solve.amg import build_dist_samg
+
+    mesh, dbc = _permuted_box(12)
+    sys_ = build_sharded_system(mesh, 1, dbc, 4, method="rcb", layout="ell")
+    pat = sys_.pattern
+    rng = np.random.default_rng(5)
+    # an SPD stand-in on the pattern: the graph Laplacian plus the identity
+    deg = np.diff(pat.indptr)
+    rows = np.repeat(np.arange(pat.n_rows), deg)
+    vals = np.where(pat.indices == rows, deg.astype(np.float64)[rows] + 1.0,
+                    -1.0)
+    for dtype in (torch.float32, torch.float64):
+        amg = build_dist_samg(pat.indptr, pat.indices, vals,
+                              sys_.n_rows_padded, 4, 1, dtype=dtype,
+                              device=nccl1)
+        assert amg is not None
+        for A in (amg.p0, amg.p0t):
+            x = torch.as_tensor(rng.standard_normal(A.n_cols), dtype=dtype,
+                                device=nccl1)
+            before = ell_spmv_cuda.kernel.launches
+            y = ell_spmv_cuda.ell_spmv(A, x)
+            torch.cuda.synchronize()
+            assert ell_spmv_cuda.kernel.launches == before + 1
+            assert _rel_err(y, spmv_sliced(A, x)) <= REL_TOL[dtype]
+
+
+def test_sharded_explicit_at_world_size_1_is_the_single_device_loop(nccl1):
+    """One rank owns every element in the single-device loop's order, so
+    the float32 result has its bits; float64 matches the CPU to 1e-12."""
+    from pfemfort_tpu_torch.drivers import presets as P
+    from pfemfort_tpu_torch.dynamics.sharded import explicit_dynamics_sharded
+
+    p = P.TRIA_EXPLICIT
+    mesh = generate.rect_tria(0, 10, 100, 0, 2, 20)
+
+    def run(dtype, device, sharded):
+        pulse = torch.tensor(p.pulse_t, dtype=dtype, device=device)
+        bforce = torch.tensor(p.bforce, dtype=dtype, device=device)
+        kw = dict(bforce_fn=lambda t: bforce * torch.where(t <= pulse, 1.0,
+                                                           0.0),
+                  probe_dofs=p.probe_dofs, device=device, dtype=dtype)
+        if sharded:
+            return explicit_dynamics_sharded(mesh, _clamped(mesh), p.E, p.nu,
+                                             p.dens, p.dt, 300, **kw)
+        return _explicit(device, dtype, 300)
+
+    a = run(torch.float32, nccl1, True)
+    b = run(torch.float32, nccl1, False)
+    for field in ("disp", "velo", "acce", "probe_history"):
+        np.testing.assert_array_equal(getattr(a, field), getattr(b, field))
+    c = run(torch.float64, nccl1, True)
+    d = run(torch.float64, "cpu", False)
+    assert np.abs(c.disp - d.disp).max() <= 1e-12 * np.abs(d.disp).max()
+
+
+def test_device_rcb_on_the_card_matches_the_cpu(cuda):
+    from pfemfort_tpu_torch.parallel.dist_partition import \
+        rcb_partition_device
+
+    mesh, _ = generate.box_tet(0, 1, 16, 0, 1, 16, 0, 4, 48)
+    cent = mesh.elem_centroids()
+    for k in (2, 7, 8):
+        np.testing.assert_array_equal(
+            rcb_partition_device(cent, k, device=cuda).cpu().numpy(),
+            rcb_partition_device(cent, k, device="cpu").numpy())
+
+
+def test_dryrun_on_the_card_at_world_size_1(nccl1):
+    from pfemfort_tpu_torch.dryrun import dryrun
+
+    iters = dryrun(device=nccl1, dtype=torch.float32, verbose=False)
+    assert set(iters) == {"halo/dia", "dist/ell", "dist_mg", "dist_amg"}

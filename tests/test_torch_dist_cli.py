@@ -6,8 +6,9 @@ ranks under torchrun; rank 0 alone prints the report and writes
 the VTK file, with each element's rank as its procid.  Against the JAX
 CLI's `--shards N` in this process (virtual CPU devices), float64: the
 printed iteration counts, the VTK solutions (the writer's 6 decimals) and
-the procid cells.  `--device cuda` needs one card per rank, and a mesh
-without a per-rank DIA layout solves on the ELL route.
+the procid cells.  `--device cuda` needs one card per rank, a mesh
+without a per-rank DIA layout solves on the ELL route, and `--precond
+mg|amg` take the distributed multigrid routes as the JAX CLI does.
 """
 
 import re
@@ -88,6 +89,50 @@ def test_sharded_cli_matches_jax(box, cantilever, tmp_path, capfd, case,
     files = box if case == "poisson" else cantilever
     vj, vt = str(tmp_path / "j.vtk"), str(tmp_path / "t.vtk")
     argv = [case, *files, "--shards", "2", *extra]
+    rc_j = j_main([*argv, "-o", vj])
+    out_j = capfd.readouterr().out
+    rc_t = t_main([*argv, "-o", vt, *CPU])
+    out_t = capfd.readouterr().out
+    assert rc_j == rc_t == 0
+    assert _iters(out_t) == _iters(out_j)
+    assert out_t.count("Convergence in") == 1 and out_t.count("Wrote") == 1
+    assert np.abs(_solution(vt) - _solution(vj)).max() <= VTK_TOL
+    assert _cells(vt) == _cells(vj)
+    assert set(_procids(vt).tolist()) == {0, 1}
+
+
+@pytest.fixture()
+def jittered(tmp_path):
+    """A box_tet 10x10x12 with its interior nodes moved by up to 0.1 of a
+    cell and its nodes permuted: no lattice to recover, 891 free rows, so
+    the sharded solve takes the ELL route and SA-AMG coarsens."""
+    mesh, dbc = generate.box_tet(0, 1, 10, 0, 1, 10, 0, 1.2, 12)
+    rng = np.random.default_rng(4)
+    X = mesh.coords.copy()
+    inside = ((X > 1e-9) & (X < X.max(axis=0) - 1e-9)).all(axis=1)
+    X[inside] += rng.uniform(-0.01, 0.01, (int(inside.sum()), 3))
+    perm = rng.permutation(mesh.n_node)
+    mesh = type(mesh)(mesh.etype, X, mesh.conn).renumbered(
+        perm.astype(np.int64))
+    dbc = dbc.copy()
+    dbc[:, 0] = perm[dbc[:, 0].astype(np.int64)]
+    prefix = str(tmp_path / "jittered")
+    mesh_io.write_dat(prefix, mesh, dirichlet=dbc)
+    return _files(prefix)
+
+
+@pytest.mark.parametrize("precond", ["mg", "amg"])
+def test_sharded_cli_multigrid_preconditioners_match_jax(
+        box, jittered, tmp_path, capfd, precond):
+    """`--shards 2 --precond mg` on the box and `--precond amg` on the
+    jittered mesh: the JAX CLI's printed iteration count, VTK solution and
+    procid cells.  A mesh read from files carries no generator structure,
+    so in both packages `--precond mg` takes the Jacobi fall-back of the
+    distributed multigrid (timings["mg_refused"]) on the recovered DIA
+    route; `--precond amg` runs the distributed SA-AMG on the ELL route."""
+    files = box if precond == "mg" else jittered
+    vj, vt = str(tmp_path / "j.vtk"), str(tmp_path / "t.vtk")
+    argv = ["poisson", *files, "--shards", "2", "--precond", precond]
     rc_j = j_main([*argv, "-o", vj])
     out_j = capfd.readouterr().out
     rc_t = t_main([*argv, "-o", vt, *CPU])

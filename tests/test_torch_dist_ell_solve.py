@@ -16,7 +16,9 @@ renumber them back to one):
   * `delaunay ic0`: a scrambled Delaunay tet mesh of the unit cube (the
     JAX package's test mesh), per-rank IC(0), rtol 1e-11 (recover=False:
     on 2 ranks the recovered numbering would take the DIA route);
-and checks that precond='amg' on this route raises naming ROADMAP A.9c.
+and precond='amg' on the `dist/ell` mesh (the case that raised naming
+ROADMAP A.9c before the distributed SA-AMG was ported): its 112 free rows
+do not coarsen, so both packages run Jacobi and say so.
 Against the JAX package's solve_implicit_sharded in this process (its
 shard_map on virtual CPU devices), float64: u within 1e-10, the same
 iteration count, layout 'ell', distributed assembly, the same elem_part.
@@ -138,13 +140,13 @@ def _ranks(outdir):
         for key in ("assembly_layout", "distributed_assembly",
                     "precond_used", "inshard_kernel"):
             out[f"{key}{i}"] = res.timings[key]
-    mesh, ndof, dbc, *_ = _cases()["dist/ell jacobi"]
-    try:
-        solve_implicit_sharded(mesh, 1, dbc, _element_fn("poisson", _Torch),
-                               device="cpu", recover=False, precond="amg")
-        out["amg_error"] = "no error"
-    except NotImplementedError as ex:
-        out["amg_error"] = str(ex)
+    mesh, ndof, dbc, _, _, kw = _cases()["dist/ell jacobi"]
+    res = solve_implicit_sharded(mesh, 1, dbc, _element_fn("poisson", _Torch),
+                                 dtype=torch.float64, device="cpu",
+                                 **dict(kw, precond="amg"))
+    out["amg_u"], out["amg_iters"] = res.u_full, res.stats.iters
+    out["amg_used"] = res.timings["precond_used"]
+    out["amg_requested"] = res.timings["precond_requested"]
     np.savez(Path(outdir) / f"rank{rank}.npz", **out)
     assert "jax" not in sys.modules
 
@@ -203,8 +205,29 @@ def test_ell_route_solve_matches_jax(ranks, size, name):
 
 @pytest.mark.parametrize("size", WORLDS)
 def test_amg_on_the_ell_route_raises_naming_its_item(ranks, size):
+    """The name is the refusal this case checked before the distributed
+    SA-AMG was ported; precond='amg' now runs as JAX's does (here the
+    hierarchy does not coarsen, so both report and run Jacobi)."""
+    import jax
+    from pfemfort_tpu.drivers.sharded import solve_implicit_sharded as j_solve
+    from pfemfort_tpu.elements import poisson as jpo
+    from pfemfort_tpu.mesh import generate as jgen
+    from pfemfort_tpu.mesh.core import Mesh as JMesh
+
+    class _Jax:
+        poisson = staticmethod(jpo.poisson_element_matrices)
+
+    mesh, _, dbc, _, _, kw = _cases(jgen, JMesh)["dist/ell jacobi"]
+    dm = jax.sharding.Mesh(np.array(jax.devices()[:size]), ("shard",))
+    ref = j_solve(mesh, 1, dbc, _element_fn("poisson", _Jax),
+                  device_mesh=dm, **dict(kw, precond="amg"))
+    assert ref.timings["precond_used"] == "jacobi"
     for r in ranks[size]:
-        assert "ROADMAP A.9c" in str(r["amg_error"])
+        assert str(r["amg_requested"]) == "amg"
+        assert str(r["amg_used"]) == ref.timings["precond_used"]
+        assert int(r["amg_iters"]) == int(np.asarray(ref.stats.iters))
+        np.testing.assert_allclose(r["amg_u"], ref.u_full, rtol=0,
+                                   atol=1e-10)
 
 
 if __name__ == "__main__":      # one rank, as the `ranks` fixture starts it

@@ -11,7 +11,9 @@ torchrun; the rank processes never import JAX) and runs, on every rank:
   * a scrambled mesh (no per-rank DIA census, recover=False): it solves on
     the ELL route (parallel/dist_ell.py): u within 1e-10 of JAX's, the same
     count;
-  * the refusal: precond='mg' raises NotImplementedError naming A.9c.
+  * precond='mg' (the case that raised naming ROADMAP A.9c before the
+    distributed multigrid was ported) on the 4x4x4 box, rtol 1e-8: the
+    distributed MG route, u within 1e-10 of JAX's, the same count.
 float64 throughout; the JAX side runs in this process under shard_map.
 """
 
@@ -80,12 +82,12 @@ def _ranks(outdir):
                                  recover=False, device="cpu")
     out["scrambled_u"], out["scrambled_iters"] = res.u_full, res.stats.iters
     out["scrambled_layout"] = res.timings["assembly_layout"]
-    try:
-        solve_implicit_sharded(mesh, 1, dbc, _poisson, device="cpu",
-                               precond="mg")
-        out["mg_error"] = "no error"
-    except NotImplementedError as ex:
-        out["mg_error"] = str(ex)
+    res = solve_implicit_sharded(mesh, 1, dbc, _poisson, dtype=torch.float64,
+                                 rtol=1e-8, maxiter=60, device="cpu",
+                                 precond="mg")
+    out["mg_u"], out["mg_iters"] = res.u_full, res.stats.iters
+    out["mg_route"] = bool(res.timings.get("distributed_mg"))
+    out["mg_used"] = res.timings["precond_used"]
     np.savez(Path(outdir) / f"rank{rank}.npz", **out)
     assert "jax" not in sys.modules
 
@@ -160,8 +162,23 @@ def test_all_gather_ell_route_matches_jax(ranks, size):
 
 @pytest.mark.parametrize("size", WORLDS)
 def test_refusals_name_their_roadmap_item(ranks, size):
+    """The name is the refusal this case checked before the distributed
+    multigrid was ported; precond='mg' now solves, as JAX's does."""
+    import jax.numpy as jnp
+    from pfemfort_tpu.drivers.sharded import solve_implicit_sharded as j_solve
+    from pfemfort_tpu.elements.poisson import poisson_element_matrices as jp
+    from pfemfort_tpu.mesh import generate as jgen
+
+    mesh, dbc = jgen.box_tet(0, 1, 4, 0, 1, 4, 0, 1, 4)
+    ref = j_solve(mesh, 1, dbc, lambda c: _poisson(c, jp),
+                  device_mesh=_device_mesh(size), dtype=jnp.float64,
+                  rtol=1e-8, maxiter=60, precond="mg")
+    assert ref.timings["distributed_mg"]
     for r in ranks[size]:
-        assert "ROADMAP A.9c" in str(r["mg_error"])
+        assert bool(r["mg_route"]) and str(r["mg_used"]) == "mg"
+        assert int(r["mg_iters"]) == int(np.asarray(ref.stats.iters))
+        np.testing.assert_allclose(r["mg_u"], ref.u_full, rtol=0,
+                                   atol=1e-10)
 
 
 @pytest.mark.parametrize("size", WORLDS)
