@@ -227,6 +227,27 @@ of JAX.  Phases, one JSON line each:
                      the probes; ms per step beside phase 9's;
  34. dryrun          pfemfort_tpu_torch.dryrun's four cases at world size 1
                      with the JAX package's assertions, their iterations.
+ 35. bench           the port's bench harness through the CLI, as a
+                     subprocess: `python -m pfemfort_tpu_torch bench 32 0
+                     160 --device cuda` (flagship, partition_quality,
+                     unstructured, amg and dist_spmv at n=32; large_unstructured
+                     at its full n=160: box_tet permuted by default_rng(0),
+                     24,576,000 elements, the general ELL pattern, its row
+                     order and the hybrid).  Exit code 0, its last line
+                     parsed, every stage true, JAX's edge cuts (3,539 /
+                     8,911 / 161,549), large_unstructured's rows
+                     (4,019,679), nonzeros (59,690,347), no hybrid
+                     remainder, 440 +- 15 iterations and nodal error <=
+                     3e-4; the stages' counted launches (B1 on every
+                     Jacobi solve, B2 on the AMG transfers) go into the
+                     kernels line.  The two host programs (pfem_gentet,
+                     pfem_partition, built beside the kernels in phase 2)
+                     write a box and partition it;
+ 36. scaling         the weak-scaling harness (pfemfort_tpu_torch/
+                     bench_scaling.py) at --per-shard-n 96 --shards 1 on the
+                     card (one torchrun rank, NCCL): converged, 271 +- 10
+                     iterations, B1's halo entry launched on every
+                     iteration.  No scaling number is claimed (one card).
 
 Every launch count is set to 0 just before its path is driven and read just
 after; from phase 11 on, a plain SpMV called on a card tensor would also be
@@ -297,6 +318,8 @@ from pfemfort_tpu_torch.sparse.ordering import coord_lex_order, \
 from pfemfort_tpu_torch.sparse.sliced import SLICE, ell_to_sliced, \
     slice_ell, unslice
 from pfemfort_tpu_torch.sparse.spmv import spmv_ell, spmv_sliced
+from pfemfort_tpu_torch.utils.timing import device_ms as _device_ms, \
+    peak_gbps, spmv_bound as _bound
 
 N_FLAGSHIP = 96
 N_RECOVERED = 48
@@ -306,11 +329,6 @@ NODAL_ERR_MAX = 2e-4
 REL_ERR_MAX = {torch.float32: 1e-5, torch.float64: 1e-12}
 KERNELS = {"dia_spmv": dia_spmv_cuda.kernel, "ell_spmv": ell_spmv_cuda.kernel}
 COLD_L2_BELOW_BYTES = 50e6    # the L2's size: a smaller block may stay there
-# Data-sheet HBM peaks in GB/s; an unknown card is measured against the SXM
-# part's.
-PEAK_GBPS = {"H100 PCIe": 2000.0, "H100 NVL": 3900.0, "H100": 3350.0}
-# Data-sheet peaks of the H100 SXM outside the tensor cores, FLOP/s.
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 ROOT = Path(__file__).resolve().parent
 
 # Implicit elasticity (the tetra preset).  The JAX package's counts for the
@@ -400,6 +418,16 @@ N_DELAUNAY_CLI = 12
 RCB_PARTS, RCB_EXTENT_SHARE = 8, 0.35
 DIST_EXPLICIT_REL = {torch.float32: 1e-6, torch.float64: 1e-12}
 CLI_SHARDED_U_TOL = 1e-6 * (1 + 1e-9)   # one unit of the VTK's 6 decimals
+# Phases 35-36: the bench harness's arguments and stages (large_unstructured
+# at its full size), JAX's edge cuts and the bars of its large_unstructured
+# stage (BENCH_DETAIL.json), the scaling harness's box per rank.
+BENCH_ARGS = ("32", "0", "160")
+BENCH_STAGES = {"flagship", "partition_quality", "unstructured", "amg",
+                "large_unstructured", "dist_spmv"}
+PARTITION_CUTS = {"rcb": 3539, "greedy": 8911, "random": 161549}
+LU_ROWS, LU_NNZ, LU_ITERS, LU_SLACK, LU_NODAL = (4_019_679, 59_690_347, 440,
+                                                 15, 3e-4)
+SCALING_N = N_FLAGSHIP
 # Plain SpMV calls made on a card tensor (the kernel wrappers route card
 # tensors to their kernels, so this must stay empty).
 PLAIN_ON_CARD = collections.Counter()
@@ -592,25 +620,6 @@ def _timed_pairs(plain, kernel, library, reps=100):
     return {k: float(np.mean(v)) for k, v in times.items()}, times
 
 
-def _device_ms(fn, reps=100, sleep_cycles=200_000_000):
-    """Device ms per call with the host's cost per call hidden: a sleep
-    kernel holds the stream while the host queues `reps` calls, which then
-    run back to back.  Also returns whether the queueing ended before the
-    sleep did (else host time leaks into the figure)."""
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    events[0].record()
-    torch.cuda._sleep(sleep_cycles)
-    events[1].record()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    queued_ms = 1e3 * (time.perf_counter() - t0)
-    events[2].record()
-    events[2].synchronize()
-    slept_ms = events[0].elapsed_time(events[1])
-    return events[1].elapsed_time(events[2]) / reps, queued_ms < slept_ms
-
-
 def _timed_device(run):
     """_device_ms of each function of the dict `run`, in its order and then
     back (plain, kernel, library, kernel, plain): means, and for each
@@ -666,29 +675,6 @@ def _csr_library(A):
                                   cols[keep].to(torch.int32), vals[keep],
                                   size=(A.n_rows, n_cols))
     return csr, int(crow[-1])
-
-
-def _spmv_work(A, nnz):
-    """(bytes, flops) that y = A x needs with this matrix's entries: each
-    nonzero's value (and, for ELL, its int32 column) read once, x read
-    once, y written once (DIA: its int32 offsets, no column per entry);
-    2 flops per nonzero.  Padding a layout adds (DIA's out-of-band slots,
-    ELL's sentinel slots) is work the data does not need, so it is not
-    counted."""
-    size = A.vals.element_size()
-    if isinstance(A, DIAMatrix):
-        return nnz * size + 2 * A.n_rows * size + 4 * len(A.offsets), \
-            2 * nnz
-    return nnz * (4 + size) + (A.n_cols + A.n_rows) * size, 2 * nnz
-
-
-def _bound(A, nnz, peak_gbps):
-    """(bound ms, 'bytes' or 'operations', bytes) of one y = A x."""
-    nbytes, flops = _spmv_work(A, nnz)
-    t_bytes = nbytes / (peak_gbps * 1e9) * 1e3
-    t_ops = flops / PEAK_FLOPS[A.vals.dtype] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations"), nbytes
 
 
 def _check_solve(label, res, u_exact):
@@ -1827,13 +1813,7 @@ def _dist_kernel(dev, errs, rng, A_lat, A_el3, smi, peak):
         ms, runs = _timed_pairs(plain, kern, lib)
         device, hidden = _timed_device({"plain": plain, "kernel": kern,
                                         "library": lib})
-        size = 4
-        nbytes = nnz * size + (A.n_rows + 2 * w) * size + A.n_rows * size \
-            + 4 * len(A.offsets)
-        t_bytes = nbytes / (peak * 1e9) * 1e3
-        t_ops = 2 * nnz / PEAK_FLOPS[torch.float32] * 1e3
-        bound_ms = max(t_bytes, t_ops)
-        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        bound_ms, bound_by, nbytes = _bound(A, nnz, peak, halo=2 * w)
         row = dict(shape=label, rows=A.n_rows, w=w,
                    diagonals=len(A.offsets), nnz=nnz, spmv_bytes=nbytes,
                    bound_ms=bound_ms, bound_by=bound_by, peak_gbps=peak,
@@ -2665,6 +2645,103 @@ def _dryrun(dev, counted):
            f"dryrun: launches {launches}")
 
 
+def _add_launches(counted, launches):
+    """Add a subprocess's counted launches (bench.py:launch_counts) to
+    this run's."""
+    for k, v in launches.items():
+        counted[k] += v
+
+
+def _host_programs():
+    """pfem_gentet writes a 4^3 box, pfem_partition splits it 4 ways
+    (RCB) and writes its VTK."""
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = str(Path(tmp) / "box")
+        gen = subprocess.run([host_native.binary("pfem_gentet"), "0", "1",
+                              "4", "0", "1", "4", "0", "1", "4", prefix],
+                             capture_output=True, text=True, timeout=60)
+        part = subprocess.run(
+            [host_native.binary("pfem_partition"), "3", "4", "0", "4",
+             f"{prefix}-nodes.dat", f"{prefix}-elems.dat",
+             f"{prefix}.vtk"], capture_output=True, text=True, timeout=60)
+        vtk = Path(f"{prefix}.vtk")
+        ok = (gen.returncode == 0 and part.returncode == 0
+              and "edge-cut" in part.stdout and vtk.exists()
+              and b"SCALARS procid int 1" in vtk.read_bytes())
+        return ok, part.stdout.strip().splitlines()
+
+
+def _bench(counted):
+    """Phase 35: the bench harness through the CLI, as a subprocess, and
+    the two host programs."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        detail = Path(tmp) / "detail.json"
+        proc = subprocess.run(
+            [sys.executable, "-m", "pfemfort_tpu_torch", "bench",
+             *BENCH_ARGS, "--device", "cuda", "--detail", str(detail)],
+            cwd=ROOT, capture_output=True, text=True, timeout=900)
+        seconds = time.perf_counter() - t0
+        lines = proc.stdout.strip().splitlines()
+        _check(proc.returncode == 0 and lines and detail.exists(),
+               f"bench exited {proc.returncode}: {proc.stderr[-3000:]}")
+        last = json.loads(lines[-1])
+        det = json.loads(detail.read_text())
+    stages = last["stages"]
+    pq, lu = det["partition_quality"], det["large_unstructured"]
+    cuts = {m: pq[f"{m}_edge_cut"] for m in PARTITION_CUTS}
+    launches = {st: det[st].get("launches", {}) for st in sorted(stages)}
+    for per_stage in launches.values():
+        for solve in per_stage.values():
+            _add_launches(counted, solve)
+    programs_ok, partition_report = _host_programs()
+    _phase("bench", seconds=seconds, args=list(BENCH_ARGS), last_line=last,
+           card=det.get("card"),
+           stage_seconds={st: det[st].get("stage_s") for st in stages},
+           large_unstructured={k: lu.get(k) for k in (
+               "n_elem", "n_dof", "nnz", "cg_iters", "cg_relres",
+               "nodal_err_vs_exact", "pattern_s", "order_s", "assemble_s",
+               "solve_s", "ms_per_iter", "hybrid_diagonals",
+               "hybrid_nnz_rem", "peak_device_bytes", "total_s")},
+           edge_cuts=cuts, flagship_spmv=det["flagship"].get("spmv"),
+           dist_spmv={k: det["dist_spmv"].get(k)
+                      for k in ("b1_halo", "b2_ghost")},
+           launches=launches, host_programs=partition_report)
+    _check(set(stages) == BENCH_STAGES and all(stages.values()),
+           f"bench stages {stages}")
+    _check(cuts == PARTITION_CUTS, f"bench edge cuts {cuts}")
+    _check(lu["n_dof"] == LU_ROWS and lu["nnz"] == LU_NNZ
+           and lu["hybrid_nnz_rem"] == 0
+           and abs(lu["cg_iters"] - LU_ITERS) <= LU_SLACK
+           and lu["nodal_err_vs_exact"] <= LU_NODAL,
+           f"bench large_unstructured {lu}")
+    for st in ("flagship", "unstructured", "large_unstructured"):
+        got = launches[st]["jacobi"]["dia_spmv"]
+        _check(got >= det[st]["cg_iters"] if "cg_iters" in det[st]
+               else got > 0, f"bench {st}: B1 launches {got}")
+    _check(launches["amg"]["amg"]["ell_spmv"] > 0,
+           f"bench amg: B2 launches {launches['amg']}")
+    _check(programs_ok, f"host programs: {partition_report}")
+
+
+def _scaling(counted):
+    """Phase 36: the weak-scaling harness at world size 1 on the card."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pfemfort_tpu_torch.bench_scaling",
+         "--per-shard-n", str(SCALING_N), "--shards", "1", "--device",
+         "cuda"], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    _check(proc.returncode == 0 and len(lines) == 1,
+           f"bench_scaling exited {proc.returncode}: {proc.stderr[-3000:]}")
+    r = json.loads(lines[0])
+    _add_launches(counted, r["launches"])
+    _phase("scaling", seconds=time.perf_counter() - t0, **r)
+    _check(r["converged"] and abs(r["iters"] - ITERS_BAR) <= ITERS_SLACK
+           and r["launches"]["dia_spmv_halo"] >= r["iters"],
+           f"scaling: {r}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -2693,13 +2770,18 @@ def main():
         return time.perf_counter() - t0
 
     libs = dict(KERNELS, host_native=host_native.library)
-    with ThreadPoolExecutor(len(libs)) as pool:
+    with ThreadPoolExecutor(len(libs) + len(host_native.PROGRAMS)) as pool:
         builds = {name: pool.submit(build, k) for name, k in libs.items()}
+        programs = {name: pool.submit(build, p)
+                    for name, p in host_native.PROGRAMS.items()}
         for name, fut in builds.items():
             seconds = fut.result()
             libs[name].lib()
             _phase("build", **{"kernel" if name in KERNELS else "host": name},
                    library=libs[name].library_path().name, seconds=seconds)
+        for name, fut in programs.items():
+            _phase("build", program=name, seconds=fut.result(),
+                   path=host_native.PROGRAMS[name].path().name)
     _pattern_native()
 
     # 3. kernels vs plain
@@ -2905,8 +2987,7 @@ def main():
     # shape of the f64 Jacobi solve; 2D in float64, the dtype of its solves:
     # B1 17 diagonals, B2 K = 16 renumbered in the solve's row order); the
     # phase-16 blocks and the Delaunay hybrid's parts in float32
-    peak = next((v for k, v in PEAK_GBPS.items() if k in kind),
-                PEAK_GBPS["H100"])
+    peak = peak_gbps(kind)
     N = A32.n_rows
     cols, src, _ = permuted_sorted_cols(assemble.pattern.ell_cols, N, lex, N)
     A_lex = ell_to_sliced(ELLMatrix(
@@ -3037,6 +3118,12 @@ def main():
     torch.cuda.empty_cache()
     _dist_explicit(dev, explicit_single)
     _dryrun(dev, counted)
+    torch.cuda.empty_cache()
+
+    # 35.-36. the bench harness and the weak-scaling harness, as a user
+    # runs them (subprocesses)
+    _bench(counted)
+    _scaling(counted)
     for label, r in dist_runs.items():
         _phase("timing", stages=label, card=smi, cg_iters=r.stats.iters,
                cg_ms_per_iter=1e3 * r.timings["solve_s"]

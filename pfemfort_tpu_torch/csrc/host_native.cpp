@@ -1,18 +1,21 @@
-// Copied from pfemfort_tpu/native/src/pfem_native.cpp (pfem_rcb_partition, pfem_greedy_partition, pfem_edge_cut, pfem_ell_pattern, pfem_samg_aggregate, pfem_ic0).
+// Copied from pfemfort_tpu/native/src/pfem_native.cpp (pfem_rcb_partition, pfem_greedy_partition, pfem_edge_cut, pfem_gen_tet_mesh, pfem_ell_pattern, pfem_samg_aggregate, pfem_ic0, pfem_write_vtk).
 //
 // The port's host-side loops that are sequential by nature: mesh
 // partitioning (parallel/partition.py: coordinate RCB, greedy dual-graph
 // k-way, edge cut), the ELL pattern + sorted scatter plan
 // (assembly/pattern.py), greedy smoothed-aggregation (solve/amg.py) and the
-// IC(0) factorization (solve/ic0.py).  Built with the host C++ compiler at
-// first use (cuda_build.py:HostLibrary) and called through ctypes
-// (host_native.py).  The functions are the JAX package's, unchanged, so both
+// IC(0) factorization (solve/ic0.py); and the native mesh generator and
+// legacy-VTK writer that the standalone programs pfem_gentet.cpp and
+// pfem_partition.cpp link against.  Built with the host C++ compiler at
+// first use (cuda_build.py:HostLibrary, HostProgram) and called through
+// ctypes (host_native.py).  The functions are the JAX package's, unchanged, so both
 // packages give the same partitions, patterns, aggregates and factor bit
 // for bit.
 
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
+#include <cstdio>
 #include <cstring>
 #include <numeric>
 #include <queue>
@@ -389,6 +392,124 @@ int64_t pfem_ic0(int64_t n, const int64_t* lp, const int32_t* li,
     }
   }
   return fixups;
+}
+
+// ---------------------------------------------------------------------------
+// Box -> 6-tet mesh generation (same lattice, split and boundary-BC field as
+// the reference generator; values u = x^2+y^2+z^2 from real coordinates).
+// Writes <prefix>-nodes.dat / -elems.dat / -DirichBC.dat (1-based).
+// Returns 0 on success.
+// ---------------------------------------------------------------------------
+int pfem_gen_tet_mesh(double x0, double x1, int64_t nex, double y0, double y1,
+                      int64_t ney, double z0, double z1, int64_t nez,
+                      const char* prefix) {
+  const int64_t nnx = nex + 1, nny = ney + 1, nnz = nez + 1;
+  const double dx = (x1 - x0) / nex, dy = (y1 - y0) / ney,
+               dz = (z1 - z0) / nez;
+  char path[4096];
+
+  snprintf(path, sizeof path, "%s-nodes.dat", prefix);
+  FILE* f = fopen(path, "w");
+  if (!f) return 1;
+  int64_t ind = 1;
+  for (int64_t k = 0; k < nnz; ++k)
+    for (int64_t j = 0; j < nny; ++j)
+      for (int64_t i = 0; i < nnx; ++i)
+        fprintf(f, "%lld\t%.8f\t%.8f\t%.8f\n", (long long)ind++, x0 + i * dx,
+                y0 + j * dy, z0 + k * dz);
+  fclose(f);
+
+  snprintf(path, sizeof path, "%s-elems.dat", prefix);
+  f = fopen(path, "w");
+  if (!f) return 1;
+  const int split[6][4] = {{0, 1, 3, 5}, {0, 3, 2, 5}, {2, 3, 7, 5},
+                           {4, 6, 7, 2}, {4, 7, 5, 2}, {0, 4, 5, 2}};
+  int64_t cell = 1;
+  for (int64_t k = 0; k < nez; ++k)
+    for (int64_t j = 0; j < ney; ++j)
+      for (int64_t i = 0; i < nex; ++i) {
+        int64_t base = k * nnx * nny + j * nnx + i;
+        int64_t pts[8] = {base,
+                          base + 1,
+                          base + nnx,
+                          base + nnx + 1,
+                          base + nnx * nny,
+                          base + nnx * nny + 1,
+                          base + nnx * nny + nnx,
+                          base + nnx * nny + nnx + 1};
+        for (int t = 0; t < 6; ++t)
+          fprintf(f, "%lld\t%lld\t%lld\t%lld\t%lld\n", (long long)cell++,
+                  (long long)(pts[split[t][0]] + 1),
+                  (long long)(pts[split[t][1]] + 1),
+                  (long long)(pts[split[t][2]] + 1),
+                  (long long)(pts[split[t][3]] + 1));
+      }
+  fclose(f);
+
+  snprintf(path, sizeof path, "%s-DirichBC.dat", prefix);
+  f = fopen(path, "w");
+  if (!f) return 1;
+  for (int64_t k = 0; k < nnz; ++k)
+    for (int64_t j = 0; j < nny; ++j)
+      for (int64_t i = 0; i < nnx; ++i) {
+        if (i != 0 && i != nex && j != 0 && j != ney && k != 0 && k != nez)
+          continue;
+        double x = x0 + i * dx, y = y0 + j * dy, z = z0 + k * dz;
+        int64_t node = k * nnx * nny + j * nnx + i + 1;
+        fprintf(f, "%lld\t1\t%.8f\n", (long long)node,
+                x * x + y * y + z * z);
+      }
+  fclose(f);
+  return 0;
+}
+
+// ---------------------------------------------------------------------------
+// Legacy-VTK writer (layout of writervtk.F): cells + procid + nodal solution.
+// coords: n_node x 3 (z = 0 for 2D), conn: n_elem x npe 0-based, soln may be
+// null.  vtk_type per writervtk.F:100-166.
+// ---------------------------------------------------------------------------
+int pfem_write_vtk(const char* path, int64_t n_node, const double* coords,
+                   int64_t n_elem, int npe, const int32_t* conn, int vtk_type,
+                   const int32_t* procid, int ndof, const double* soln) {
+  FILE* f = fopen(path, "w");
+  if (!f) return 1;
+  fprintf(f, "# vtk DataFile Version 4.0\n");
+  fprintf(f, "pfemfort_tpu native output\n");
+  fprintf(f, " ASCII\n");
+  fprintf(f, "DATASET UNSTRUCTURED_GRID\n");
+  fprintf(f, "POINTS %10lld float\n", (long long)n_node);
+  for (int64_t i = 0; i < n_node; ++i)
+    fprintf(f, "%12.6f%12.6f%12.6f\n", coords[i * 3], coords[i * 3 + 1],
+            coords[i * 3 + 2]);
+  fprintf(f, "CELLS %10lld%10lld\n", (long long)n_elem,
+          (long long)(n_elem * (npe + 1)));
+  for (int64_t e = 0; e < n_elem; ++e) {
+    fprintf(f, "%10d", npe);
+    for (int p = 0; p < npe; ++p) fprintf(f, "%10d", conn[e * npe + p]);
+    fprintf(f, "\n");
+  }
+  fprintf(f, "CELL_TYPES%10lld\n", (long long)n_elem);
+  for (int64_t e = 0; e < n_elem; ++e) fprintf(f, "%3d\n", vtk_type);
+  fprintf(f, "CELL_DATA%10lld\n", (long long)n_elem);
+  fprintf(f, "SCALARS procid int 1\nLOOKUP_TABLE default\n");
+  for (int64_t e = 0; e < n_elem; ++e)
+    fprintf(f, "%3d\n", procid ? procid[e] : 0);
+  if (soln) {
+    fprintf(f, "POINT_DATA%10lld\n", (long long)n_node);
+    if (ndof == 1) {
+      fprintf(f, "SCALARS solution float 1\nLOOKUP_TABLE default\n");
+      for (int64_t i = 0; i < n_node; ++i) fprintf(f, "%12.6f\n", soln[i]);
+    } else {
+      fprintf(f, "VECTORS solution float\n");
+      for (int64_t i = 0; i < n_node; ++i) {
+        double v[3] = {0, 0, 0};
+        for (int d = 0; d < ndof && d < 3; ++d) v[d] = soln[i * ndof + d];
+        fprintf(f, "%12.6f%12.6f%12.6f\n", v[0], v[1], v[2]);
+      }
+    }
+  }
+  fclose(f);
+  return 0;
 }
 
 }  // extern "C"

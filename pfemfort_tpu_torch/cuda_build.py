@@ -12,6 +12,10 @@ build takes seconds.
 * `HostLibrary`: host C++ (csrc/*.cpp), built with the host compiler (c++ or
   g++): the preconditioners' set-up loops (csrc/host_native.cpp).  A
   missing compiler raises; there is no Python loop in its place.
+
+`HostProgram` builds a standalone host program the same way: its
+csrc/<name>.cpp linked with the host library's source (the JAX package's
+native/Makefile targets pfem_gentet and pfem_partition).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-shared", "-pthread")
+PROGRAM_FLAGS = ("-O3", "-std=c++17", "-Wall", "-pthread")
 
 
 def nvcc() -> str:
@@ -45,6 +50,31 @@ def nvcc() -> str:
             "nvcc not found (PATH, $CUDA_HOME/bin or /usr/local/cuda/bin): "
             "the CUDA kernels cannot be built")
     return path
+
+
+def _compile_once(path: Path, compiler: Callable[[], str],
+                  flags: Sequence[str], sources: Sequence[Path]) -> Path:
+    """Compile `sources` into `path` unless it exists (the compiler is
+    looked up only then).  The compiler writes a private file that is
+    renamed into place, so processes that build at once do not read a
+    half-written output."""
+    if path.exists():
+        return path
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    cmd = [compiler(), *flags, "-o", str(tmp), *map(str, sources)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{Path(cmd[0]).name} failed "
+                           f"({proc.returncode}): {' '.join(cmd)}\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, path)
+    return path
+
+
+def _key(sources: Sequence[Path], flags: Sequence[str]) -> str:
+    return hashlib.sha256(b"".join(p.read_bytes() for p in sources)
+                          + " ".join(flags).encode()).hexdigest()[:16]
 
 
 def host_compiler() -> str:
@@ -71,27 +101,12 @@ class _SharedLibrary:
         self._lib = None
 
     def library_path(self) -> Path:
-        key = hashlib.sha256(self.source.read_bytes()
-                             + " ".join(self.flags).encode()).hexdigest()[:16]
-        return BUILD_DIR / f"{self.name}-{key}.so"
+        return BUILD_DIR / f"{self.name}-{_key([self.source], self.flags)}.so"
 
     def build(self) -> Path:
-        """Compile the library unless the one for this source exists.  The
-        compiler writes a private file that is renamed into place, so
-        processes that build at once do not read a half-written library."""
-        path = self.library_path()
-        if path.exists():
-            return path
-        path.parent.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        cmd = [self.compiler(), *self.flags, "-o", str(tmp), str(self.source)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"{Path(cmd[0]).name} failed "
-                               f"({proc.returncode}): {' '.join(cmd)}\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, path)
-        return path
+        """Compile the library unless the one for this source exists."""
+        return _compile_once(self.library_path(), self.compiler, self.flags,
+                             [self.source])
 
     def lib(self) -> ctypes.CDLL:
         if self._lib is None:
@@ -139,3 +154,22 @@ class HostLibrary(_SharedLibrary):
     suffix = ".cpp"
     flags = HOST_FLAGS
     compiler = staticmethod(host_compiler)
+
+
+class HostProgram:
+    """A standalone host program: csrc/<name>.cpp linked with the sources
+    of `libraries` (HostLibrary), built at first use into _build/."""
+
+    def __init__(self, name: str, *libraries: HostLibrary):
+        self.name = name
+        self.sources = [CSRC / f"{name}.cpp"] + [lib.source
+                                                 for lib in libraries]
+
+    def path(self) -> Path:
+        return BUILD_DIR / f"{self.name}-{_key(self.sources, PROGRAM_FLAGS)}"
+
+    def build(self) -> Path:
+        """Compile the program unless the one for these sources exists;
+        returns its path."""
+        return _compile_once(self.path(), host_compiler, PROGRAM_FLAGS,
+                             self.sources)

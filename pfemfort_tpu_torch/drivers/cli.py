@@ -14,6 +14,7 @@ options and the same printed milestones as the JAX package's CLI:
   python -m pfemfort_tpu_torch genmesh     tet x0 x1 nex y0 y1 ney z0 z1 nez -o prefix
   python -m pfemfort_tpu_torch partition   <nodes> <elems> --nparts 4 [-o part.vtk]
   python -m pfemfort_tpu_torch vtktovtu    in.vtk out.vtu
+  python -m pfemfort_tpu_torch bench       [n] [n_large] [n_large_unstr]
 
 The solving subcommands add two options of their own: `--device` (default
 cuda; without a card the run fails, pass `--device cpu` to run on the
@@ -31,8 +32,8 @@ the command re-runs itself under torchrun with N rank processes
 (parallel/multihost.py:torchrun_ranks).  `--device cuda` needs N cards (one per rank,
 NCCL), `--device cpu` runs the ranks on gloo.  Rank 0 alone prints the
 report and writes the output, with each element's rank as the VTK file's
-procid.  The `bench` subcommand is not ported yet: it raises
-NotImplementedError naming its ROADMAP item.
+procid.  `bench` runs the port's bench harness (pfemfort_tpu_torch/bench.py)
+with n (default 72, as the JAX CLI's) and the rest of its arguments.
 """
 
 from __future__ import annotations
@@ -346,11 +347,13 @@ def cmd_vtktovtu(args):
     return 0
 
 
-def _not_ported(item):
-    def cmd(args):
-        raise NotImplementedError(
-            f"the {args.cmd} subcommand waits for ROADMAP {item}")
-    return cmd
+def cmd_bench(args):
+    from pfemfort_tpu_torch import bench
+
+    return bench.main([str(args.n), str(args.n_large),
+                       str(args.n_large_unstr), "--device", args.device,
+                       "--detail", args.detail, "--budget-s",
+                       str(args.budget_s)])
 
 
 def build_parser():
@@ -473,9 +476,14 @@ def build_parser():
     sp.add_argument("out")
     sp.set_defaults(fn=cmd_vtktovtu)
 
-    sp = sub.add_parser("bench", help="the benchmark harness (ROADMAP A.10)")
+    from pfemfort_tpu_torch import bench
+
+    sp = sub.add_parser("bench", help="the benchmark harness (bench.py)")
     sp.add_argument("n", type=int, nargs="?", default=72)
-    sp.set_defaults(fn=_not_ported("A.10 (benchmark)"))
+    sp.add_argument("n_large", type=int, nargs="?", default=200)
+    sp.add_argument("n_large_unstr", type=int, nargs="?", default=160)
+    bench.add_options(sp)
+    sp.set_defaults(fn=cmd_bench)
     return p
 
 

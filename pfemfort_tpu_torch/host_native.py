@@ -1,4 +1,4 @@
-# Ported from pfemfort_tpu/native/__init__.py (rcb_partition, greedy_partition, edge_cut, ell_pattern, samg_aggregate, ic0).
+# Ported from pfemfort_tpu/native/__init__.py (rcb_partition, greedy_partition, edge_cut, gen_tet_mesh, ell_pattern, samg_aggregate, ic0) and native/Makefile (the two programs).
 """ctypes bindings of the host library csrc/host_native.cpp.
 
 The library is built with the host C++ compiler at first use
@@ -8,6 +8,11 @@ when its native library is missing, a failed build raises here.  The one
 fallback kept is the JAX package's own size rule: `ell_pattern` returns None
 when an index would overflow int32, and assembly/pattern.py then takes its
 numpy builder.
+
+The two standalone programs of the JAX package's native/Makefile,
+`pfem_gentet` (box -> 6-tet .dat files) and `pfem_partition` (RCB or greedy
+partition, edge cut, VTK), are built the same way from csrc/<name>.cpp and
+the library's source: `binary(name)` returns the built program's path.
 """
 
 from __future__ import annotations
@@ -16,7 +21,7 @@ import ctypes
 
 import numpy as np
 
-from pfemfort_tpu_torch.cuda_build import HostLibrary
+from pfemfort_tpu_torch.cuda_build import HostLibrary, HostProgram
 
 _P64 = ctypes.POINTER(ctypes.c_int64)
 _P32 = ctypes.POINTER(ctypes.c_int32)
@@ -36,7 +41,26 @@ library = HostLibrary("host_native", {
     "pfem_samg_aggregate": ([ctypes.c_int64, _P64, _P32, _P64],
                             ctypes.c_int64),
     "pfem_ic0": ([ctypes.c_int64, _P64, _P32, _PD], ctypes.c_int64),
+    "pfem_gen_tet_mesh": ([ctypes.c_double, ctypes.c_double, ctypes.c_int64,
+                           ctypes.c_double, ctypes.c_double, ctypes.c_int64,
+                           ctypes.c_double, ctypes.c_double, ctypes.c_int64,
+                           ctypes.c_char_p], ctypes.c_int),
 })
+
+PROGRAMS = {name: HostProgram(name, library)
+            for name in ("pfem_gentet", "pfem_partition")}
+
+
+def binary(name: str) -> str:
+    """The path of the standalone program `name` ('pfem_gentet' or
+    'pfem_partition'), built at first use:
+
+      pfem_gentet x0 x1 nEx y0 y1 nEy z0 z1 nEz [prefix=mesh]
+      pfem_partition ndim npe method(0=rcb,1=greedy) nparts nodes elems
+                     [out.vtk]"""
+    if name not in PROGRAMS:
+        raise ValueError(f"binary({name!r}): one of {sorted(PROGRAMS)}")
+    return str(PROGRAMS[name].build())
 
 
 def _ptr(a: np.ndarray, ct):
@@ -76,6 +100,16 @@ def edge_cut(conn: np.ndarray, n_node: int, ncommon: int,
     return int(library.lib().pfem_edge_cut(_ptr(c, ctypes.c_int32),
                                            c.shape[0], c.shape[1], n_node,
                                            ncommon, _ptr(p, ctypes.c_int32)))
+
+
+def gen_tet_mesh(x0, x1, nex, y0, y1, ney, z0, z1, nez, prefix: str) -> None:
+    """Write <prefix>-nodes.dat / -elems.dat / -DirichBC.dat of the box
+    [x0,x1]x[y0,y1]x[z0,z1] split into nex*ney*nez*6 tets (1-based; the
+    Dirichlet values u = x^2+y^2+z^2 on the boundary nodes)."""
+    rc = library.lib().pfem_gen_tet_mesh(x0, x1, nex, y0, y1, ney, z0, z1,
+                                         nez, prefix.encode())
+    if rc != 0:
+        raise IOError(f"pfem_gen_tet_mesh failed writing {prefix}-*.dat")
 
 
 def ell_pattern(elem_dof: np.ndarray, n_rows: int, lane_pad: int = 8):

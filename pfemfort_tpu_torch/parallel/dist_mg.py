@@ -111,6 +111,7 @@ def build_dist_mg_setup(
     dtype=torch.float32,
     nu: int = 1,
     omega: Optional[float] = 0.8,
+    coarsest_max_dof: int = 4096,
     *,
     device,
 ) -> DistMGSetup:
@@ -119,7 +120,9 @@ def build_dist_mg_setup(
     ValueError when the mesh is not a coarsenable box_tet lattice
     (drivers/sharded.py then falls back to (block-)Jacobi CG).  omega None builds the
     coarse levels with a placeholder weight; `with_omega` sets the real one
-    once the fine level is assembled."""
+    once the fine level is assembled.  `coarsest_max_dof` caps the rows of
+    the coarse hierarchy's dense inverse; a chain that stops above it ends
+    in a Chebyshev solve (solve/multigrid.py:build_gmg)."""
     st = mesh.structure or {}
     if st.get("kind") != "box_tet":
         raise ValueError("distributed MG needs a box_tet generator mesh")
@@ -177,7 +180,8 @@ def build_dist_mg_setup(
     bc_coarse = bc_mask.reshape(*shape_f, ndof)[::2, ::2, ::2].reshape(-1)
     coarse = build_gmg(coarse_mesh, ndof, bc_coarse, element_fn,
                        dtype=dtype, device=device, nu=nu,
-                       omega=1.0 if omega is None else omega)
+                       omega=1.0 if omega is None else omega,
+                       coarsest_max_dof=coarsest_max_dof)
     if coarse is None:
         raise ValueError("coarse hierarchy construction failed")
 
@@ -402,6 +406,9 @@ def solve_sharded_mg(
     rtol: float = 1e-6,
     maxiter: int = 200,
     device="cuda",
+    nu: Optional[int] = None,
+    omega: Optional[float] = None,
+    coarsest_max_dof: int = 4096,
 ) -> Tuple[np.ndarray, SolveStats, Dict]:
     """Multi-rank MG-preconditioned CG on the full node-dof system; every
     rank of the default process group calls it together, on `device` (its
@@ -412,11 +419,14 @@ def solve_sharded_mg(
     tail is O(N/8).  Dirichlet BCs only (drivers/sharded.py refuses
     ForceBCs).
 
-    Smoothing: Poisson (ndof = 1) keeps the JAX package's nu = 1,
-    omega = 0.8.  Vector problems do not take the JAX package's (2, 0.6),
-    under which the cycle is indefinite on 3D elasticity (ROADMAP C.3):
-    nu = 2 and omega = (4/3) / (1.05 lambda_max(D^-1 A)) of the fine level
-    (`fine_jacobi_weight`), the single-device port's rule, on every level.
+    Smoothing, with nu and omega left at None: Poisson (ndof = 1) keeps the
+    JAX package's nu = 1, omega = 0.8.  Vector problems do not take the JAX
+    package's (2, 0.6), under which the cycle is indefinite on 3D
+    elasticity (ROADMAP C.9): nu = 2 and omega = (4/3) / (1.05
+    lambda_max(D^-1 A)) of the fine level (`fine_jacobi_weight`), the
+    single-device port's rule, on every level.  A value passed is used as
+    given, as in the JAX package.  `coarsest_max_dof`: the JAX package's
+    cap on the coarse hierarchy's dense inverse (`build_dist_mg_setup`).
     Timings: pattern_s (the rank's host set-up and the coarse hierarchy),
     assemble_s (the fine level and, for ndof > 1, its weight), solve_s,
     planes_per_shard, mg_omega, mg_nu, mg_levels, distributed_mg."""
@@ -424,9 +434,13 @@ def solve_sharded_mg(
     rank, size = dist.get_rank(), dist.get_world_size()
 
     t0 = time.perf_counter()
+    if nu is None:
+        nu = 1 if ndof == 1 else 2
+    if omega is None and ndof == 1:
+        omega = 0.8
     setup = build_dist_mg_setup(mesh, ndof, dirichlet, element_fn, size,
-                                rank, dtype=dtype, nu=1 if ndof == 1 else 2,
-                                omega=0.8 if ndof == 1 else None,
+                                rank, dtype=dtype, nu=nu, omega=omega,
+                                coarsest_max_dof=coarsest_max_dof,
                                 device=device)
     _sync(device)
     t_setup = time.perf_counter() - t0

@@ -12,11 +12,12 @@ so the two counts may differ by 2.
 The preconditioners, the full system (`--bc-mode full`), `--refine`,
 `--matrix-free`, `cfd`, `partition` and `--shards N` (the per-rank DIA
 route on N gloo ranks, which the port's CLI starts under torchrun) run like the JAX
-CLI; `bench`, which the port does not carry yet, raises
-NotImplementedError naming its ROADMAP item.  One run goes through a fresh
-process that never imports JAX.
+CLI; `bench` runs the port's bench harness (tests/test_torch_bench.py
+holds its stages).  One run goes through a fresh process that never
+imports JAX.
 """
 
+import json
 import re
 import subprocess
 import sys
@@ -351,16 +352,23 @@ def test_options_file_pc_type_matches_jax(tet_prefix, tmp_path, capsys,
 @pytest.mark.parametrize("argv,item", [
     (["partition", "N", "E", "--nparts", "2"], "A.9"),
     (["bench", "8"], "A.10")])
-def test_subcommands_outside_the_slice_raise(tet_prefix, capsys, argv, item):
-    """bench still raises naming A.10; partition, once listed under A.9,
-    is ported and prints the JAX CLI's part sizes."""
+def test_subcommands_outside_the_slice_raise(tet_prefix, tmp_path, capsys,
+                                             argv, item):
+    """The subcommands once outside the port's slices now run: partition
+    (ROADMAP A.9) prints the JAX CLI's part sizes; bench (A.10) runs the
+    port's bench harness (n=8 here, on the CPU) and prints its result line
+    last, every stage true."""
     if argv[0] == "partition":
         argv = ["partition", *_files(tet_prefix)[:2], *argv[3:]]
         out_j, out_t = _run_both(capsys, argv, argv)
         assert out_t == out_j and "into 2 parts" in out_t
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        t_main(argv)
+    rc = t_main([*argv, "0", "0", "--device", "cpu", "--detail",
+                 str(tmp_path / "detail.json")])
+    last = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert rc == 0 and last["stages"]["flagship"]
+    assert all(last["stages"].values())
+    assert last["metric"] == "spmv_nnz_per_s" and last["value"] > 0
 
 
 def test_cuda_device_without_a_card_fails(tet_prefix):

@@ -956,3 +956,25 @@ def test_dryrun_on_the_card_at_world_size_1(nccl1):
 
     iters = dryrun(device=nccl1, dtype=torch.float32, verbose=False)
     assert set(iters) == {"halo/dia", "dist/ell", "dist_mg", "dist_amg"}
+
+
+def test_bench_at_a_toy_size_on_the_card(cuda, tmp_path, capsys):
+    """The bench harness (pfemfort_tpu_torch/bench.py) at n=12 on the card:
+    every stage true, B1 launched on the flagship's every CG iteration,
+    kernel times from CUDA events beside their bound."""
+    import json
+
+    from pfemfort_tpu_torch import bench
+
+    detail = tmp_path / "detail.json"
+    rc = bench.main(["12", "0", "0", "--device", "cuda", "--detail",
+                     str(detail)])
+    last = json.loads(capsys.readouterr().out.splitlines()[-1])
+    det = json.loads(detail.read_text())
+    assert rc == 0 and last["stages"] and all(last["stages"].values()), \
+        {k: det[k].get("error") for k in last["stages"]}
+    fl = det["flagship"]
+    assert fl["launches"]["jacobi"]["dia_spmv"] >= fl["cg_iters"]
+    assert fl["spmv"]["clock"] == "cuda_events"
+    assert 0 < fl["spmv"]["bound_us"] <= 1.05 * fl["spmv"]["device_us"]
+    assert det["amg"]["launches"]["amg"]["ell_spmv"] > 0

@@ -17,6 +17,13 @@ torchrun; the ranks never import JAX).  Every rank:
   * solves a box whose coarse lattice stalls on odd cell counts above the
     dense inverse's size, so the coarse tail is the Chebyshev polynomial
     (the JAX test's bars);
+  * solves the JAX test's own Chebyshev-tail case through
+    `solve_sharded_mg(..., coarsest_max_dof=50)` (a 12^3 box whose 4^3
+    coarse lattice stays above the cap): JAX's iteration count and u within
+    1e-10 of JAX's;
+  * solves the 3D elasticity box with the smoothing passed explicitly
+    (nu = 1, omega = 0.8, the keywords of JAX's `solve_sharded_mg`): JAX's
+    count and u within 1e-10 of JAX's run with the same keywords;
   * solves tests/test_dist_mg.py's 3D elasticity box (a linear field on
     the boundary) with the port's vector smoothing (nu = 2, omega from the
     fine level's lambda_max): converged, fewer iterations than the sharded
@@ -146,7 +153,20 @@ def _ranks(outdir):
     out["cheby converged"] = res.stats.converged
     out["cheby levels"] = res.timings["mg_levels"]
 
+    m, d = generate.box_tet(0, 1, 12, 0, 1, 12, 0, 1, 12)
+    u, st, tm = dist_mg.solve_sharded_mg(m, 1, d, _poisson, dtype=F64,
+                                         rtol=1e-8, maxiter=60,
+                                         coarsest_max_dof=50, device="cpu")
+    out["tail u"], out["tail iters"] = u, st.iters
+    out["tail converged"], out["tail levels"] = st.converged, \
+        tm["mg_levels"]
+
     m, d = _elastic_case()
+    u, st, tm = dist_mg.solve_sharded_mg(m, 3, d, _elastic_fn(), dtype=F64,
+                                         rtol=1e-10, maxiter=200, nu=1,
+                                         omega=0.8, device="cpu")
+    out["el given u"], out["el given iters"] = u, st.iters
+    out["el given smoothing"] = (tm["mg_nu"], tm["mg_omega"])
     for pc_name in ("mg", "jacobi"):
         res = solve_implicit_sharded(m, 3, d, _elastic_fn(), dtype=F64,
                                      rtol=1e-10, precond=pc_name,
@@ -306,6 +326,61 @@ def test_chebyshev_coarse_tail(ranks, size):
         assert int(r["cheby levels"]) == 2 and bool(r["cheby converged"])
         assert np.abs(r["cheby u"] - u_exact).max() < 5e-5
         np.testing.assert_array_equal(r["cheby u"], ranks[size][0]["cheby u"])
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_keywords(case, n=4):
+    """JAX's solve_sharded_mg with its keywords, on n devices (4, as
+    tests/test_dist_mg.py runs it; JAX's count and u do not move with the
+    device count here, and each run costs ~35 s of compilation): 'tail' is
+    tests/test_dist_mg.py's Chebyshev-tail case (12^3, coarsest_max_dof
+    50) in float64; 'elastic' the elasticity box with nu = 1, omega =
+    0.8.  Returns (mesh, u, iterations)."""
+    import jax.numpy as jnp
+    from pfemfort_tpu.elements import elasticity as jel
+    from pfemfort_tpu.elements.poisson import poisson_element_matrices as jp
+    from pfemfort_tpu.mesh import generate as jgen
+    from pfemfort_tpu.parallel.dist_mg import solve_sharded_mg
+
+    if case == "tail":
+        mesh, dbc = jgen.box_tet(0, 1, 12, 0, 1, 12, 0, 1, 12)
+        args = (mesh, 1, dbc, lambda c: _poisson(c, jp))
+        kw = dict(rtol=1e-8, maxiter=60, coarsest_max_dof=50)
+    else:
+        mesh, dbc = _elastic_case(jgen)
+        args = (mesh, 3, dbc,
+                _elastic_fn(jel.dmat_3d, jel.elasticity_stiffness))
+        kw = dict(rtol=1e-10, maxiter=200, nu=1, omega=0.8)
+    u, st, _ = solve_sharded_mg(*args, device_mesh=_device_mesh(n),
+                                dtype=jnp.float64, **kw)
+    assert bool(np.asarray(st.converged))
+    return mesh, np.asarray(u), int(np.asarray(st.iters))
+
+
+@pytest.mark.parametrize("size", WORLDS)
+def test_coarsest_max_dof_tail_matches_jax(ranks, size):
+    """tests/test_dist_mg.py:test_dist_mg_chebyshev_coarse_tail through
+    the port's `coarsest_max_dof`: the 4^3 coarse lattice (125 rows) is
+    above the cap of 50, so the coarse tail ends in the Chebyshev solve;
+    JAX's count, u within 1e-10 of JAX's, and JAX's nodal bar."""
+    mesh, u, iters = _jax_keywords("tail")
+    u_exact = (mesh.coords ** 2).sum(axis=1)
+    for r in ranks[size]:
+        assert bool(r["tail converged"])
+        assert int(r["tail iters"]) == iters
+        np.testing.assert_allclose(r["tail u"], u, rtol=0, atol=1e-10)
+        assert np.abs(r["tail u"][:mesh.n_node] - u_exact).max() < 5e-5
+
+
+@pytest.mark.parametrize("size", WORLDS)
+def test_given_smoothing_on_elasticity_matches_jax(ranks, size):
+    """nu = 1, omega = 0.8 passed to both packages' solve_sharded_mg on
+    the elasticity box: used as given, JAX's count and u."""
+    _, u, iters = _jax_keywords("elastic")
+    for r in ranks[size]:
+        assert tuple(r["el given smoothing"]) == (1, 0.8)
+        assert int(r["el given iters"]) == iters
+        np.testing.assert_allclose(r["el given u"], u, rtol=0, atol=1e-10)
 
 
 @functools.lru_cache(maxsize=None)
