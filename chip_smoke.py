@@ -170,19 +170,29 @@ of JAX.  Phases, one JSON line each:
                      world size 1 on the n=96 box's ELL system, f32, rtol
                      1e-6: 271 +- 10 iterations, B2 launches >= iterations;
  28. dist_ell_halo   solve_implicit_sharded's ELL route (per-rank ELL
-                     assembly, the stash exchange, ghost-exchange Krylov on
-                     B2) at world size 1: the n=96 box renumbered by
-                     default_rng(0), recover=False, f32, rtol 1e-6, Jacobi
-                     (the bars of phase 4; B2 launches = iterations + 1)
-                     and per-rank IC(0) (within 10% of 90; B2 launches =
-                     7 (iterations + 1)); the renumbered phase-7 elasticity
-                     system, f64, block-Jacobi (within 1% of 1,044; u
-                     within 1e-6 of phase 26's); stage seconds, ms per
+                     assembly, the stash exchange, ghost-exchange Krylov)
+                     at world size 1.  float32 solves run the per-rank
+                     hybrid (B1 on the rank's dense local diagonals and its
+                     own x, B2 on the remainder and the ghost-extended x):
+                     the n=96 box renumbered by default_rng(0),
+                     recover=False, rtol 1e-6, 15 diagonals and no
+                     remainder, Jacobi (the bars of phase 4; B1 launches =
+                     iterations + 1, B2 none) and per-rank IC(0) (within
+                     10% of 90; B1 launches = iterations + 1, B2 = 6
+                     (iterations + 1), its T and T^T); phase 19's Delaunay
+                     n=60 mesh, Jacobi (a non-empty remainder, B1 and B2
+                     each launched >= iterations, the count within 5% of
+                     phase 19's); the renumbered phase-7 elasticity
+                     system, f64, block-Jacobi on B2 (within 1% of 1,044;
+                     u within 1e-6 of phase 26's); stage seconds, ms per
                      iteration beside the single-device and DIA-route
                      solves, peak device memory, the set-up's host and
-                     device bytes; after each solve, B2 against spmv_sliced
-                     on that solve's ghost-extended block (random x, ghost
-                     slots included) and IC(0) T and T^T, f32 and f64; B2
+                     device bytes; after each solve, on that solve's own
+                     blocks (random x, ghost slots included), f32 and f64:
+                     the hybrid's two parts against their plain versions
+                     and their sum against spmv_sliced on the whole
+                     ghost-extended block, or B2 on that block, and IC(0)
+                     T and T^T; B2
                      at rank 1 of an 8-way RCB partition of the renumbered
                      n=96 box (laid out on the host without a group), timed
                      beside its bound and cuSPARSE, and the cost of the
@@ -210,11 +220,13 @@ of JAX.  Phases, one JSON line each:
  31. dist_amg        precond='amg' on the sharded ELL route at world size
                      1: the n=96 box renumbered by default_rng(2),
                      recover=False, f32, rtol 1e-6 (<= 20 iterations, nodal
-                     error <= 2e-4, precond_used 'amg', layout 'ell'); B2
-                     launches on the ghost-extended block and on the P0_s
-                     and P0_s^T blocks (each >= iterations), each against
-                     spmv_sliced (f32, f64); amg_setup_s, the levels and
-                     ms per iteration beside phase 13's;
+                     error <= 2e-4, precond_used 'amg', layout 'ell'); the
+                     fine operator is the per-rank hybrid: B1 launches on
+                     its 15 diagonals and B2 launches on the P0_s and
+                     P0_s^T blocks (each >= iterations), none on the whole
+                     ghost-extended block; each block against its plain
+                     version (f32, f64); amg_setup_s, the levels and ms per
+                     iteration beside phase 13's;
  32. dist_partition  rcb_partition_device on the element centroids of
                      box_tet n=200 (48M, made on the card), 8 parts: every
                      part within 1.05 E/8 + 64 and non-empty, every part's
@@ -249,11 +261,15 @@ of JAX.  Phases, one JSON line each:
                      iterations, B1's halo entry launched on every
                      iteration.  No scaling number is claimed (one card).
 
+The command-line phases (10, 17, 23, 29) start their subprocesses at once
+and wait for them all; a subprocess's `seconds` counts from that start.
+
 Every launch count is set to 0 just before its path is driven and read just
 after; from phase 11 on, a plain SpMV called on a card tensor would also be
 counted, and none may be.  Then one JSON line describing the kernels
 (launches summed over the counted paths; times, bound and library time on
-the n=96 matrix; the errors of every case), and the result line
+the n=96 matrix; the errors of every case; the halo entry's, the ghost
+block's and the per-rank hybrid's shapes and launches), and the result line
 {"ok": true, "device": {...}} last, after the process group is torn
 down.  Any failed check raises.
 """
@@ -319,7 +335,7 @@ from pfemfort_tpu_torch.sparse.sliced import SLICE, ell_to_sliced, \
     slice_ell, unslice
 from pfemfort_tpu_torch.sparse.spmv import spmv_ell, spmv_sliced
 from pfemfort_tpu_torch.utils.timing import device_ms as _device_ms, \
-    peak_gbps, spmv_bound as _bound
+    library_csr as _csr_library, peak_gbps, spmv_bound as _bound
 
 N_FLAGSHIP = 96
 N_RECOVERED = 48
@@ -404,6 +420,10 @@ DIST_EL3D_U_REL = 1e-9
 # is timed at rank 1 of an ELL_RANKS-way RCB partition of the n=96 box.
 DIST_ELL_EL3D_BJ_ITERS, DIST_ELL_EL3D_BAND = 1044, 0.01
 DIST_ELL_EL3D_U_REL = 1e-6
+# float32 solves on the route take the per-rank hybrid; the phase-19
+# Delaunay mesh there: its count within 5% of phase 19's single-device
+# hybrid (which took 340 iterations on the H100).
+DELAUNAY_ROUTE_BAND = 0.05
 ELL_RANKS = 8
 N_PARTITIONED = 24
 PARTITIONED_U_TOL = 1e-8    # float64 solves to rtol 1e-10, two row orders
@@ -648,33 +668,6 @@ def _each_device_ms(fn, scratch=None, reps=30, sleep_cycles=200_000_000):
         end.record()
     torch.cuda.synchronize()
     return float(np.mean([start.elapsed_time(end) for start, end in pairs]))
-
-
-def _csr_library(A):
-    """torch.sparse_csr_tensor of a DIA (its nonzero in-range entries) or
-    ELL (its non-sentinel slots) matrix, int32 indices: its product with x
-    is one cuSPARSE SpMV.  Returns (csr, nnz)."""
-    dev = A.vals.device
-    if isinstance(A, DIAMatrix):
-        N = A.n_rows
-        rows = torch.arange(N, device=dev)
-        offs = torch.tensor(A.offsets, dtype=torch.int64, device=dev)
-        cols = rows[:, None] + offs[None, :]
-        vals = A.vals.t()
-        keep = (cols >= 0) & (cols < N) & (vals != 0)
-        n_cols = N
-    else:
-        E = unslice(A)
-        cols, vals = E.cols.to(torch.int64), E.vals
-        keep = cols < A.n_cols
-        n_cols = A.n_cols
-    counts = keep.sum(1)
-    crow = torch.zeros(A.n_rows + 1, dtype=torch.int64, device=dev)
-    crow[1:] = torch.cumsum(counts, 0)
-    csr = torch.sparse_csr_tensor(crow.to(torch.int32),
-                                  cols[keep].to(torch.int32), vals[keep],
-                                  size=(A.n_rows, n_cols))
-    return csr, int(crow[-1])
 
 
 def _check_solve(label, res, u_exact):
@@ -1031,44 +1024,77 @@ def _explicit(dev):
     return single
 
 
-def _cli(dev):
-    """The port's command line as a user runs it, in subprocesses."""
-    def run(*argv):
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "pfemfort_tpu_torch",
-                               *argv], cwd=ROOT, capture_output=True,
-                              text=True, timeout=600)
-        if proc.returncode != 0:
-            raise RuntimeError(f"pfemfort_tpu_torch {argv[0]} exited "
-                               f"{proc.returncode}:\n{proc.stdout}"
-                               f"{proc.stderr}")
-        return proc.stdout, time.perf_counter() - t0
+@contextlib.contextmanager
+def _cli_batch(jobs):
+    """Start `python -m pfemfort_tpu_torch` once for each (label, argv) of
+    `jobs`, all at once (they share the card and the host's cores), and
+    yield a function that waits for one label's process and returns
+    (CompletedProcess, seconds since the batch started).  Every process
+    still running when the block ends is killed."""
+    t0 = time.perf_counter()
+    procs = {label: subprocess.Popen(
+        [sys.executable, "-m", "pfemfort_tpu_torch", *argv], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for label, argv in jobs}
 
+    def result(label):
+        p = procs[label]
+        out, err = p.communicate(timeout=600)
+        return (subprocess.CompletedProcess(p.args, p.returncode, out, err),
+                time.perf_counter() - t0)
+
+    try:
+        yield result
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+
+
+def _cli(dev):
+    """The port's command line as a user runs it, in subprocesses (the
+    two solves at once)."""
     with tempfile.TemporaryDirectory() as tmp:
         prefix = str(Path(tmp) / "beam")
-        run("genmesh", "tria", "0", "2", "256", "0", "1", "128", "-o", prefix)
+        subprocess.run([sys.executable, "-m", "pfemfort_tpu_torch",
+                        "genmesh", "tria", "0", "2", "256", "0", "1", "128",
+                        "-o", prefix], cwd=ROOT, check=True,
+                       capture_output=True, timeout=600)
         mesh = mesh_io.read_mesh(prefix + "-nodes.dat", prefix + "-elems.dat")
         mesh_io.write_dat(prefix, mesh, dirichlet=_clamped(mesh),
                           force=_edge_loads(mesh))
         files = [prefix + s for s in ("-nodes.dat", "-elems.dat",
                                       "-DirichBC.dat", "-ForceBC.dat")]
-        out, secs = run("elasticity", *files, "--device", dev.type,
-                        "-o", str(Path(tmp) / "u.vtk"))
-        line = next((ln for ln in out.splitlines()
-                     if "Convergence in" in ln), None)
-        _phase("cli", subcommand="elasticity", seconds=secs,
-               output=out.strip().splitlines())
-        _check(line is not None, "CLI elasticity printed no convergence line")
         probe = Path(tmp) / "probe.dat"
-        out, secs = run("explicit", *files[:3], "--preset", "tria",
-                        "--nsteps", "1000", "--device", dev.type,
-                        "--probe-out", str(probe),
-                        "-o", str(Path(tmp) / "x.vtk"))
-        hist = np.loadtxt(probe)
-        _phase("cli", subcommand="explicit", seconds=secs,
-               output=out.strip().splitlines(), probe_shape=hist.shape)
-        _check("1000 steps in" in out and hist.shape == (1000, 5)
-               and bool(np.isfinite(hist).all()), "CLI explicit output")
+        jobs = [("elasticity", ["elasticity", *files, "--device", dev.type,
+                                "-o", str(Path(tmp) / "u.vtk")]),
+                ("explicit", ["explicit", *files[:3], "--preset", "tria",
+                              "--nsteps", "1000", "--device", dev.type,
+                              "--probe-out", str(probe),
+                              "-o", str(Path(tmp) / "x.vtk")])]
+        with _cli_batch(jobs) as result:
+            for label, _ in jobs:
+                proc, secs = result(label)
+                _check(proc.returncode == 0,
+                       f"pfemfort_tpu_torch {label} exited "
+                       f"{proc.returncode}:\n{proc.stdout}{proc.stderr}")
+                out = proc.stdout
+                if label == "elasticity":
+                    line = next((ln for ln in out.splitlines()
+                                 if "Convergence in" in ln), None)
+                    _phase("cli", subcommand="elasticity", seconds=secs,
+                           output=out.strip().splitlines())
+                    _check(line is not None,
+                           "CLI elasticity printed no convergence line")
+                else:
+                    hist = np.loadtxt(probe)
+                    _phase("cli", subcommand="explicit", seconds=secs,
+                           output=out.strip().splitlines(),
+                           probe_shape=hist.shape)
+                    _check("1000 steps in" in out and hist.shape == (1000, 5)
+                           and bool(np.isfinite(hist).all()),
+                           "CLI explicit output")
 
 
 def _guard_plain_spmv():
@@ -1386,7 +1412,7 @@ def _preconditioner_blocks(dev, errs, rng, A_ord):
 
 
 def _cli_preconditioners(dev):
-    """Phase 17: the new command-line options as subprocesses."""
+    """Phase 17: the new command-line options as subprocesses, at once."""
     with tempfile.TemporaryDirectory() as tmp:
         prefix = str(Path(tmp) / "box")
         subprocess.run([sys.executable, "-m", "pfemfort_tpu_torch",
@@ -1397,20 +1423,19 @@ def _cli_preconditioners(dev):
         opts.write_text("-ksp_type cg\n-pc_type gamg\n-ksp_rtol 1e-8\n")
         files = [prefix + s for s in ("-nodes.dat", "-elems.dat",
                                       "-DirichBC.dat")]
-        for extra in (["--bc-mode", "full", "--precond", "mg"],
-                      ["--refine"], ["--options-file", str(opts)]):
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [sys.executable, "-m", "pfemfort_tpu_torch", "poisson",
-                 *files, "--device", dev.type, *extra], cwd=ROOT,
-                capture_output=True, text=True, timeout=600)
-            out = proc.stdout.strip().splitlines()
-            _phase("cli", subcommand="poisson " + " ".join(extra[:2]),
-                   seconds=time.perf_counter() - t0, exit=proc.returncode,
-                   output=out)
-            _check(proc.returncode == 0
-                   and any("Convergence in" in ln for ln in out),
-                   f"CLI poisson {extra}: {proc.stdout}{proc.stderr}")
+        jobs = [("poisson " + " ".join(extra[:2]),
+                 ["poisson", *files, "--device", dev.type, *extra])
+                for extra in (["--bc-mode", "full", "--precond", "mg"],
+                              ["--refine"], ["--options-file", str(opts)])]
+        with _cli_batch(jobs) as result:
+            for label, argv in jobs:
+                proc, secs = result(label)
+                out = proc.stdout.strip().splitlines()
+                _phase("cli", subcommand=label, seconds=secs,
+                       exit=proc.returncode, output=out)
+                _check(proc.returncode == 0
+                       and any("Convergence in" in ln for ln in out),
+                       f"CLI {label}: {proc.stdout}{proc.stderr}")
 
 
 def _pattern_native():
@@ -1689,43 +1714,49 @@ def _cfd(dev, counted):
 
 def _cli_ported(dev):
     """Phase 23: partition (rcb, greedy), poisson --matrix-free and cfd on a
-    renumbered cavity's .dat files (pressure on B2), as subprocesses."""
-    def run(label, *argv):
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "pfemfort_tpu_torch",
-                               *argv], cwd=ROOT, capture_output=True,
-                              text=True, timeout=600)
-        out = proc.stdout.strip().splitlines()
-        _phase("cli", subcommand=label, seconds=time.perf_counter() - t0,
-               exit=proc.returncode, output=out)
-        _check(proc.returncode == 0,
-               f"CLI {label}: {proc.stdout}{proc.stderr}")
-        return proc.stdout
-
+    renumbered cavity's .dat files (pressure on B2), as subprocesses, the
+    four at once."""
     with tempfile.TemporaryDirectory() as tmp:
         prefix = str(Path(tmp) / "box")
-        run("genmesh", "genmesh", "tet", "0", "1", "32", "0", "1", "32", "0",
-            "1", "32", "-o", prefix)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "pfemfort_tpu_torch",
+                               "genmesh", "tet", "0", "1", "32", "0", "1",
+                               "32", "0", "1", "32", "-o", prefix], cwd=ROOT,
+                              capture_output=True, text=True, timeout=600)
+        _phase("cli", subcommand="genmesh", seconds=time.perf_counter() - t0,
+               exit=proc.returncode, output=proc.stdout.strip().splitlines())
+        _check(proc.returncode == 0, f"CLI genmesh: {proc.stdout}"
+               f"{proc.stderr}")
         files = [prefix + s for s in ("-nodes.dat", "-elems.dat",
                                       "-DirichBC.dat")]
-        for method in ("rcb", "greedy"):
-            out = run(f"partition --method {method}", "partition",
-                      *files[:2], "--nparts", "8", "--method", method,
-                      "-o", str(Path(tmp) / f"{method}.vtk"))
-            _check("into 8 parts" in out, f"CLI partition {method}: {out}")
-        out = run("poisson --matrix-free", "poisson", *files,
-                  "--device", dev.type, "--matrix-free")
-        _check("Convergence in" in out, f"CLI matrix-free: {out}")
         cm = generate.rect_tria(0, 1, 64, 0, 1, 64)
         _, (pm, pbc) = _renumber(cm, _cavity_bcs(cm), seed=4)
         cav = str(Path(tmp) / "cavity")
         mesh_io.write_dat(cav, pm, dirichlet=pbc)
-        out = run("cfd (renumbered cavity)", "cfd", cav + "-nodes.dat",
-                  cav + "-elems.dat", cav + "-DirichBC.dat", "--nsteps",
-                  "50", "--dt", "1e-3", "--device", dev.type,
-                  "-o", str(Path(tmp) / "cfd.vtk"))
-        _check("50 steps in" in out and "max|div u|" in out,
-               f"CLI cfd: {out}")
+        jobs = [(f"partition --method {method}",
+                 ["partition", *files[:2], "--nparts", "8", "--method",
+                  method, "-o", str(Path(tmp) / f"{method}.vtk")])
+                for method in ("rcb", "greedy")]
+        jobs += [("poisson --matrix-free",
+                  ["poisson", *files, "--device", dev.type,
+                   "--matrix-free"]),
+                 ("cfd (renumbered cavity)",
+                  ["cfd", cav + "-nodes.dat", cav + "-elems.dat",
+                   cav + "-DirichBC.dat", "--nsteps", "50", "--dt", "1e-3",
+                   "--device", dev.type, "-o", str(Path(tmp) / "cfd.vtk")])]
+        expect = {"partition --method rcb": ("into 8 parts",),
+                  "partition --method greedy": ("into 8 parts",),
+                  "poisson --matrix-free": ("Convergence in",),
+                  "cfd (renumbered cavity)": ("50 steps in", "max|div u|")}
+        with _cli_batch(jobs) as result:
+            for label, _ in jobs:
+                proc, secs = result(label)
+                _phase("cli", subcommand=label, seconds=secs,
+                       exit=proc.returncode,
+                       output=proc.stdout.strip().splitlines())
+                _check(proc.returncode == 0
+                       and all(w in proc.stdout for w in expect[label]),
+                       f"CLI {label}: {proc.stdout}{proc.stderr}")
 
 
 def _slab_rows(total, ranks, plane=1, lane_pad=8):
@@ -2064,34 +2095,71 @@ def _host_bytes(obj):
     return 0
 
 
-def _b2_on_ell_block(label, call, errs, rng):
-    """B2 on a sharded ELL solve's own blocks against its plain version, f32
-    and f64: the ghost-extended (P, P + S*Wx) block laid out as the solve
-    lays it out, x random in every column, ghost slots included; and the
-    rank's IC(0) T and T^T when the solve had them."""
+def _ell_route_blocks(label, call, errs, rng):
+    """The kernels on a sharded ELL solve's own blocks against their plain
+    versions, f32 and f64, x random in every column (ghost slots
+    included): with the per-rank hybrid, B1 on its dense local diagonals
+    and B2 on its remainder, and the two parts' sum against spmv_sliced
+    on the rank's whole ghost-extended block; else B2 on that whole
+    (P, P + S*Wx) block, laid out as the solve lays it out; and the
+    rank's IC(0) T and T^T when the solve had them.  Returns the hybrid's
+    blocks by name (none without it)."""
     (cols_local, vals, _, halo), kw, _ = call
-    A = slice_ell(cols_local, halo.n_cols).pack(vals)
-    blocks = {f"{label} ghost-extended block": A}
+    H = kw.get("hybrid")
+    whole = slice_ell(cols_local, halo.n_cols).pack(vals)
+    blocks = {}
+    if H is None:
+        blocks[f"{label} ghost-extended block"] = whole
+    else:
+        blocks[f"{label} hybrid dense diagonals"] = H.dia
+        if H.rem is not None:
+            blocks[f"{label} hybrid remainder"] = H.rem
+        x64 = rng.standard_normal(halo.n_cols)
+        for dtype in (torch.float32, torch.float64):
+            x = torch.as_tensor(x64, dtype=dtype, device=vals.device)
+            dia = dataclasses.replace(H.dia, vals=H.dia.vals.to(dtype))
+            y = dia_spmv_cuda.dia_spmv(dia, x[:H.n_rows])
+            if H.rem is not None:
+                y = y + ell_spmv_cuda.ell_spmv(dataclasses.replace(
+                    H.rem, vals=H.rem.vals.to(dtype)), x)
+            abs_err, rel_err = _errors(y, spmv_sliced(dataclasses.replace(
+                whole, vals=whole.vals.to(dtype)), x))
+            errs[("hybrid", label, dtype)] = abs_err
+            _phase("kernel", kernel="hybrid (B1 + B2), per rank", case=label,
+                   dtype=str(dtype), rows=H.n_rows, n_cols=halo.n_cols,
+                   diagonals=len(H.dia.offsets),
+                   rem_max_width=0 if H.rem is None else H.rem.max_width,
+                   max_abs_err=abs_err, max_rel_err=rel_err,
+                   bound=REL_ERR_MAX[dtype])
+            _check(rel_err <= REL_ERR_MAX[dtype],
+                   f"{label}: the hybrid's parts against the whole block "
+                   f"{dtype}: rel err {rel_err}")
     if kw.get("ic0") is not None:
         blocks[f"{label} IC(0) T"] = kw["ic0"].t
         blocks[f"{label} IC(0) T^T"] = kw["ic0"].tt
     for case, M in blocks.items():
         _kernel_errors(case, M, errs, rng)
+    return {k: v for k, v in blocks.items() if " hybrid " in k}
 
 
-def _dist_ell_halo(dev, counted, single, dia_bjacobi, errs, rng, smi, peak):
+def _dist_ell_halo(dev, counted, single, dia_bjacobi, delaunay, errs, rng,
+                   smi, peak):
     """Phase 28: solve_implicit_sharded's ELL route on a world-size-1 NCCL
     group (per-rank ELL assembly, the stash exchange, the ghost-exchange
-    Krylov solve on B2): the renumbered n=96 box f32 with Jacobi and IC(0),
-    the renumbered 3D elasticity system f64 with block-Jacobi; B2 on each
-    solve's own blocks; B2 timed at one rank of an 8-way RCB partition of
-    the renumbered n=96 box, laid out on the host without a group; the
-    per-rank-file input mode against the single-device solve.  Returns
-    (the solves, the timing rows, the route's B2 launches)."""
+    Krylov solve): the renumbered n=96 box f32 with Jacobi and IC(0) on
+    the per-rank hybrid (15 dense diagonals on B1, no remainder), the
+    phase-19 Delaunay mesh f32 on the hybrid with a remainder (B1 and B2),
+    the renumbered 3D elasticity system f64 with block-Jacobi on B2; the
+    kernels on each solve's own blocks; B2 timed at one rank of an 8-way
+    RCB partition of the renumbered n=96 box, laid out on the host without
+    a group; the per-rank-file input mode against the single-device solve.
+    `delaunay`: (mesh, dbc, phase 19's single-device solve).  Returns (the
+    solves, the timing rows, the route's launches by kernel, the hybrid's
+    blocks by name)."""
     wd = multihost.world()
     _check(wd.size == 1 and wd.device.type == "cuda",
            f"dist_ell_halo: the group is {wd}")
-    runs, b2 = {}, 0
+    runs, route, hybrid_blocks = {}, collections.Counter(), {}
     pmesh, pdbc = _permuted_box(N_FLAGSHIP)
     for pc in ("jacobi", "ic0"):
         torch.cuda.reset_peak_memory_stats()
@@ -2104,18 +2172,20 @@ def _dist_ell_halo(dev, counted, single, dia_bjacobi, errs, rng, smi, peak):
                 recover=False, precond=pc, device=dev), counted,
                 f"sharded ELL renumbered n=96 f32 {pc} (world 1)")
         st, t = res.stats, res.timings
-        b2 += launches["ell_spmv"]
+        route.update(launches)
         nodal_err = float(np.abs(res.u_full
                                  - (pmesh.coords ** 2).sum(1)).max())
-        # one product an iteration and one for r0; IC(0) adds 2(m - 1) = 6
-        # an application, one an iteration and one for z0
-        per_apply = 7 if pc == "ic0" else 1
+        # the hybrid: one B1 product an iteration and one for r0, and no
+        # remainder, so no B2 product; IC(0)'s T and T^T stay on B2,
+        # 2(m - 1) = 6 an application, one an iteration and one for z0
+        b2_per_apply = 6 if pc == "ic0" else 0
         setup = rec["build_dist_ell_setup"][0][2]
         ref = single[pc]
         _dist_stages(f"renumbered n={N_FLAGSHIP} f32 {pc}, ELL route", res,
                      base, dict(
                          nodal_err=nodal_err, launches=launches,
-                         b2_launches_expected=per_apply * (st.iters + 1),
+                         b1_launches_expected=st.iters + 1,
+                         b2_launches_expected=b2_per_apply * (st.iters + 1),
                          single_device=ref.timings.get("ordering", "lattice"),
                          single_device_iters=ref.stats.iters,
                          single_device_ms_per_iter=1e3
@@ -2129,7 +2199,9 @@ def _dist_ell_halo(dev, counted, single, dia_bjacobi, errs, rng, smi, peak):
                                  setup.recv_mat_dest, setup.recv_rhs_dest))),
                      phase="dist_ell_halo")
         _check(t["assembly_layout"] == "ell" and t["distributed_assembly"]
-               and t["inshard_kernel"] == "ell_spmv"
+               and t["inshard_kernel"] == "hybrid"
+               and t.get("hybrid_diagonals") == 15
+               and t.get("hybrid_nnz_rem") == 0
                and t["precond_used"] == pc,
                f"dist_ell_halo n=96 {pc}: {t}")
         if pc == "jacobi":
@@ -2141,15 +2213,16 @@ def _dist_ell_halo(dev, counted, single, dia_bjacobi, errs, rng, smi, peak):
                    and nodal_err <= NODAL_ERR_MAX,
                    f"dist_ell_halo n=96 ic0: {st}, nodal {nodal_err}, "
                    f"not within {PC_BAND:.0%} of {bar}")
-        _check(launches["ell_spmv"] == per_apply * (st.iters + 1)
-               and launches["dia_spmv"] == 0,
+        _check(launches["dia_spmv"] == st.iters + 1
+               and launches["ell_spmv"] == b2_per_apply * (st.iters + 1),
                f"dist_ell_halo n=96 {pc}: launches {launches} vs "
                f"{st.iters} iterations")
         _check(not PLAIN_ON_CARD, f"dist_ell_halo: plain SpMVs on the card "
                f"{dict(PLAIN_ON_CARD)}")
         call = rec["distributed_cg_solve_ell"][0]
         p_world1 = call[0][0].shape[0]
-        _b2_on_ell_block(f"sharded ELL n=96 {pc}", call, errs, rng)
+        hybrid_blocks.update(_ell_route_blocks(f"sharded ELL n=96 {pc}",
+                                               call, errs, rng))
         runs[f"sharded ELL renumbered n=96 f32 {pc} (world 1)"] = res
         del rec, setup, call
 
@@ -2166,7 +2239,7 @@ def _dist_ell_halo(dev, counted, single, dia_bjacobi, errs, rng, smi, peak):
             rm3, 3, rd3, efn, dtype=torch.float64, rtol=1e-6,
             precond="bjacobi", recover=False, device=dev), counted,
             "sharded ELL renumbered elasticity3d f64 bjacobi (world 1)")
-    b2 += launches["ell_spmv"]
+    route.update(launches)
     u = r.u_full.reshape(-1, 3)[perm].reshape(-1)
     rel = float(np.abs(u - dia_bjacobi.u_full).max()
                 / np.abs(dia_bjacobi.u_full).max())
@@ -2179,6 +2252,7 @@ def _dist_ell_halo(dev, counted, single, dia_bjacobi, errs, rng, smi, peak):
                      u_rel_vs_dia_route=rel), phase="dist_ell_halo")
     _check(r.stats.converged and r.stats.relres <= 1e-6
            and r.timings["assembly_layout"] == "ell"
+           and r.timings["inshard_kernel"] == "ell_spmv"
            and r.timings["precond_used"] == "bjacobi",
            f"dist_ell_halo elasticity: {r.stats} {r.timings}")
     _check(abs(r.stats.iters - bar) <= DIST_ELL_EL3D_BAND * bar
@@ -2188,9 +2262,55 @@ def _dist_ell_halo(dev, counted, single, dia_bjacobi, errs, rng, smi, peak):
     _check(launches["ell_spmv"] == r.stats.iters + 1
            and launches["dia_spmv"] == 0,
            f"dist_ell_halo elasticity: launches {launches}")
-    _b2_on_ell_block("sharded ELL elasticity3d bjacobi",
-                     rec["distributed_cg_solve_ell"][0], errs, rng)
+    _ell_route_blocks("sharded ELL elasticity3d bjacobi",
+                      rec["distributed_cg_solve_ell"][0], errs, rng)
     runs["sharded ELL renumbered elasticity3d f64 bjacobi (world 1)"] = r
+    del rec
+
+    # phase 19's Delaunay mesh on the route: at world size 1 the rank's
+    # hybrid keeps the dense diagonals of its geometric order and has a
+    # remainder, so every product launches B1 and B2
+    md, dd, r19 = delaunay
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    rec = {}
+    label = f"sharded ELL Delaunay n={N_DELAUNAY_F32} f32 jacobi (world 1)"
+    with _recorded(rec, "distributed_cg_solve_ell"):
+        r, launches = _counted(lambda: solve_implicit_sharded(
+            md, 1, dd, _poisson_fn, dtype=torch.float32, rtol=1e-6,
+            recover=False, device=dev), counted, label)
+    route.update(launches)
+    it, t = r.stats.iters, r.timings
+    nodal_err = float(np.abs(r.u_full - (md.coords ** 2).sum(1)).max())
+    _dist_stages(f"scrambled Delaunay n={N_DELAUNAY_F32} f32 jacobi, ELL "
+                 "route", r, base, dict(
+                     nodal_err=nodal_err, launches=launches,
+                     single_device_iters=r19.stats.iters,
+                     single_device_hybrid={
+                         k: v for k, v in r19.timings.items()
+                         if k.startswith("hybrid_") or k == "ordering"},
+                     single_device_ms_per_iter=1e3 * r19.timings["solve_s"]
+                     / max(r19.stats.iters, 1)), phase="dist_ell_halo")
+    _check(r.stats.converged and r.stats.relres <= 1e-6
+           and bool(np.isfinite(r.u_full).all())
+           and t["assembly_layout"] == "ell"
+           and t["inshard_kernel"] == "hybrid"
+           and t.get("hybrid_diagonals", 0) > 0
+           and t.get("hybrid_nnz_rem", 0) > 0,
+           f"dist_ell_halo Delaunay: {r.stats} {t}")
+    _check(abs(it - r19.stats.iters) <= DELAUNAY_ROUTE_BAND * r19.stats.iters,
+           f"dist_ell_halo Delaunay: {it} iterations, not within "
+           f"{DELAUNAY_ROUTE_BAND:.0%} of the single device's "
+           f"{r19.stats.iters}")
+    _check(launches["dia_spmv"] >= it and launches["ell_spmv"] >= it,
+           f"dist_ell_halo Delaunay: launches {launches} for {it} "
+           "iterations")
+    _check(not PLAIN_ON_CARD, f"dist_ell_halo: plain SpMVs on the card "
+           f"{dict(PLAIN_ON_CARD)}")
+    hybrid_blocks.update(_ell_route_blocks(
+        f"sharded ELL Delaunay n={N_DELAUNAY_F32}",
+        rec["distributed_cg_solve_ell"][0], errs, rng))
+    runs[label] = r
     del rec
 
     # B2 at one rank of an 8-way RCB partition: the block that rank's every
@@ -2272,7 +2392,7 @@ def _dist_ell_halo(dev, counted, single, dia_bjacobi, errs, rng, smi, peak):
            and diff <= PARTITIONED_U_TOL and nodal_err <= 1e-6,
            f"solve_poisson_partitioned: {res.stats}, u differs by {diff}, "
            f"nodal {nodal_err}")
-    return runs, [row], b2
+    return runs, [row], dict(route), hybrid_blocks
 
 
 def _dist_ell(dev, counted):
@@ -2338,24 +2458,16 @@ def _route(mesh, dbc, ranks):
 
 def _cli_sharded(dev):
     """Phase 29: `poisson --shards 2 --device cpu` (two gloo ranks started
-    by the CLI) against the single-device CLI solve on the card, on a box
-    (the DIA route) and on a scrambled Delaunay mesh (the ELL route), and
-    `--shards 2 --device cuda` on this one-card machine, which must fail
-    naming the card count."""
-    def run(label, *argv):
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "pfemfort_tpu_torch",
-                               *argv], cwd=ROOT, capture_output=True,
-                              text=True, timeout=600)
-        _phase("cli", subcommand=label, seconds=time.perf_counter() - t0,
-               exit=proc.returncode, output=proc.stdout.strip().splitlines(),
-               stderr_tail=proc.stderr.strip().splitlines()[-2:])
-        return proc
-
+    by the CLI) against the single-device solve on the card, on a box
+    (the DIA route; the single-device CLI) and on a scrambled Delaunay
+    mesh (the ELL route; solve_poisson in this process), and `--shards 2
+    --device cuda` on this one-card machine, which must fail naming the
+    card count.  The four subprocesses run at once."""
     meshes = {"box_tet 8x8x16": generate.box_tet(0, 1, 8, 0, 1, 8, 0, 1, 16),
               f"scrambled Delaunay n={N_DELAUNAY_CLI}":
                   _scrambled_delaunay(N_DELAUNAY_CLI)}
     with tempfile.TemporaryDirectory() as tmp:
+        jobs, cases = [], []
         for (name, (mesh, dbc)), route in zip(meshes.items(),
                                               ("dia", "ell")):
             _check(_route(mesh, dbc, 2) == route,
@@ -2364,38 +2476,55 @@ def _cli_sharded(dev):
             mesh_io.write_dat(prefix, mesh, dirichlet=dbc)
             files = [prefix + s for s in ("-nodes.dat", "-elems.dat",
                                           "-DirichBC.dat")]
-            vd = prefix + "-dist.vtk"
+            vd, vs = prefix + "-dist.vtk", prefix + "-single.vtk"
             if route == "dia":
-                vs = prefix + "-single.vtk"
-                single = run(f"poisson {name} (single device)", "poisson",
-                             *files, "--device", dev.type, "--dtype",
-                             "float64", "-o", vs)
-                _check(single.returncode == 0, f"CLI poisson {name}: "
-                       f"{single.stdout}{single.stderr}")
-                u_single = _vtk_point_values(vs)
-            else:
-                # the single-device solve of the same files, in this
-                # process (one interpreter start fewer)
-                m_r, d_r, _ = mesh_io.read_problem(prefix)
-                u_single = solve_poisson(m_r, d_r, device=dev,
-                                         dtype=torch.float64).u_full
-            dist = run(f"poisson {name} --shards 2 --device cpu ({route} "
-                       "route)", "poisson", *files, "--shards", "2",
-                       "--device", "cpu", "--dtype", "float64", "-o", vd)
-            _check(dist.returncode == 0,
-                   f"CLI sharded poisson {name}: {dist.stdout}{dist.stderr}")
-            _check(dist.stdout.count("Convergence in") == 1
-                   and "Mesh statistics" in dist.stdout,
-                   f"CLI sharded poisson {name}: rank 0's report "
-                   f"{dist.stdout}")
-            diff = float(np.abs(_vtk_point_values(vd) - u_single).max())
-            _phase("cli", subcommand=f"poisson {name} --shards 2 vs single "
-                   "device", route=route, max_abs_u_diff=diff,
-                   bound=CLI_SHARDED_U_TOL)
-            _check(diff <= CLI_SHARDED_U_TOL,
-                   f"CLI sharded {name}: u differs by {diff}")
-        bad = run("poisson --shards 2 --device cuda", "poisson", *files,
-                  "--shards", "2", "--device", "cuda")
+                jobs.append((f"poisson {name} (single device)",
+                             ["poisson", *files, "--device", dev.type,
+                              "--dtype", "float64", "-o", vs]))
+            label = f"poisson {name} --shards 2 --device cpu ({route} route)"
+            jobs.append((label, ["poisson", *files, "--shards", "2",
+                                 "--device", "cpu", "--dtype", "float64",
+                                 "-o", vd]))
+            cases.append((name, route, prefix, vd, vs, label))
+        jobs.append(("poisson --shards 2 --device cuda",
+                     ["poisson", *files, "--shards", "2", "--device",
+                      "cuda"]))
+
+        def finished(label):
+            proc, secs = result(label)
+            _phase("cli", subcommand=label, seconds=secs,
+                   exit=proc.returncode,
+                   output=proc.stdout.strip().splitlines(),
+                   stderr_tail=proc.stderr.strip().splitlines()[-2:])
+            return proc
+
+        with _cli_batch(jobs) as result:
+            for name, route, prefix, vd, vs, label in cases:
+                if route == "dia":
+                    single = finished(f"poisson {name} (single device)")
+                    _check(single.returncode == 0, f"CLI poisson {name}: "
+                           f"{single.stdout}{single.stderr}")
+                    u_single = _vtk_point_values(vs)
+                else:
+                    # the single-device solve of the same files, in this
+                    # process (one interpreter start fewer)
+                    m_r, d_r, _ = mesh_io.read_problem(prefix)
+                    u_single = solve_poisson(m_r, d_r, device=dev,
+                                             dtype=torch.float64).u_full
+                dist = finished(label)
+                _check(dist.returncode == 0, f"CLI sharded poisson {name}: "
+                       f"{dist.stdout}{dist.stderr}")
+                _check(dist.stdout.count("Convergence in") == 1
+                       and "Mesh statistics" in dist.stdout,
+                       f"CLI sharded poisson {name}: rank 0's report "
+                       f"{dist.stdout}")
+                diff = float(np.abs(_vtk_point_values(vd) - u_single).max())
+                _phase("cli", subcommand=f"poisson {name} --shards 2 vs "
+                       "single device", route=route, max_abs_u_diff=diff,
+                       bound=CLI_SHARDED_U_TOL)
+                _check(diff <= CLI_SHARDED_U_TOL,
+                       f"CLI sharded {name}: u differs by {diff}")
+            bad = finished("poisson --shards 2 --device cuda")
         found = torch.cuda.device_count()
         _check(bad.returncode != 0 and f"found {found}" in bad.stderr
                and "needs 2 CUDA cards" in bad.stderr,
@@ -2487,9 +2616,12 @@ def _dist_mg(dev, counted, mg_single, el3, errs, rng, smi, peak):
 
 def _dist_amg(dev, counted, amg_single, errs, rng):
     """Phase 31: precond='amg' on the sharded ELL route at world size 1:
-    the renumbered n=96 box (default_rng(2), recover=False), f32; B2 on the
-    solve's ghost-extended block and on its P0_s and P0_s^T blocks against
-    spmv_sliced, each launched during the solve.  Returns the solve."""
+    the renumbered n=96 box (default_rng(2), recover=False), f32, so the
+    fine operator is the per-rank hybrid (15 dense diagonals, no
+    remainder): B1 on its diagonals, B2 on the P0_s and P0_s^T blocks,
+    each launched during the solve and held against its plain version;
+    B2 on the whole ghost-extended block not at all.  Returns the
+    solve."""
     pmesh, pdbc = _permuted_box(N_FLAGSHIP, seed=2)
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -2502,11 +2634,12 @@ def _dist_amg(dev, counted, amg_single, errs, rng):
     nodal_err = float(np.abs(r.u_full - (pmesh.coords ** 2).sum(1)).max())
     call = rec.pop("distributed_cg_solve_ell")[0]
     (cols_local, vals, _, halo), kw, _ = call
-    amg = kw["amg"]
+    amg, H = kw["amg"], kw["hybrid"]
     ghost = slice_ell(cols_local, halo.n_cols).pack(vals)
     shapes = SOLVE_SHAPES[label]
     by_block = {name: shapes[_shape_key(A)]
-                for name, A in (("ghost-extended block", ghost),
+                for name, A in (("hybrid dense diagonals", H.dia),
+                                ("ghost-extended block", ghost),
                                 ("P0_s", amg.p0), ("P0_s^T", amg.p0t))}
     it = r.stats.iters
     _dist_stages("renumbered n=96 rng(2) f32 amg", r, base, dict(
@@ -2521,15 +2654,17 @@ def _dist_amg(dev, counted, amg_single, errs, rng):
            and it <= AMG_ITERS_MAX and nodal_err <= NODAL_ERR_MAX,
            f"dist_amg: {r.stats}, nodal error {nodal_err}")
     _check(r.timings["precond_used"] == "amg"
-           and r.timings["assembly_layout"] == "ell",
+           and r.timings["assembly_layout"] == "ell"
+           and r.timings["inshard_kernel"] == "hybrid"
+           and H.rem is None and len(H.dia.offsets) == 15,
            f"dist_amg: {r.timings}")
-    _check(by_block["ghost-extended block"] >= it
+    _check(by_block["hybrid dense diagonals"] >= it
+           and by_block["ghost-extended block"] == 0
            and by_block["P0_s"] >= it and by_block["P0_s^T"] >= it,
-           f"dist_amg: B2 launches by block {by_block} for {it} "
-           "iterations")
+           f"dist_amg: launches by block {by_block} for {it} iterations")
     _check(not PLAIN_ON_CARD, f"dist_amg: plain SpMVs on the card "
            f"{dict(PLAIN_ON_CARD)}")
-    for name, A in (("ghost-extended block", ghost), ("P0_s", amg.p0),
+    for name, A in (("hybrid dense diagonals", H.dia), ("P0_s", amg.p0),
                     ("P0_s^T", amg.p0t)):
         _kernel_errors(f"dist_amg {name}", A, errs, rng)
     return r
@@ -2957,6 +3092,7 @@ def main():
     # solve at n=96
     pc_runs["delaunay f32 hybrid"], _, hybrid_blocks = _delaunay_f32(
         dev, counted, errs, rng, delaunay_mesh)
+    delaunay = (*delaunay_mesh.result()[:2], pc_runs["delaunay f32 hybrid"])
     mesher.shutdown()
     pc_runs["matfree n=96"] = _matfree(dev, counted, mesh, dbc, solve_dia)
     highprec = {N_FLAGSHIP: _highprec(dev, counted, mesh, dbc)}
@@ -3099,10 +3235,11 @@ def main():
     dist_runs, main_halo_timing = _dist_dia(dev, counted, solve_dia, el3,
                                             errs, rng, smi, peak)
     _dist_ell(dev, counted)
-    ell_runs, ghost_timing, ghost_launches = _dist_ell_halo(
+    ell_runs, ghost_timing, route_launches, route_hybrid = _dist_ell_halo(
         dev, counted, {"jacobi": solve_ell, "ic0": pc_runs["ic0"]},
-        dist_runs["sharded elasticity3d f64 bjacobi (world 1)"], errs, rng,
-        smi, peak)
+        dist_runs["sharded elasticity3d f64 bjacobi (world 1)"], delaunay,
+        errs, rng, smi, peak)
+    del delaunay
     dist_runs.update(ell_runs)
     _cli_sharded(dev)
 
@@ -3156,8 +3293,34 @@ def main():
     ell_entry = entry("ell_spmv", "pfemfort_tpu_torch/csrc/ell_spmv.cu",
                       "pfemfort_tpu/sparse/slotgather.py:403", "ell_el2d",
                       "elasticity2d renumbered, ordered", torch.float64)
-    ell_entry["ghost_block"] = {"launches": ghost_launches,
+    ell_entry["ghost_block"] = {"launches": route_launches["ell_spmv"],
                                 "shapes": ghost_timing}
+
+    def rank_hybrid(is_dia):
+        """The per-rank hybrid's blocks of phase 28 that this kernel
+        multiplies, with their launches in each counted solve."""
+        shapes = []
+        for name, A in route_hybrid.items():
+            if isinstance(A, DIAMatrix) != is_dia:
+                continue
+            key = _shape_key(A)
+            shapes.append(dict(
+                block=name, rows=A.n_rows,
+                **({"diagonals": len(A.offsets)} if is_dia else
+                   {"n_cols": A.n_cols, "max_width": A.max_width}),
+                launches_per_solve={path: n[key] for path, n in
+                                    SOLVE_SHAPES.items() if n[key]},
+                max_abs_err={str(dt)[6:]: errs[(
+                    "dia_spmv" if is_dia else "ell_spmv", name, dt)]
+                    for dt in (torch.float32, torch.float64)}))
+        return shapes
+
+    dia_entry["rank_hybrid"] = {
+        "replaces": "pfemfort_tpu/parallel/dist_ell.py:449 (the DIA part)",
+        "launches": route_launches["dia_spmv"], "shapes": rank_hybrid(True)}
+    ell_entry["rank_hybrid"] = {
+        "replaces": "pfemfort_tpu/parallel/dist_ell.py:449 (the remainder)",
+        "shapes": rank_hybrid(False)}
     print(json.dumps({"kernels": [dia_entry, ell_entry]}), flush=True)
     multihost.shutdown()
     print(json.dumps({"ok": True, "device": {

@@ -19,9 +19,13 @@ timings["assembly_layout"]:
     no wider than a rank's rows (parallel/dist_assembly.py; the in-shard
     product is kernel B1's halo entry on the card);
   * 'ell': every other mesh (parallel/dist_ell.py: per-rank ELL assembly
-    with the point-to-point stash exchange; the in-shard product is kernel
-    B2 on the rank's ghost-extended block).  The ELL route partitions with
-    'rcb' when asked for 'slab', as the JAX package does.
+    with the point-to-point stash exchange).  A float32 system's in-shard
+    product is the per-rank hybrid (kernel B1 on the rank's dense local
+    diagonals and its own x, kernel B2 on the remainder and the ghost
+    columns), as in the JAX package; a float64 one, or one with no dense
+    diagonal, is kernel B2 on the rank's whole ghost-extended block.  The
+    ELL route partitions with 'rcb' when asked for 'slab', as the JAX
+    package does.
 Unlike the JAX package, no mesh falls back to replicated assembly.
 precond='mg' takes a third route on a coarsenable box_tet lattice without
 ForceBCs: the distributed geometric multigrid (parallel/dist_mg.py, the
@@ -46,7 +50,8 @@ from pfemfort_tpu_torch.mesh.reorder import recover_structure
 from pfemfort_tpu_torch.parallel.dist_assembly import DistSetup, \
     assemble_dia_local, build_dist_setup, local_plan
 from pfemfort_tpu_torch.parallel.dist_ell import DistELLSetup, \
-    assemble_ell_local, build_dist_ell_setup, build_ell_halo, ell_local_plan
+    assemble_ell_local, build_dist_ell_setup, build_ell_halo, \
+    build_ell_halo_hybrid, ell_local_plan
 from pfemfort_tpu_torch.parallel.multihost import world
 from pfemfort_tpu_torch.parallel.dist_mg import solve_sharded_mg
 from pfemfort_tpu_torch.parallel.shard_cg import _gathered, \
@@ -54,6 +59,7 @@ from pfemfort_tpu_torch.parallel.shard_cg import _gathered, \
 from pfemfort_tpu_torch.solve.amg import build_dist_samg
 from pfemfort_tpu_torch.solve.cg import SolveStats
 from pfemfort_tpu_torch.solve.ic0 import build_ic0_shard_block
+from pfemfort_tpu_torch.sparse.hybrid import hybrid_layout
 from pfemfort_tpu_torch.utils.device import resolve_device, \
     synchronize as _sync
 
@@ -181,8 +187,12 @@ def solve_implicit_sharded(
     (the host and device set-up), assemble_s, solve_s (each ends in a
     device synchronise), assembly_layout 'dia' or 'ell',
     distributed_assembly True, precond_requested, precond_used; on the
-    ELL route also inshard_kernel ('ell_spmv' on the card, 'spmv_sliced'
-    on the CPU) and, with IC(0), ic0_setup_s; with SA-AMG amg_setup_s,
+    ELL route also inshard_kernel ('hybrid' for a float32 system with
+    dense local diagonals, with hybrid_diagonals, the same on every rank,
+    this rank's hybrid_nnz_dia, hybrid_nnz_rem and hybrid_k_rem, and
+    hybrid_setup_s, the split's share of pattern_s; else
+    'ell_spmv' on the card, 'spmv_sliced' on the CPU) and, with IC(0),
+    ic0_setup_s; with SA-AMG amg_setup_s,
     amg_levels and amg_host_bytes (the values all-gathered to each rank's
     host).  The MG route's timings are solve_sharded_mg's."""
     wd = world()
@@ -264,14 +274,28 @@ def solve_implicit_sharded(
             method="rcb" if partition_method == "slab" else partition_method,
             device=device)
         halo = build_ell_halo(setup.sys, wd.rank, device=device)
+        # float32 systems go through the per-rank hybrid, as in the JAX
+        # package (drivers/sharded.py there) and on one device
+        # (drivers/common.py); float64 ones stay on B2
+        t_split = time.perf_counter()
+        plan = build_ell_halo_hybrid(halo) if dtype == torch.float32 \
+            else None
+        split = None if plan is None else hybrid_layout(plan, device)
         _sync(device)
+        t_split = time.perf_counter() - t_split
         t_pattern = time.perf_counter() - t0
         t0 = time.perf_counter()
         vals, b = assemble_implicit_sharded_ell(setup, element_fn, dtype,
                                                 device, force_bc)
+        hybrid = None if split is None else split.pack(vals)
         _sync(device)
         timings = dict(pattern_s=t_pattern,
                        assemble_s=time.perf_counter() - t0)
+        if plan is not None:
+            timings.update(hybrid_setup_s=t_split, hybrid_diagonals=plan.D,
+                           hybrid_nnz_dia=plan.nnz_dia,
+                           hybrid_nnz_rem=plan.nnz_rem,
+                           hybrid_k_rem=plan.k_rem)
         amg = ic0 = None
         if precond == "amg":
             t0 = time.perf_counter()
@@ -296,11 +320,12 @@ def solve_implicit_sharded(
         x, stats = distributed_cg_solve_ell(
             halo.cols_local, vals, b, halo, rtol=rtol, maxiter=maxiter,
             ndof_block=ndof if bjacobi else 1, ic0=ic0, method=method,
-            amg=amg)
+            amg=amg, hybrid=hybrid)
         _sync(device)
         timings.update(solve_s=time.perf_counter() - t0,
                        assembly_layout="ell",
-                       inshard_kernel="ell_spmv" if device.type == "cuda"
+                       inshard_kernel="hybrid" if hybrid is not None
+                       else "ell_spmv" if device.type == "cuda"
                        else "spmv_sliced")
         precond_used = "amg" if amg is not None else "ic0" \
             if ic0 is not None else "bjacobi" if bjacobi else "jacobi"

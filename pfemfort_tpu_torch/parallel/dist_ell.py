@@ -1,4 +1,4 @@
-# Ported from pfemfort_tpu/parallel/dist_ell.py (build_dist_ell_setup, build_ell_halo, spmv_ell_halo, assemble_ell_local).
+# Ported from pfemfort_tpu/parallel/dist_ell.py (build_dist_ell_setup, build_ell_halo, build_ell_halo_hybrid, prepare_hybrid_local, spmv_ell_halo, spmv_ell_halo_hybrid, assemble_ell_local).
 """Distributed (per-rank) implicit assembly and SpMV for UNSTRUCTURED meshes.
 
 The reference assembles element-partitioned on ANY METIS-partitioned mesh:
@@ -31,7 +31,17 @@ general-graph form over the ELL layout:
     tensor the product is kernel B2 (sparse/ell_spmv_cuda.py:ell_spmv) on
     the block laid out once in the sliced layout with n_cols = P + S*Wx, so
     the pad column P + S*Wx is a sentinel the kernel drops; on a CPU
-    tensor it is spmv_sliced on the same layout.
+    tensor it is spmv_sliced on the same layout;
+  * the per-rank hybrid (`build_ell_halo_hybrid`, `spmv_ell_halo_hybrid`;
+    sparse/hybrid.py's split applied to a rank's block): the own-own
+    couplings on the local diagonals c - r that are dense over all ranks
+    go to a (D, P) DIA block that kernel B1 multiplies by the rank's own
+    x_l (a local diagonal never leaves the rank's rows, so no ghost is
+    read); every other live slot, the ghost columns included, goes to a
+    sliced (P, P + S*Wx) remainder on kernel B2 and the ghost-extended
+    vector, with the same sentinel column.  Every rank picks the same
+    diagonals from one all_reduce(SUM) of its census.  The float32
+    solves of drivers/sharded.py take it, as the JAX package's do.
 
 Every exchange is pairs of `batch_isend_irecv`, one pair for each non-empty
 window, on both backends: gloo has no all_to_all (the JAX package's one
@@ -40,14 +50,16 @@ both.  A rank with nothing to exchange posts nothing (an empty batch
 raises), so a world of one rank posts nothing at all.  Every rank calls
 these functions together.
 
-The JAX package's TPU packings of the same product (its slot-gather and
-hybrid halo plans) are not carried.
+The JAX package's TPU packing of the ghost-extended block (its slot-gather
+plans, their V cap and int32 checks, and the hybrid's
+`Prow + S*Wx + 1 <= 2^21` gate) is not carried: B2 reads the sliced
+layout.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,8 +69,11 @@ from pfemfort_tpu_torch.assembly.assemble import Segments
 from pfemfort_tpu_torch.mesh.core import Mesh
 from pfemfort_tpu_torch.parallel.shard import ShardedSystem, \
     build_sharded_system
+from pfemfort_tpu_torch.sparse.dia_spmv_cuda import dia_spmv
 from pfemfort_tpu_torch.sparse.ell_spmv_cuda import ell_spmv
 from pfemfort_tpu_torch.sparse.formats import round_up
+from pfemfort_tpu_torch.sparse.hybrid import HybridMatrix, HybridPlan, \
+    dense_offsets, diagonal_counts, split_on_offsets
 from pfemfort_tpu_torch.sparse.sliced import SlicedELL
 
 
@@ -400,3 +415,71 @@ def spmv_ell_halo(A_l: SlicedELL, halo: EllHalo,
     one).  A_l: the rank's block laid out by
     slice_ell(halo.cols_local, halo.n_cols)."""
     return ell_spmv(A_l, exchange_ghosts(halo, x_l))
+
+
+def hybrid_counts(cols_local) -> np.ndarray:
+    """This rank's share of the hybrid's diagonal census: (2P - 1,) int64,
+    its slots with an own column (local id < P) by local diagonal
+    c - r + P - 1, from its (P, K) ghost-extended columns.  A ghost column
+    is never on a local diagonal."""
+    cols = np.asarray(cols_local, dtype=np.int64)
+    return diagonal_counts(cols, cols.shape[0])
+
+
+def hybrid_offsets(counts_sum, n_shards: int, fill_threshold: float = 0.2,
+                   max_d: int = 48) -> Tuple[int, ...]:
+    """The dense local diagonals, from the census summed over every rank:
+    those that at least `fill_threshold` of all S*P rows populate, the
+    `max_d` most filled when more pass (the JAX package's rule and tie
+    order), ascending.  Every rank gets the same tuple."""
+    P = (len(counts_sum) + 1) // 2
+    return dense_offsets(counts_sum, n_shards * P, fill_threshold, max_d)
+
+
+def hybrid_split(cols_local, offsets: Tuple[int, ...],
+                 n_cols: int) -> HybridPlan:
+    """A rank's split of its (P, K) ghost-extended columns on `offsets`:
+    dia_src (D, P), the flat index into the rank's (P, K) values of each
+    diagonal entry (-1 for none), and the remainder, every other slot
+    below n_cols = P + S*Wx (ghost columns included), as (P, K_rem)
+    columns with sentinel n_cols and their flat sources."""
+    cols = np.asarray(cols_local, dtype=np.int64)
+    P, K = cols.shape
+    src = np.arange(P * K, dtype=np.int64).reshape(P, K)
+    return split_on_offsets(cols, src, P, offsets, n_cols)
+
+
+def build_ell_halo_hybrid(halo: EllHalo, fill_threshold: float = 0.2,
+                          max_d: int = 48) -> Optional[HybridPlan]:
+    """This rank's hybrid split of its ghost-extended block: its census,
+    one all_reduce(SUM) so that every rank picks the same diagonals, and
+    its split on them.  None when no diagonal is dense (the route then
+    keeps B2 on the whole block).  `hybrid_layout(plan, device)` lays it
+    out once per pattern and `.pack(vals_l)` packs each assembly's values
+    with one gather a part.  Every rank of the default process group calls
+    it together."""
+    cols = halo.cols_local.cpu().numpy()
+    cnt = torch.as_tensor(hybrid_counts(cols),
+                          device=halo.cols_local.device)
+    dist.all_reduce(cnt)
+    offsets = hybrid_offsets(cnt.cpu().numpy(), halo.n_shards,
+                             fill_threshold, max_d)
+    if not offsets:
+        return None
+    return hybrid_split(cols, offsets, halo.n_cols)
+
+
+def spmv_ell_halo_hybrid(H_l: HybridMatrix, halo: EllHalo,
+                         x_l: torch.Tensor) -> torch.Tensor:
+    """y_l = (A x)_l through the rank's hybrid: B1 on the dense local
+    diagonals and x_l, issued before the exchange since it reads no ghost,
+    then B2 on the remainder and the ghost-extended vector (each wrapper
+    takes its plain version on a CPU tensor).  Every ghost column lies in
+    the remainder, so a rank without one reads no ghost and skips B2; it
+    still sends what the other ranks read from it."""
+    y = dia_spmv(H_l.dia, x_l)
+    if H_l.rem is None:
+        if halo.sends:
+            exchange_ghosts(halo, x_l)
+        return y
+    return y + ell_spmv(H_l.rem, exchange_ghosts(halo, x_l))

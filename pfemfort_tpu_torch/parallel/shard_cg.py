@@ -7,9 +7,10 @@ SURVEY §2.6).  Every rank calls these functions with its own block of rows
 and runs the same Krylov body (solve/cg.py, solve/gmres.py) with
   * its in-shard SpMV: the halo-exchange DIA product (parallel/halo.py;
     kernel B1's halo entry on the card), the ghost-exchange ELL product
-    (parallel/dist_ell.py; kernel B2 on the ghost-extended block) or, on
-    the all-gather route, the gathered x times the rank's rows (kernel B2
-    on the card);
+    (parallel/dist_ell.py; kernel B2 on the ghost-extended block, or the
+    per-rank hybrid: B1 on the rank's dense local diagonals and B2 on the
+    remainder) or, on the all-gather route, the gathered x times the
+    rank's rows (kernel B2 on the card);
   * dots = a local torch.dot followed by one all_reduce (PETSc's VecDot
     allreduce); `dot2` stacks CG's two dots after the preconditioner into
     ONE all_reduce.  Every rank reads the same reduced scalars, so every
@@ -26,7 +27,8 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from pfemfort_tpu_torch.parallel.dist_ell import EllHalo, spmv_ell_halo
+from pfemfort_tpu_torch.parallel.dist_ell import EllHalo, spmv_ell_halo, \
+    spmv_ell_halo_hybrid
 from pfemfort_tpu_torch.parallel.halo import halo_width, spmv_dia_halo, \
     spmv_dia_halo_b1
 from pfemfort_tpu_torch.solve.cg import SolveStats, bicgstab_solve, \
@@ -35,6 +37,7 @@ from pfemfort_tpu_torch.solve.gmres import gmres_solve
 from pfemfort_tpu_torch.solve.ic0 import IC0Arrays, ic0_preconditioner
 from pfemfort_tpu_torch.sparse.dia import DIAMatrix
 from pfemfort_tpu_torch.sparse.ell_spmv_cuda import ell_spmv
+from pfemfort_tpu_torch.sparse.hybrid import HybridMatrix
 from pfemfort_tpu_torch.sparse.sliced import slice_ell
 
 
@@ -214,15 +217,22 @@ def distributed_cg_solve_ell(
     ic0: Optional[IC0Arrays] = None,
     method: str = "cg",
     amg=None,
+    hybrid: Optional[HybridMatrix] = None,
 ) -> Tuple[torch.Tensor, SolveStats]:
     """Krylov solve over the unstructured per-rank ELL blocks with the
     pairwise ghost exchange (parallel/dist_ell.py:spmv_ell_halo): per
     iteration the partition surface's values plus the dot all_reduces, not
     the whole vector.
 
-    The rank's block is laid out once in the sliced layout of its
-    ghost-extended column space; every product on a card tensor is kernel
-    B2 (spmv_sliced on a CPU tensor).  The preconditioner: `ic0`, the
+    The operator: with `hybrid`, the rank's hybrid of the same values
+    (dist_ell.build_ell_halo_hybrid, laid out and packed by
+    sparse/hybrid.py:hybrid_layout), multiplied by
+    dist_ell.spmv_ell_halo_hybrid: B1 on its dense local diagonals, B2 on
+    its remainder and ghost columns; else the rank's block laid out once
+    in the sliced layout of its ghost-extended column space, every product
+    on a card tensor kernel B2 (spmv_sliced on a CPU tensor).  The
+    preconditioners below read `cols_local` and `vals_l` either way.  The
+    preconditioner: `ic0`, the
     rank's IC(0) block (solve/ic0.py:build_ic0_shard_block; PC=BJACOBI
     with one ILU-class factorization per rank, its T and T^T products on
     B2 too), under every Krylov method; else per-node block-Jacobi for
@@ -230,15 +240,19 @@ def distributed_cg_solve_ell(
     diagonal.  `amg`, the rank's share of a distributed SA-AMG hierarchy
     (solve/amg.py:build_dist_samg), takes precedence over `ic0` and
     `ndof_block`, as in the JAX package; its fine smoother is this solve's
-    own ghost-exchange operator.
+    own operator (the hybrid when given).
 
     Returns (x (N,) on every rank, SolveStats)."""
     P_ = b_l.shape[0]
     krylov = _krylov_body(method)
-    A_l = slice_ell(cols_local, halo.n_cols).pack(vals_l)
+    if hybrid is not None:
+        def operator(x_l):
+            return spmv_ell_halo_hybrid(hybrid, halo, x_l)
+    else:
+        A_l = slice_ell(cols_local, halo.n_cols).pack(vals_l)
 
-    def operator(x_l):
-        return spmv_ell_halo(A_l, halo, x_l)
+        def operator(x_l):
+            return spmv_ell_halo(A_l, halo, x_l)
 
     rows = torch.arange(P_, dtype=torch.int64, device=b_l.device)[:, None]
     if amg is not None:

@@ -16,7 +16,10 @@ diagonals.  So split, once per sparsity pattern:
   * A_rem: everything else, as an (N, K_rem) padded-ELL block in the host
     plan, laid out on the device in B2's sliced layout (sparse/sliced.py).
 
-Both parts read the same x; y = y_dia + y_rem.  The split is a host plan of
+Both parts read the same x; y = y_dia + y_rem.  (A rank of the distributed
+ELL route splits its own block the same way, parallel/dist_ell.py: there
+the remainder also holds the ghost columns and reads the ghost-extended x,
+while the DIA part reads the rank's own.)  The split is a host plan of
 flat source indices into the assembled (N, K) ELL values, so each assembly
 packs both parts with one device gather each.  The JAX package packed the
 remainder into its TPU slot-gather layout; on the card B2 reads it sliced,
@@ -60,6 +63,12 @@ class HybridPlan:
     rem_src: Optional[np.ndarray]  # (N, K_rem) int64 flat source, or -1
     nnz_dia: int = 0
     nnz_rem: int = 0
+    n_cols: Optional[int] = None   # the remainder's columns (and sentinel);
+    #                                None: n_rows (a square system)
+
+    @property
+    def rem_n_cols(self) -> int:
+        return self.n_rows if self.n_cols is None else self.n_cols
 
     @property
     def D(self) -> int:
@@ -90,25 +99,54 @@ def split_sorted(cols: np.ndarray, src_of_slot: np.ndarray, n_rows: int,
     """`build_hybrid_plan` from the permuted columns and their sources
     (sparse/ordering.py:permuted_sorted_cols), for callers that have
     them."""
-    N, K = cols.shape
-    rows2d = np.arange(N, dtype=np.int64)[:, None]
+    offsets = dense_offsets(diagonal_counts(cols, n_rows), len(cols),
+                            fill_threshold, max_d)
+    return split_on_offsets(cols, src_of_slot, n_rows, offsets)
+
+
+def diagonal_counts(cols: np.ndarray, n_rows: int) -> np.ndarray:
+    """(2 n_rows - 1,) int64: the slots of an (n_rows, K) column array
+    whose column lies below n_rows, by diagonal c - r + n_rows - 1."""
+    rows2d = np.arange(cols.shape[0], dtype=np.int64)[:, None]
     valid = cols < n_rows
     off = np.where(valid, cols - rows2d, 0)
-    shift = n_rows - 1
-    cnt = np.bincount((off + shift).ravel()[valid.ravel()],
-                      minlength=2 * n_rows - 1)
+    return np.bincount((off + n_rows - 1).ravel()[valid.ravel()],
+                       minlength=2 * n_rows - 1)
 
-    thresh = max(int(fill_threshold * N), 1)
-    cand = np.nonzero(cnt >= thresh)[0]
+
+def dense_offsets(counts: np.ndarray, rows: int, fill_threshold: float = 0.2,
+                  max_d: int = 48) -> Tuple[int, ...]:
+    """The diagonals that at least `fill_threshold` of `rows` rows populate,
+    from per-diagonal counts indexed as `diagonal_counts` indexes them: the
+    `max_d` most filled when more pass (ties broken as the JAX package's
+    stable argsort breaks them), in ascending order."""
+    counts = np.asarray(counts)
+    thresh = max(int(fill_threshold * rows), 1)
+    cand = np.nonzero(counts >= thresh)[0]
     if len(cand) > max_d:
-        cand = cand[np.argsort(cnt[cand], kind="stable")[::-1][:max_d]]
-    offsets = tuple(int(o) for o in np.sort(cand - shift))
+        cand = cand[np.argsort(counts[cand], kind="stable")[::-1][:max_d]]
+    return tuple(int(o) for o in np.sort(cand - (len(counts) - 1) // 2))
+
+
+def split_on_offsets(cols: np.ndarray, src_of_slot: np.ndarray, n_rows: int,
+                     offsets: Tuple[int, ...],
+                     n_cols: Optional[int] = None) -> HybridPlan:
+    """Split an (n_rows, K) column array on the given diagonals: the slots
+    whose column lies below n_rows on one of `offsets` go to the DIA block,
+    every other slot below `n_cols` (default n_rows; a wider block's extra
+    columns are never on a diagonal) to the remainder, sentinel n_cols."""
+    N, K = cols.shape
+    n_cols = n_rows if n_cols is None else int(n_cols)
+    rows2d = np.arange(N, dtype=np.int64)[:, None]
+    own = cols < n_rows
+    off = np.where(own, cols - rows2d, 0)
+    shift = n_rows - 1
     D = len(offsets)
 
     off2d = np.full(2 * n_rows - 1, -1, dtype=np.int32)
     off2d[np.asarray(offsets, np.int64) + shift] = np.arange(
         D, dtype=np.int32)
-    d_idx = np.where(valid, off2d[off + shift], -1)
+    d_idx = np.where(own, off2d[off + shift], -1)
     in_dia = d_idx >= 0
 
     dia_src = np.full((D, n_rows), -1, dtype=np.int64)
@@ -116,28 +154,29 @@ def split_sorted(cols: np.ndarray, src_of_slot: np.ndarray, n_rows: int,
     dia_src[d_idx[in_dia], rr[in_dia]] = src_of_slot[in_dia]
     nnz_dia = int(in_dia.sum())
 
-    rem = valid & ~in_dia
+    rem = (cols < n_cols) & ~in_dia
     nnz_rem = int(rem.sum())
     rem_cols = rem_src = None
     if nnz_rem:
         k_rem = int(rem.sum(axis=1).max(initial=1))
-        rem_cols = np.full((N, k_rem), n_rows, dtype=np.int64)
+        rem_cols = np.full((N, k_rem), n_cols, dtype=np.int64)
         rem_src = np.full((N, k_rem), -1, dtype=np.int64)
         within = np.cumsum(rem, axis=1) - 1
         rws, w = rr[rem], within[rem]
         rem_cols[rws, w] = cols[rem]
         rem_src[rws, w] = src_of_slot[rem]
 
-    return HybridPlan(n_rows=n_rows, offsets=offsets, dia_src=dia_src,
+    return HybridPlan(n_rows=n_rows, offsets=tuple(offsets), dia_src=dia_src,
                       rem_cols=rem_cols, rem_src=rem_src, nnz_dia=nnz_dia,
-                      nnz_rem=nnz_rem)
+                      nnz_rem=nnz_rem,
+                      n_cols=None if n_cols == n_rows else n_cols)
 
 
 def plan_bytes(plan: HybridPlan, value_bytes: int) -> int:
     """Bytes one product reads from the two blocks: the diagonals' values,
     and the sliced remainder's values and int32 columns."""
     rem = 0 if plan.rem_cols is None else sliced_slots(plan.rem_cols,
-                                                       plan.n_rows)
+                                                       plan.rem_n_cols)
     return plan.n_rows * plan.D * value_bytes + rem * (value_bytes + 4)
 
 
@@ -148,7 +187,8 @@ def plan_bytes(plan: HybridPlan, value_bytes: int) -> int:
 def apply_hybrid_reference(plan: HybridPlan, vals: np.ndarray,
                            x: np.ndarray) -> np.ndarray:
     """y = A_p x from the plan arrays alone.  `vals`: UN-permuted (N, K)
-    ELL values; `x` lives in the plan's (permuted) row space."""
+    ELL values; `x` lives in the plan's (permuted) row space, with the
+    remainder's extra columns after its rows when the plan has any."""
     flat = np.asarray(vals).reshape(-1)
     y = np.zeros(plan.n_rows, dtype=x.dtype)
     for d, o in enumerate(plan.offsets):
@@ -159,7 +199,7 @@ def apply_hybrid_reference(plan: HybridPlan, vals: np.ndarray,
         ok = plan.rem_src >= 0
         rv = np.where(ok, flat[np.clip(plan.rem_src, 0, None)], 0.0)
         xp = np.concatenate([x, np.zeros(1, x.dtype)])
-        y = y + (rv * xp[np.minimum(plan.rem_cols, plan.n_rows)]).sum(1)
+        y = y + (rv * xp[np.minimum(plan.rem_cols, plan.rem_n_cols)]).sum(1)
     return y
 
 
@@ -170,8 +210,10 @@ def apply_hybrid_reference(plan: HybridPlan, vals: np.ndarray,
 @dataclasses.dataclass(frozen=True)
 class HybridMatrix:
     """The two blocks of a hybrid operator on one device: a DIA block for
-    kernel B1 (None when no diagonal passed the threshold) and a square
-    sliced ELL remainder for kernel B2 (None when it is empty)."""
+    kernel B1 (None when no diagonal passed the threshold) and a sliced ELL
+    remainder for kernel B2 (None when it is empty).  The remainder is
+    square on one device; a rank's remainder (parallel/dist_ell.py) also
+    reads its ghost columns, past n_rows."""
     n_rows: int
     dia: Optional[DIAMatrix]
     rem: Optional[SlicedELL]
@@ -207,14 +249,16 @@ class HybridLayout:
 
 def hybrid_layout(plan: HybridPlan, device) -> HybridLayout:
     """Lay a plan's index arrays out on `device`, once per pattern: the
-    remainder sliced, its sources composed with the plan's rem_src."""
+    remainder sliced over its n_cols columns, its sources composed with
+    the plan's rem_src."""
     device = torch.device(device)
     as_t = lambda a, dt: torch.as_tensor(a, dtype=dt, device=device)
     has_dia = plan.D > 0
     rem = None
     if plan.rem_cols is not None:
         rem = slice_ell(as_t(plan.rem_cols, torch.int64),
-                        plan.n_rows).compose(as_t(plan.rem_src, torch.int64))
+                        plan.rem_n_cols).compose(as_t(plan.rem_src,
+                                                      torch.int64))
     return HybridLayout(
         n_rows=plan.n_rows, offsets=plan.offsets,
         dia_src=as_t(plan.dia_src, torch.int64) if has_dia else None,

@@ -10,7 +10,9 @@ The port adds the card's clock and the SpMV roofline that chip_smoke.py
 and the bench harness (bench.py) share: `device_ms` (CUDA events, the
 host's cost per call hidden behind a sleep kernel), `spmv_work` and
 `spmv_bound` (the least time one y = A x can take at the card's data-sheet
-memory and arithmetic rates, `peak_gbps`, `PEAK_FLOPS`).
+memory and arithmetic rates, `peak_gbps`, `PEAK_FLOPS`), and `library_csr`,
+the same matrix for the library's product (cuSPARSE on the card), which
+the measurements time beside the kernels and the port never calls.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Dict, Tuple
 import torch
 
 from pfemfort_tpu_torch.sparse.dia import DIAMatrix
+from pfemfort_tpu_torch.sparse.sliced import unslice
 
 # Data-sheet HBM peaks in GB/s by card name; an unknown card is measured
 # against the H100 SXM's.
@@ -116,3 +119,31 @@ def spmv_bound(A, nnz: int, peak: float, halo: int = 0
     t_ops = flops / PEAK_FLOPS[A.vals.dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations"), nbytes
+
+
+def library_csr(A) -> Tuple[torch.Tensor, int]:
+    """torch.sparse_csr_tensor of a DIA (its nonzero in-range entries) or
+    sliced ELL (its non-sentinel slots) matrix, int32 indices: its product
+    with x is one library SpMV (cuSPARSE on the card).  Returns (csr,
+    nnz)."""
+    dev = A.vals.device
+    if isinstance(A, DIAMatrix):
+        N = A.n_rows
+        rows = torch.arange(N, device=dev)
+        offs = torch.tensor(A.offsets, dtype=torch.int64, device=dev)
+        cols = rows[:, None] + offs[None, :]
+        vals = A.vals.t()
+        keep = (cols >= 0) & (cols < N) & (vals != 0)
+        n_cols = N
+    else:
+        E = unslice(A)
+        cols, vals = E.cols.to(torch.int64), E.vals
+        keep = cols < A.n_cols
+        n_cols = A.n_cols
+    counts = keep.sum(1)
+    crow = torch.zeros(A.n_rows + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum(counts, 0)
+    csr = torch.sparse_csr_tensor(crow.to(torch.int32),
+                                  cols[keep].to(torch.int32), vals[keep],
+                                  size=(A.n_rows, n_cols))
+    return csr, int(crow[-1])

@@ -746,6 +746,70 @@ def test_ell_kernel_on_a_ghost_extended_block(cuda, dtype):
         assert _rel_err(y, y_ref) <= REL_TOL[dtype]
 
 
+def _rank_hybrid(S, r, device, dtype):
+    """Rank r's per-rank hybrid (parallel/dist_ell.py) of an S-way RCB
+    partition of a scrambled box_tet n=12, the diagonals picked from every
+    rank's census as the float32 ELL route picks them, random values.
+    Returns (the hybrid, the rank's (P, K) ghost-extended columns, its
+    values, n_cols = P + S*Wx)."""
+    from pfemfort_tpu_torch.parallel.dist_ell import hybrid_counts, \
+        hybrid_offsets, hybrid_split, local_columns, reader_plan
+    from pfemfort_tpu_torch.parallel.shard import build_sharded_system
+    from pfemfort_tpu_torch.sparse.hybrid import hybrid_layout
+
+    mesh, dbc = _permuted_box(12)
+    sys_ = build_sharded_system(mesh, 1, dbc, S, method="rcb", layout="ell")
+    P, n_rows = sys_.rows_per_shard, sys_.n_rows_padded
+    cols = torch.as_tensor(sys_.pattern.ell_cols)
+    blocks = [cols[t * P:(t + 1) * P] for t in range(S)]
+    plans = [reader_plan(c, t, S, n_rows) for t, c in enumerate(blocks)]
+    wx = 8 * -(-max(max(int(p.counts.max()) for p in plans), 1) // 8)
+    host = [local_columns(c, plans[t], t, S, n_rows, wx).numpy()
+            for t, c in enumerate(blocks)]
+    n_cols = P + S * wx
+    plan = hybrid_split(host[r], hybrid_offsets(
+        sum(hybrid_counts(c) for c in host), S), n_cols)
+    vals = torch.as_tensor(np.random.default_rng(7).standard_normal(
+        host[r].shape), dtype=dtype, device=device)
+    return hybrid_layout(plan, device).pack(vals), host[r], vals, n_cols
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["rank 1 of 4", "world size 1"])
+def test_rank_hybrid_parts_match_plain(cuda, case, dtype):
+    """The two parts of a rank's hybrid: B1 on the dense local diagonals
+    and the rank's own x, B2 on the remainder (ghost columns included) and
+    the ghost-extended x, each against its plain version, and their sum
+    against the plain product of the rank's whole ghost-extended block.
+    At rank 1 of 4 the remainder holds the ghosts; at world size 1 the
+    lex-ordered rank is the lattice stencil and the remainder is empty."""
+    from pfemfort_tpu_torch.sparse.hybrid import HybridMatrix
+
+    S, r = (4, 1) if case == "rank 1 of 4" else (1, 0)
+    H, cols, vals, n_cols = _rank_hybrid(S, r, cuda, dtype)
+    assert isinstance(H, HybridMatrix) and H.dia is not None
+    assert (H.rem is None) == (S == 1)
+    P = H.n_rows
+    x = torch.as_tensor(np.random.default_rng(8).standard_normal(n_cols),
+                        dtype=dtype, device=cuda)
+    before = (dia_spmv_cuda.kernel.launches, ell_spmv_cuda.kernel.launches)
+    y = dia_spmv_cuda.dia_spmv(H.dia, x[:P])
+    torch.cuda.synchronize()
+    assert dia_spmv_cuda.kernel.launches == before[0] + 1
+    assert _rel_err(y, spmv_dia(H.dia, x[:P])) <= REL_TOL[dtype]
+    if H.rem is not None:
+        assert int((H.rem.cols >= P).logical_and(H.rem.cols < n_cols).sum())
+        y_rem = ell_spmv_cuda.ell_spmv(H.rem, x)
+        torch.cuda.synchronize()
+        assert ell_spmv_cuda.kernel.launches == before[1] + 1
+        assert _rel_err(y_rem, spmv_sliced(H.rem, x)) <= REL_TOL[dtype]
+        y = y + y_rem
+    c = torch.as_tensor(cols, dtype=torch.int32, device=cuda)
+    whole = ELLMatrix(cols=c, vals=torch.where(c < n_cols, vals, 0.0),
+                      n_cols=n_cols)
+    assert _rel_err(y, spmv_ell(whole, x)) <= REL_TOL[dtype]
+
+
 def _b1_block(shape, device, dtype):
     """A B1 block at the shapes of the bit-equality cases: the lattice
     system, the 59-diagonal 3D elasticity census, a ragged block whose
@@ -908,6 +972,33 @@ def test_dist_amg_blocks_on_the_card_match_plain(nccl1):
             torch.cuda.synchronize()
             assert ell_spmv_cuda.kernel.launches == before + 1
             assert _rel_err(y, spmv_sliced(A, x)) <= REL_TOL[dtype]
+
+
+def test_float32_ell_route_on_the_card_runs_the_rank_hybrid(nccl1):
+    """The sharded ELL route at world size 1 in float32: the per-rank
+    hybrid, which for a renumbered box is the 15 lattice diagonals on B1
+    and no remainder, so B1 launches once an iteration and once for r0,
+    B2 not at all; against the float64 route (B2) on the CPU's numbers of
+    the same system."""
+    from pfemfort_tpu_torch.drivers.sharded import solve_implicit_sharded
+    from pfemfort_tpu_torch.elements.poisson import poisson_element_matrices
+
+    mesh, dbc = _permuted_box(16)
+    fn = lambda c: poisson_element_matrices(c, "tetra4", source=-6.0)
+    before = (dia_spmv_cuda.kernel.launches, ell_spmv_cuda.kernel.launches)
+    r32 = solve_implicit_sharded(mesh, 1, dbc, fn, dtype=torch.float32,
+                                 rtol=1e-6, recover=False, device=nccl1)
+    b1 = dia_spmv_cuda.kernel.launches - before[0]
+    b2 = ell_spmv_cuda.kernel.launches - before[1]
+    r64 = solve_implicit_sharded(mesh, 1, dbc, fn, dtype=torch.float64,
+                                 rtol=1e-6, recover=False, device=nccl1)
+    t = r32.timings
+    assert t["inshard_kernel"] == "hybrid" and t["hybrid_diagonals"] == 15
+    assert t["hybrid_nnz_rem"] == 0
+    assert r64.timings["inshard_kernel"] == "ell_spmv"
+    assert (b1, b2) == (r32.stats.iters + 1, 0)
+    assert abs(r32.stats.iters - r64.stats.iters) <= 1
+    assert np.abs(r32.u_full - r64.u_full).max() <= 1e-4
 
 
 def test_sharded_explicit_at_world_size_1_is_the_single_device_loop(nccl1):
