@@ -312,6 +312,7 @@ from pfemfort_tpu_torch.drivers.partitioned import read_partitioned_local, \
 from pfemfort_tpu_torch.drivers.sharded import solve_implicit_sharded
 from pfemfort_tpu_torch.mesh.reorder import recover_structure
 from pfemfort_tpu_torch import dryrun
+from pfemfort_tpu_torch.utils.timing import stage_seconds
 from pfemfort_tpu_torch.dynamics.sharded import explicit_dynamics_sharded
 from pfemfort_tpu_torch.parallel import dist_mg, multihost, shard_cg
 from pfemfort_tpu_torch.parallel.dist_partition import rcb_partition_device
@@ -1115,7 +1116,7 @@ def _guard_plain_spmv():
 
 
 def _stage_seconds(r):
-    return sum(v for k, v in r.timings.items() if k.endswith("_s"))
+    return stage_seconds(r.timings)
 
 
 def _per_iter(r, launches):
@@ -3223,8 +3224,7 @@ def main():
     for n, (st, timings) in highprec.items():
         _phase("timing", stages=f"highprec n={n}", card=smi,
                outer_iters=st.outer_iters, inner_iters=st.total_inner_iters,
-               time_to_solution_s=sum(v for k, v in timings.items()
-                                      if k.endswith("_s")), **timings)
+               time_to_solution_s=stage_seconds(timings), **timings)
 
     # 25.-29. the sharded routes on one card: B1's halo entry at real
     # per-rank shapes, the sharded DIA solves at world size 1 (NCCL), the

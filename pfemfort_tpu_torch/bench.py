@@ -100,7 +100,7 @@ from pfemfort_tpu_torch.sparse.sliced import ell_to_sliced, slice_ell, \
     unslice
 from pfemfort_tpu_torch.sparse.spmv import spmv_sliced
 from pfemfort_tpu_torch.utils.timing import device_ms, library_csr, \
-    peak_gbps, spmv_bound
+    peak_gbps, spmv_bound, stage_seconds
 
 ROOT = Path(__file__).resolve().parents[1]
 BASELINE_NNZ_PER_S = 1.0e9     # PETSc MPIAIJ SpMV on one CPU socket, est.
@@ -389,8 +389,7 @@ def _solve_fields(r, mesh=None):
     it = int(r.stats.iters)
     out = dict(iters=it, relres=float(r.stats.relres),
                converged=bool(r.stats.converged),
-               time_to_solution_s=sum(v for k, v in r.timings.items()
-                                      if k.endswith("_s")),
+               time_to_solution_s=stage_seconds(r.timings),
                ms_per_iter=1e3 * r.timings["solve_s"] / max(it, 1),
                timings=dict(r.timings))
     if mesh is not None:

@@ -34,7 +34,6 @@ float64 residual with float32 inner CG (solve/refine.py).
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -60,7 +59,7 @@ from pfemfort_tpu_torch.solve.amg_device import build_ic0_device, \
     build_samg_device, ic0_device_preconditioner, permute_csr, \
     samg_device_preconditioner
 from pfemfort_tpu_torch.solve.cg import SolveStats, bicgstab_solve, \
-    cg_solve, jacobi_preconditioner
+    cg_solve, jacobi_preconditioner, krylov_timings
 from pfemfort_tpu_torch.solve.gmres import gmres_solve
 from pfemfort_tpu_torch.solve.ic0 import _csr_from_matrix, \
     build_ic0_from_csr
@@ -78,6 +77,7 @@ from pfemfort_tpu_torch.sparse.sliced import SliceLayout, SlicedELL, \
     ell_to_sliced, slice_ell
 from pfemfort_tpu_torch.utils.device import resolve_device, \
     synchronize as _sync
+from pfemfort_tpu_torch.utils.timing import record, span
 
 
 class ImplicitResult(NamedTuple):
@@ -114,7 +114,8 @@ def _structured_plan(mesh: Mesh, ndof: int):
 
 
 def build_reduced_assembler(mesh: Mesh, ndof: int, dofmap, element_fn,
-                            dtype: torch.dtype, device: torch.device):
+                            dtype: torch.dtype, device: torch.device,
+                            timings: Optional[dict] = None):
     """Return assemble(coords_em) -> (A, b_reduced).
 
     Generated box-tet and rect-tria meshes whose free nodes form a
@@ -125,11 +126,13 @@ def build_reduced_assembler(mesh: Mesh, ndof: int, dofmap, element_fn,
     with `with_elem=True`; its assembler carries the pattern as
     `assemble.pattern`.  Both give the same reduced system.  A box_tet mesh
     of more than st.CHUNK_ABOVE_ELEMS elements is assembled in
-    `assemble.n_chunks` z-slab chunks.
+    `assemble.n_chunks` z-slab chunks.  `timings`: where the pattern
+    path's spans pattern.census_s and pattern.plan_s go.
     """
     red_box = _structured_box(mesh, dofmap)
     if red_box is None:
-        return _pattern_assembler(mesh, dofmap, element_fn, dtype, device)
+        return _pattern_assembler(mesh, dofmap, element_fn, dtype, device,
+                                  timings)
     plan, asm_mat, asm_rhs = _structured_plan(mesh, ndof)
     shape = full_lattice(mesh)
     bc_vals_full = torch.as_tensor(dofmap.bc_values_full, dtype=dtype,
@@ -154,15 +157,17 @@ def build_reduced_assembler(mesh: Mesh, ndof: int, dofmap, element_fn,
     return assemble
 
 
-def _pattern_assembler(mesh, dofmap, element_fn, dtype, device):
+def _pattern_assembler(mesh, dofmap, element_fn, dtype, device, timings):
     if dofmap.elem_dof is None:
         raise ValueError("the pattern assembly needs a DOF map built with "
                          "with_elem=True")
-    pattern = build_pattern(dofmap.elem_dof, dofmap.total_dof,
-                            lattice=reduced_lattice(mesh, dofmap))
-    plan = build_assembly_plan(pattern, device)
-    ubc_e = torch.as_tensor(dofmap.bc_values_full[dofmap.elem_nodedof].T,
-                            dtype=dtype, device=device)
+    with span("pattern.census_s", timings):
+        pattern = build_pattern(dofmap.elem_dof, dofmap.total_dof,
+                                lattice=reduced_lattice(mesh, dofmap))
+    with span("pattern.plan_s", timings):
+        plan = build_assembly_plan(pattern, device)
+        ubc_e = torch.as_tensor(dofmap.bc_values_full[dofmap.elem_nodedof].T,
+                                dtype=dtype, device=device)
 
     def assemble(coords_em):
         Ke, Fe_src = element_fn(coords_em)
@@ -352,7 +357,15 @@ def solve_implicit(
     amg_setup_s (host set-up of those preconditioners) and solve_s (each
     ends in a device synchronise); amg_levels (rows per AMG level) and
     assembly_chunks (when the structured assembly runs in z-slabs) where
-    they apply; refine=True adds outer_iters.
+    they apply; refine=True adds outer_iters.  Inside pattern_s, spans
+    without a synchronise of their own (utils/timing.py:span):
+    pattern.dofmap_s (both DOF maps), pattern.census_s (build_pattern:
+    the offset census, the rhs destinations, the ELL layout; pattern path
+    only), pattern.plan_s (the assembly plan and the Dirichlet values per
+    element slot; pattern path only) and pattern.coords_s (the element
+    coordinates and point loads, copied to the device).  From the Krylov
+    loop (solve/cg.py; summed over the inner solves with refine=True, none
+    for GMRES): krylov.loop_s, krylov.wait_s and krylov.host_reads.
     """
     if method not in _SOLVERS:
         raise ValueError(f"method={method!r}: one of {sorted(_SOLVERS)}")
@@ -372,45 +385,44 @@ def solve_implicit(
                 rtol=rtol, atol=atol, maxiter=maxiter, method=method,
                 recover=False, precond=precond)
             u_full = res.u_full.reshape(mesh.n_node, ndof)[perm].reshape(-1)
+            # the inner call's record (RECENT) holds this same dict
+            res.timings["structure_recovered"] = True
             return ImplicitResult(
                 u_full=u_full,
                 u_reduced=torch.as_tensor(u_full[dofmap0.assy_for_soln],
                                           dtype=dtype, device=device),
-                stats=res.stats,
-                timings=dict(res.timings, structure_recovered=True))
+                stats=res.stats, timings=res.timings)
     if refine:
         return _solve_implicit_refined(mesh, ndof, dirichlet, element_fn,
                                        force_bc=force_bc, device=device,
                                        rtol=rtol, maxiter=maxiter)
 
-    t0 = time.perf_counter()
-    dofmap = build_dofmap(mesh, ndof, dirichlet, with_elem=False)
-    if _structured_box(mesh, dofmap) is None:
-        dofmap = build_dofmap(mesh, ndof, dirichlet)
-    assemble_reduced = build_reduced_assembler(
-        mesh, ndof, dofmap, element_fn, dtype, device)
-    coords_em = torch.as_tensor(to_element_minor(mesh.elem_coords()),
-                                dtype=dtype, device=device)
-    fvec = torch.as_tensor(_point_loads(dofmap, force_bc), dtype=dtype,
-                           device=device)
-    _sync(device)
-    timings = dict(pattern_s=time.perf_counter() - t0)
+    timings = {}
+    with span("pattern_s", timings):
+        dofmap = _dofmap(mesh, ndof, dirichlet, timings)
+        assemble_reduced = build_reduced_assembler(
+            mesh, ndof, dofmap, element_fn, dtype, device, timings)
+        with span("pattern.coords_s", timings):
+            coords_em = torch.as_tensor(to_element_minor(mesh.elem_coords()),
+                                        dtype=dtype, device=device)
+            fvec = torch.as_tensor(_point_loads(dofmap, force_bc),
+                                   dtype=dtype, device=device)
+        _sync(device)
     if getattr(assemble_reduced, "n_chunks", 1) > 1:
         timings["assembly_chunks"] = assemble_reduced.n_chunks
 
     ordering = None
     pattern = getattr(assemble_reduced, "pattern", None)
     if pattern is not None and pattern.layout == "ell":
-        t0 = time.perf_counter()
-        # float32 ELL systems go through the hybrid operator, as in the
-        # JAX package (drivers/common.py there); float64 ones stay on B2
-        ordering = build_ell_ordering(
-            pattern, mesh.coords[dofmap.assy_for_soln // ndof],
-            dofmap.assy_for_soln % ndof, device,
-            hybrid=dtype == torch.float32)
-        _sync(device)
-        timings.update(order_s=time.perf_counter() - t0,
-                       ordering=ordering.name)
+        with span("order_s", timings):
+            # float32 ELL systems go through the hybrid operator, as in the
+            # JAX package (drivers/common.py there); float64 ones stay on B2
+            ordering = build_ell_ordering(
+                pattern, mesh.coords[dofmap.assy_for_soln // ndof],
+                dofmap.assy_for_soln % ndof, device,
+                hybrid=dtype == torch.float32)
+            _sync(device)
+        timings["ordering"] = ordering.name
         if ordering.hybrid is not None:
             timings.update({f"hybrid_{k}": v
                             for k, v in ordering.hybrid_stats.items()})
@@ -418,29 +430,27 @@ def solve_implicit(
     if maxiter is None:
         maxiter = max(10 * dofmap.total_dof, 1000)
 
-    t0 = time.perf_counter()
-    A0, b = assemble_reduced(coords_em)
-    b = b + fvec
-    if ordering is None:
-        operator, diag = operator_and_diag(A0)
-    elif ordering.hybrid is not None:
-        H = ordering.hybrid.pack(A0.vals)
-        b = b[ordering.order]
-        operator, diag = (lambda x: apply_hybrid(H, x)), H.diagonal()
-    else:
-        A, b = ordering.system(A0, b)
-        operator, diag = operator_and_diag(A)
-    _sync(device)
-    timings["assemble_s"] = time.perf_counter() - t0
+    with span("assemble_s", timings):
+        A0, b = assemble_reduced(coords_em)
+        b = b + fvec
+        if ordering is None:
+            operator, diag = operator_and_diag(A0)
+        elif ordering.hybrid is not None:
+            H = ordering.hybrid.pack(A0.vals)
+            b = b[ordering.order]
+            operator, diag = (lambda x: apply_hybrid(H, x)), H.diagonal()
+        else:
+            A, b = ordering.system(A0, b)
+            operator, diag = operator_and_diag(A)
+        _sync(device)
 
     used = precond
     pc = None
     if precond in ("ic0", "amg"):
-        t0 = time.perf_counter()
-        pc, levels = _host_preconditioner(precond, A0, pattern, ordering,
-                                          operator, ndof, dtype, device)
-        _sync(device)
-        timings[f"{precond}_setup_s"] = time.perf_counter() - t0
+        with span(f"{precond}_setup_s", timings):
+            pc, levels = _host_preconditioner(precond, A0, pattern, ordering,
+                                              operator, ndof, dtype, device)
+            _sync(device)
         if levels is not None:
             timings["amg_levels"] = levels
     elif precond == "cheby":
@@ -449,19 +459,30 @@ def solve_implicit(
         used = "jacobi"
         pc = jacobi_preconditioner(diag)
 
-    t0 = time.perf_counter()
-    u, stats = _SOLVERS[method](operator, b, precond=pc, rtol=rtol,
-                                atol=atol, maxiter=maxiter)
-    if ordering is not None:
-        u = u[ordering.inv]
-    _sync(device)
-    timings["solve_s"] = time.perf_counter() - t0
+    with span("solve_s", timings):
+        u, stats = _SOLVERS[method](operator, b, precond=pc, rtol=rtol,
+                                    atol=atol, maxiter=maxiter)
+        if ordering is not None:
+            u = u[ordering.inv]
+        _sync(device)
+    timings.update(krylov_timings(stats))
     if precond != "jacobi":
         timings.update(precond_requested=precond, precond_used=used)
 
     u_full = dofmap.expand_solution(u.cpu().to(torch.float64).numpy())
+    record("solve_implicit", timings)
     return ImplicitResult(u_full=u_full, u_reduced=u, stats=stats,
                           timings=timings)
+
+
+def _dofmap(mesh: Mesh, ndof: int, dirichlet: np.ndarray, timings: dict):
+    """The reduced DOF map (with its element tables when the mesh takes the
+    pattern path), under the span pattern.dofmap_s."""
+    with span("pattern.dofmap_s", timings):
+        dofmap = build_dofmap(mesh, ndof, dirichlet, with_elem=False)
+        if _structured_box(mesh, dofmap) is None:
+            dofmap = build_dofmap(mesh, ndof, dirichlet)
+    return dofmap
 
 
 def solve_implicit_fullsystem(
@@ -490,8 +511,12 @@ def solve_implicit_fullsystem(
     precond: 'jacobi' or 'mg' (geometric multigrid V-cycle on structured
     lattices, solve/multigrid.py; falls back to Jacobi on other meshes).
     Any other name gives Jacobi, as in the JAX package.
-    timings["precond_used"] says which one ran; mg_setup_s is the
-    hierarchy's build and mg_levels its rows per level.
+    Timings: pattern_s, assemble_s, solve_s (each ends in a device
+    synchronise); precond_requested and precond_used (which one ran);
+    with 'mg', mg_setup_s (the hierarchy's build; inside it mg.coarsen_s,
+    the host coarsening chain) and mg_levels (rows per level); the Krylov
+    loop's krylov.loop_s, krylov.wait_s and krylov.host_reads
+    (solve/cg.py; none for GMRES).
     """
     if method not in _SOLVERS:
         raise ValueError(f"method={method!r}: one of {sorted(_SOLVERS)}")
@@ -499,69 +524,69 @@ def solve_implicit_fullsystem(
     if dtype is None:
         dtype = torch.get_default_dtype()
     n_full = mesh.n_node * ndof
-    t0 = time.perf_counter()
-    kind = (mesh.structure or {}).get("kind")
-    structured = kind in ("box_tet", "rect_tria") and ndof <= 3
-    dofmap = build_dofmap(mesh, ndof, dirichlet, with_elem=not structured)
-    if structured:
-        plan, asm_mat, asm_rhs = _structured_plan(mesh, ndof)
-    else:
-        # full system: every element slot keeps its global node-dof row
-        plan = build_assembly_plan(
-            build_pattern(dofmap.elem_nodedof, n_full), device)
-        asm_mat, asm_rhs = assemble_matrix, assemble_rhs
+    timings = {}
+    with span("pattern_s", timings):
+        kind = (mesh.structure or {}).get("kind")
+        structured = kind in ("box_tet", "rect_tria") and ndof <= 3
+        dofmap = build_dofmap(mesh, ndof, dirichlet,
+                              with_elem=not structured)
+        if structured:
+            plan, asm_mat, asm_rhs = _structured_plan(mesh, ndof)
+        else:
+            # full system: every element slot keeps its global node-dof row
+            plan = build_assembly_plan(
+                build_pattern(dofmap.elem_nodedof, n_full), device)
+            asm_mat, asm_rhs = assemble_matrix, assemble_rhs
 
-    coords_em = torch.as_tensor(to_element_minor(mesh.elem_coords()),
-                                dtype=dtype, device=device)
-    bc_mask_np = ~dofmap.free_mask_full()
-    bc_mask = torch.as_tensor(bc_mask_np, device=device)
-    bc_vals = torch.as_tensor(dofmap.bc_values_full, dtype=dtype,
-                              device=device)
-    fvec = np.zeros(n_full, dtype=np.float64)
-    if force_bc is not None and len(force_bc):
-        idx = (force_bc[:, 0].astype(np.int64) * ndof
-               + force_bc[:, 1].astype(np.int64))
-        np.add.at(fvec, idx, force_bc[:, 2])
-    fvec = torch.as_tensor(fvec, dtype=dtype, device=device)
-    _sync(device)
-    timings = dict(pattern_s=time.perf_counter() - t0)
+        coords_em = torch.as_tensor(to_element_minor(mesh.elem_coords()),
+                                    dtype=dtype, device=device)
+        bc_mask_np = ~dofmap.free_mask_full()
+        bc_mask = torch.as_tensor(bc_mask_np, device=device)
+        bc_vals = torch.as_tensor(dofmap.bc_values_full, dtype=dtype,
+                                  device=device)
+        fvec = np.zeros(n_full, dtype=np.float64)
+        if force_bc is not None and len(force_bc):
+            idx = (force_bc[:, 0].astype(np.int64) * ndof
+                   + force_bc[:, 1].astype(np.int64))
+            np.add.at(fvec, idx, force_bc[:, 2])
+        fvec = torch.as_tensor(fvec, dtype=dtype, device=device)
+        _sync(device)
 
     if maxiter is None:
         maxiter = max(10 * n_full, 1000)
 
     mg = None
     if precond == "mg" and structured:
-        t0 = time.perf_counter()
-        mg = build_gmg(mesh, ndof, bc_mask_np, element_fn, dtype=dtype,
-                       device=device)
-        _sync(device)
-        timings["mg_setup_s"] = time.perf_counter() - t0
+        with span("mg_setup_s", timings):
+            mg = build_gmg(mesh, ndof, bc_mask_np, element_fn, dtype=dtype,
+                           device=device, timings=timings)
+            _sync(device)
         if mg is not None:
             timings["mg_levels"] = [A.n_rows for A in mg[0].mats]
 
-    t0 = time.perf_counter()
-    Ke, Fe_src = element_fn(coords_em)
-    A = asm_mat(Ke, plan)
-    b = asm_rhs(Fe_src, plan) + fvec
-    del Ke, Fe_src
-    A, b = zero_dirichlet_rows(A, b, bc_mask, bc_vals)
-    operator, diag = operator_and_diag(A)
-    _sync(device)
-    timings["assemble_s"] = time.perf_counter() - t0
+    with span("assemble_s", timings):
+        Ke, Fe_src = element_fn(coords_em)
+        A = asm_mat(Ke, plan)
+        b = asm_rhs(Fe_src, plan) + fvec
+        del Ke, Fe_src
+        A, b = zero_dirichlet_rows(A, b, bc_mask, bc_vals)
+        operator, diag = operator_and_diag(A)
+        _sync(device)
 
     if mg is not None:
         pc, used = gmg_preconditioner(*mg), "mg"
     else:
         pc, used = jacobi_preconditioner(diag), "jacobi"
-    t0 = time.perf_counter()
-    # start from the BC values so BC residual components vanish
-    x0 = torch.where(bc_mask, bc_vals, 0.0)
-    u, stats = _SOLVERS[method](operator, b, x0=x0, precond=pc, rtol=rtol,
-                                maxiter=maxiter)
-    _sync(device)
-    timings["solve_s"] = time.perf_counter() - t0
+    with span("solve_s", timings):
+        # start from the BC values so BC residual components vanish
+        x0 = torch.where(bc_mask, bc_vals, 0.0)
+        u, stats = _SOLVERS[method](operator, b, x0=x0, precond=pc,
+                                    rtol=rtol, maxiter=maxiter)
+        _sync(device)
+    timings.update(krylov_timings(stats))
     timings.update(precond_requested=precond, precond_used=used)
 
+    record("solve_implicit_fullsystem", timings)
     return ImplicitResult(u_full=u.cpu().to(torch.float64).numpy(),
                           u_reduced=u, stats=stats, timings=timings)
 
@@ -575,47 +600,47 @@ def _solve_implicit_refined(mesh, ndof, dirichlet, element_fn, force_bc,
     operators go through kernel B1 (DIA) or B2 (ELL, in the pattern's own
     row order, as in the JAX package), so the outer residual is the TRUE
     float64 one."""
-    t0 = time.perf_counter()
-    dofmap = build_dofmap(mesh, ndof, dirichlet, with_elem=False)
-    if _structured_box(mesh, dofmap) is None:
-        dofmap = build_dofmap(mesh, ndof, dirichlet)
     f64 = torch.float64
-    assemble64 = build_reduced_assembler(mesh, ndof, dofmap, element_fn, f64,
-                                         device)
-    coords64 = torch.as_tensor(to_element_minor(mesh.elem_coords()),
-                               dtype=f64, device=device)
-    fvec = torch.as_tensor(_point_loads(dofmap, force_bc), dtype=f64,
-                           device=device)
-    _sync(device)
-    timings = dict(pattern_s=time.perf_counter() - t0)
+    timings = {}
+    with span("pattern_s", timings):
+        dofmap = _dofmap(mesh, ndof, dirichlet, timings)
+        assemble64 = build_reduced_assembler(mesh, ndof, dofmap, element_fn,
+                                             f64, device, timings)
+        with span("pattern.coords_s", timings):
+            coords64 = torch.as_tensor(to_element_minor(mesh.elem_coords()),
+                                       dtype=f64, device=device)
+            fvec = torch.as_tensor(_point_loads(dofmap, force_bc), dtype=f64,
+                                   device=device)
+        _sync(device)
     if getattr(assemble64, "n_chunks", 1) > 1:
         timings["assembly_chunks"] = assemble64.n_chunks
 
     if maxiter is None:
         maxiter = max(10 * dofmap.total_dof, 1000)
 
-    t0 = time.perf_counter()
-    A64, b64 = assemble64(coords64)
-    del coords64
-    b64 = b64 + fvec
-    if isinstance(A64, ELLMatrix):     # laid out once, for both precisions
-        A64 = ell_to_sliced(A64)
-    A32 = dataclasses.replace(A64, vals=A64.vals.to(torch.float32))
-    op64, _ = operator_and_diag(A64)
-    op32, diag32 = operator_and_diag(A32)
-    _sync(device)
-    timings["assemble_s"] = time.perf_counter() - t0
+    with span("assemble_s", timings):
+        A64, b64 = assemble64(coords64)
+        del coords64
+        b64 = b64 + fvec
+        if isinstance(A64, ELLMatrix):     # laid out once, for both precisions
+            A64 = ell_to_sliced(A64)
+        A32 = dataclasses.replace(A64, vals=A64.vals.to(torch.float32))
+        op64, _ = operator_and_diag(A64)
+        op32, diag32 = operator_and_diag(A32)
+        _sync(device)
 
-    t0 = time.perf_counter()
-    x64, rstats = cg_with_refinement(
-        op64, op32, b64, precond32=jacobi_preconditioner(diag32), rtol=rtol,
-        inner_maxiter=maxiter)
-    _sync(device)
-    timings.update(solve_s=time.perf_counter() - t0,
-                   outer_iters=rstats.outer_iters)
+    with span("solve_s", timings):
+        x64, rstats = cg_with_refinement(
+            op64, op32, b64, precond32=jacobi_preconditioner(diag32),
+            rtol=rtol, inner_maxiter=maxiter)
+        _sync(device)
+    timings["outer_iters"] = rstats.outer_iters
+    timings.update(krylov_timings(rstats))
 
     stats = SolveStats(iters=rstats.total_inner_iters, relres=rstats.relres,
-                       converged=rstats.converged)
+                       converged=rstats.converged, loop_s=rstats.loop_s,
+                       wait_s=rstats.wait_s, host_reads=rstats.host_reads)
     u_full = dofmap.expand_solution(x64.cpu().numpy())
+    record("solve_implicit_refined", timings)
     return ImplicitResult(u_full=u_full, u_reduced=x64, stats=stats,
                           timings=timings)

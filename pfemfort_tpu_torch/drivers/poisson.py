@@ -3,7 +3,6 @@
 
 from __future__ import annotations
 
-import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -15,10 +14,12 @@ from pfemfort_tpu_torch.dofs.dofmap import build_dofmap
 from pfemfort_tpu_torch.elements.geometry import to_element_minor
 from pfemfort_tpu_torch.elements.poisson import poisson_element_matrices
 from pfemfort_tpu_torch.mesh.core import Mesh
-from pfemfort_tpu_torch.solve.cg import cg_solve, jacobi_preconditioner
+from pfemfort_tpu_torch.solve.cg import cg_solve, jacobi_preconditioner, \
+    krylov_timings
 from pfemfort_tpu_torch.solve.matfree import PoissonMatfree
 from pfemfort_tpu_torch.utils.device import resolve_device, \
     synchronize as _sync
+from pfemfort_tpu_torch.utils.timing import record, span
 
 # The reference drivers hard-code the source term: 0 for the 2D problems
 # (elementutilitiespoisson.F:83) and -6 for the 3D manufactured solution
@@ -88,40 +89,43 @@ def _solve_poisson_matfree(mesh, dirichlet, kappa, af, source, device, dtype,
                            rtol, maxiter) -> ImplicitResult:
     """Assembly-free CG: no global matrix is ever materialised.  Timings:
     pattern_s (DOF map, coordinates to the device), assemble_s (element
-    geometry, sorted scatter, diagonal and rhs), solve_s."""
+    geometry, sorted scatter, diagonal and rhs), solve_s, each ending in a
+    device synchronise; krylov.loop_s, krylov.wait_s and krylov.host_reads
+    (the CG loop's, solve/cg.py)."""
     device = resolve_device(device)
     if dtype is None:
         dtype = torch.get_default_dtype()
-    t0 = time.perf_counter()
-    dofmap = build_dofmap(mesh, 1, dirichlet)
-    coords_em = torch.as_tensor(to_element_minor(mesh.elem_coords()),
+    timings = {}
+    with span("pattern_s", timings):
+        dofmap = build_dofmap(mesh, 1, dirichlet)
+        coords_em = torch.as_tensor(to_element_minor(mesh.elem_coords()),
+                                    dtype=dtype, device=device)
+        ubc_e = torch.as_tensor(dofmap.bc_values_full[dofmap.elem_nodedof].T,
                                 dtype=dtype, device=device)
-    ubc_e = torch.as_tensor(dofmap.bc_values_full[dofmap.elem_nodedof].T,
-                            dtype=dtype, device=device)
-    _sync(device)
-    timings = dict(pattern_s=time.perf_counter() - t0)
+        _sync(device)
 
-    t0 = time.perf_counter()
-    operator = PoissonMatfree(coords_em, mesh.etype, dofmap, kappa=kappa,
-                              af=af)
-    diag = operator.diagonal()
-    # rhs: source term + matrix-free Dirichlet elimination
-    _, Fe_src = poisson_element_matrices(coords_em, mesh.etype, kappa=kappa,
-                                         af=af, source=source)
-    del coords_em
-    b = operator.segments.sum(Fe_src - operator.element_apply(ubc_e))
-    del Fe_src, ubc_e
-    _sync(device)
-    timings["assemble_s"] = time.perf_counter() - t0
+    with span("assemble_s", timings):
+        operator = PoissonMatfree(coords_em, mesh.etype, dofmap, kappa=kappa,
+                                  af=af)
+        diag = operator.diagonal()
+        # rhs: source term + matrix-free Dirichlet elimination
+        _, Fe_src = poisson_element_matrices(coords_em, mesh.etype,
+                                             kappa=kappa, af=af,
+                                             source=source)
+        del coords_em
+        b = operator.segments.sum(Fe_src - operator.element_apply(ubc_e))
+        del Fe_src, ubc_e
+        _sync(device)
 
     n = dofmap.total_dof
     if maxiter is None:
         maxiter = max(10 * n, 1000)
-    t0 = time.perf_counter()
-    u, stats = cg_solve(operator, b, precond=jacobi_preconditioner(diag),
-                        rtol=rtol, maxiter=maxiter)
-    _sync(device)
-    timings["solve_s"] = time.perf_counter() - t0
+    with span("solve_s", timings):
+        u, stats = cg_solve(operator, b, precond=jacobi_preconditioner(diag),
+                            rtol=rtol, maxiter=maxiter)
+        _sync(device)
+    timings.update(krylov_timings(stats))
     u_full = dofmap.expand_solution(u.cpu().to(torch.float64).numpy())
+    record("solve_poisson_matfree", timings)
     return ImplicitResult(u_full=u_full, u_reduced=u, stats=stats,
                           timings=timings)

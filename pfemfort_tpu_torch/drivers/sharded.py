@@ -36,7 +36,6 @@ ELL route is the distributed SA-AMG (solve/amg.py:build_dist_samg).
 
 from __future__ import annotations
 
-import time
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -62,6 +61,7 @@ from pfemfort_tpu_torch.solve.ic0 import build_ic0_shard_block
 from pfemfort_tpu_torch.sparse.hybrid import hybrid_layout
 from pfemfort_tpu_torch.utils.device import resolve_device, \
     synchronize as _sync
+from pfemfort_tpu_torch.utils.timing import span
 
 
 def _force_vector(dofmap, eq_perm, n_rows_padded, force_bc) -> np.ndarray:
@@ -244,86 +244,80 @@ def solve_implicit_sharded(
             mg_refused = "distributed MG does not support ForceBCs"
         precond = "bjacobi" if ndof > 1 else "jacobi"
 
-    t0 = time.perf_counter()
-    try:
-        setup = build_dist_setup(mesh, ndof, dirichlet, n_shards, wd.rank,
-                                 method=partition_method)
-    except ValueError:
-        setup = None          # no per-rank DIA layout: the ELL route
+    timings = {}
+    with span("pattern_s", timings):
+        try:
+            setup = build_dist_setup(mesh, ndof, dirichlet, n_shards,
+                                     wd.rank, method=partition_method)
+        except ValueError:
+            setup = None          # no per-rank DIA layout: the ELL route
     if setup is not None:
-        t_pattern = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        vals, b = assemble_implicit_sharded(setup, element_fn, dtype, device,
-                                            force_bc)
-        _sync(device)
-        timings = dict(pattern_s=t_pattern,
-                       assemble_s=time.perf_counter() - t0)
+        with span("assemble_s", timings):
+            vals, b = assemble_implicit_sharded(setup, element_fn, dtype,
+                                                device, force_bc)
+            _sync(device)
         bjacobi = precond == "bjacobi" and ndof > 1 \
             and setup.rows_per_shard % ndof == 0
-        t0 = time.perf_counter()
-        x, stats = distributed_cg_solve_dia(
-            setup.offsets, vals, b, rtol=rtol, maxiter=maxiter,
-            ndof_block=ndof if bjacobi else 1, method=method)
-        _sync(device)
-        timings.update(solve_s=time.perf_counter() - t0,
-                       assembly_layout="dia")
+        with span("solve_s", timings):
+            x, stats = distributed_cg_solve_dia(
+                setup.offsets, vals, b, rtol=rtol, maxiter=maxiter,
+                ndof_block=ndof if bjacobi else 1, method=method)
+            _sync(device)
+        timings["assembly_layout"] = "dia"
         precond_used = "bjacobi" if bjacobi else "jacobi"
     else:
-        setup = build_dist_ell_setup(
-            mesh, ndof, dirichlet, n_shards, wd.rank,
-            method="rcb" if partition_method == "slab" else partition_method,
-            device=device)
-        halo = build_ell_halo(setup.sys, wd.rank, device=device)
-        # float32 systems go through the per-rank hybrid, as in the JAX
-        # package (drivers/sharded.py there) and on one device
-        # (drivers/common.py); float64 ones stay on B2
-        t_split = time.perf_counter()
-        plan = build_ell_halo_hybrid(halo) if dtype == torch.float32 \
-            else None
-        split = None if plan is None else hybrid_layout(plan, device)
-        _sync(device)
-        t_split = time.perf_counter() - t_split
-        t_pattern = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        vals, b = assemble_implicit_sharded_ell(setup, element_fn, dtype,
-                                                device, force_bc)
-        hybrid = None if split is None else split.pack(vals)
-        _sync(device)
-        timings = dict(pattern_s=t_pattern,
-                       assemble_s=time.perf_counter() - t0)
-        if plan is not None:
-            timings.update(hybrid_setup_s=t_split, hybrid_diagonals=plan.D,
+        with span("pattern_s", timings):
+            setup = build_dist_ell_setup(
+                mesh, ndof, dirichlet, n_shards, wd.rank,
+                method="rcb" if partition_method == "slab"
+                else partition_method,
+                device=device)
+            halo = build_ell_halo(setup.sys, wd.rank, device=device)
+            # float32 systems go through the per-rank hybrid, as in the JAX
+            # package (drivers/sharded.py there) and on one device
+            # (drivers/common.py); float64 ones stay on B2
+            with span("hybrid_setup_s", timings):
+                plan = build_ell_halo_hybrid(halo) \
+                    if dtype == torch.float32 else None
+                split = None if plan is None else hybrid_layout(plan, device)
+                _sync(device)
+        with span("assemble_s", timings):
+            vals, b = assemble_implicit_sharded_ell(setup, element_fn, dtype,
+                                                    device, force_bc)
+            hybrid = None if split is None else split.pack(vals)
+            _sync(device)
+        if plan is None:
+            del timings["hybrid_setup_s"]
+        else:
+            timings.update(hybrid_diagonals=plan.D,
                            hybrid_nnz_dia=plan.nnz_dia,
                            hybrid_nnz_rem=plan.nnz_rem,
                            hybrid_k_rem=plan.k_rem)
         amg = ic0 = None
         if precond == "amg":
-            t0 = time.perf_counter()
-            amg, host_bytes = _dist_samg(setup.sys, mesh, ndof, vals, dtype,
-                                         device)
-            _sync(device)
-            timings.update(amg_setup_s=time.perf_counter() - t0,
-                           amg_host_bytes=host_bytes)
+            with span("amg_setup_s", timings):
+                amg, host_bytes = _dist_samg(setup.sys, mesh, ndof, vals,
+                                             dtype, device)
+                _sync(device)
+            timings["amg_host_bytes"] = host_bytes
             if amg is not None:
                 timings["amg_levels"] = list(amg.metas[0].sizes)
         if precond == "ic0":
-            t0 = time.perf_counter()
-            ic0 = build_ic0_shard_block(
-                halo.cols_local.cpu().numpy(),
-                vals.cpu().to(torch.float64).numpy(), dtype=dtype,
-                device=device)
-            _sync(device)
-            timings["ic0_setup_s"] = time.perf_counter() - t0
+            with span("ic0_setup_s", timings):
+                ic0 = build_ic0_shard_block(
+                    halo.cols_local.cpu().numpy(),
+                    vals.cpu().to(torch.float64).numpy(), dtype=dtype,
+                    device=device)
+                _sync(device)
         bjacobi = ic0 is None and amg is None and precond == "bjacobi" \
             and ndof > 1 and setup.rows_per_shard % ndof == 0
-        t0 = time.perf_counter()
-        x, stats = distributed_cg_solve_ell(
-            halo.cols_local, vals, b, halo, rtol=rtol, maxiter=maxiter,
-            ndof_block=ndof if bjacobi else 1, ic0=ic0, method=method,
-            amg=amg, hybrid=hybrid)
-        _sync(device)
-        timings.update(solve_s=time.perf_counter() - t0,
-                       assembly_layout="ell",
+        with span("solve_s", timings):
+            x, stats = distributed_cg_solve_ell(
+                halo.cols_local, vals, b, halo, rtol=rtol, maxiter=maxiter,
+                ndof_block=ndof if bjacobi else 1, ic0=ic0, method=method,
+                amg=amg, hybrid=hybrid)
+            _sync(device)
+        timings.update(assembly_layout="ell",
                        inshard_kernel="hybrid" if hybrid is not None
                        else "ell_spmv" if device.type == "cuda"
                        else "spmv_sliced")

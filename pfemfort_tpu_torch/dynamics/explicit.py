@@ -52,6 +52,7 @@ from pfemfort_tpu_torch.elements.elasticity import (
 from pfemfort_tpu_torch.elements.geometry import to_element_minor
 from pfemfort_tpu_torch.mesh.core import Mesh
 from pfemfort_tpu_torch.utils.device import resolve_device
+from pfemfort_tpu_torch.utils.timing import count, record, span
 
 # Quadrature point counts for the lumped mass, matching each reference mass
 # kernel: tria3 1-pt (elasticity2D.F:298), tria6 3-pt (:504), quad4 4-pt
@@ -68,6 +69,7 @@ class ExplicitResult(NamedTuple):
     probe_history: np.ndarray  # (nsteps, n_probe*2) [disp..., velo...]
     times: np.ndarray          # (nsteps,)
     disp_prev: np.ndarray = None  # u^{n-1}, for checkpoint/resume
+    timings: dict = None          # explicit.setup_s, explicit.loop_s, steps
 
 
 def explicit_dynamics(
@@ -109,107 +111,119 @@ def explicit_dynamics(
         steps (periodic VTK output in the reference drivers).
       init_state/start_step: resume from a dynamics.checkpoint.ExplicitState
         (run steps [start_step, start_step+nsteps)).
+    Timings (host clock, no synchronise of their own): explicit.setup_s,
+    from the call to the first step (the DOF map, the element coordinates,
+    the sorted scatter, the lumped mass); explicit.loop_s, from the first
+    step to the last chunk's probe copy to the host; steps, the steps run.
+    The result's own copies to the host lie outside both spans.
     """
-    device = resolve_device(device)
-    if dtype is None:
-        dtype = torch.get_default_dtype()
-    ndim = mesh.ndim
-    ndof = ndim
-    dofmap = build_dofmap(mesh, ndof, dirichlet)
-    n_full = mesh.n_node * ndof
-    as_dev = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    timings = {}
+    with span("explicit.setup_s", timings):
+        device = resolve_device(device)
+        if dtype is None:
+            dtype = torch.get_default_dtype()
+        ndim = mesh.ndim
+        ndof = ndim
+        dofmap = build_dofmap(mesh, ndof, dirichlet)
+        n_full = mesh.n_node * ndof
+        as_dev = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
 
-    D = dmat_plane_strain(E, nu) if ndim == 2 else dmat_3d(E, nu)
+        D = dmat_plane_strain(E, nu) if ndim == 2 else dmat_3d(E, nu)
 
-    coords_em = as_dev(to_element_minor(mesh.elem_coords()))
-    # element-minor node-dof gather table (ns, E), flattened; the same
-    # destinations, sorted once, scatter every element vector
-    dest = torch.as_tensor(dofmap.elem_nodedof.T.reshape(-1).astype(np.int64),
-                           device=device)
-    seg = Segments.from_dest(dest, n_full + 1)
-    ns_e = dofmap.elem_nodedof.shape[1], mesh.n_elem
+        coords_em = as_dev(to_element_minor(mesh.elem_coords()))
+        # element-minor node-dof gather table (ns, E), flattened; the same
+        # destinations, sorted once, scatter every element vector
+        dest = torch.as_tensor(
+            dofmap.elem_nodedof.T.reshape(-1).astype(np.int64),
+            device=device)
+        seg = Segments.from_dest(dest, n_full + 1)
+        ns_e = dofmap.elem_nodedof.shape[1], mesh.n_elem
 
-    # Lumped mass over the full vector.
-    M_full = seg.sum(lumped_mass(coords_em, mesh.etype, dens, ndof,
-                                 ngp=_MASS_NGP[mesh.etype]))
+        # Lumped mass over the full vector.
+        M_full = seg.sum(lumped_mass(coords_em, mesh.etype, dens, ndof,
+                                     ngp=_MASS_NGP[mesh.etype]))
 
-    free = torch.as_tensor(dofmap.free_mask_full(), device=device)
-    has_mass = M_full > 0
-    upd = torch.logical_and(free, has_mass)
-    Msafe = torch.where(has_mass, M_full, 1.0)
+        free = torch.as_tensor(dofmap.free_mask_full(), device=device)
+        has_mass = M_full > 0
+        upd = torch.logical_and(free, has_mass)
+        Msafe = torch.where(has_mass, M_full, 1.0)
 
-    fext = np.zeros(n_full, dtype=np.float64)
-    if force_bc is not None and len(force_bc):
-        idx = (force_bc[:, 0].astype(np.int64) * ndof
-               + force_bc[:, 1].astype(np.int64))
-        np.add.at(fext, idx, force_bc[:, 2])
-    fext = as_dev(fext)
+        fext = np.zeros(n_full, dtype=np.float64)
+        if force_bc is not None and len(force_bc):
+            idx = (force_bc[:, 0].astype(np.int64) * ndof
+                   + force_bc[:, 1].astype(np.int64))
+            np.add.at(fext, idx, force_bc[:, 2])
+        fext = as_dev(fext)
 
-    if bforce_fn is None:
-        zero_b = torch.zeros(ndim, dtype=dtype, device=device)
-        bforce_fn = lambda t: zero_b
+        if bforce_fn is None:
+            zero_b = torch.zeros(ndim, dtype=dtype, device=device)
+            bforce_fn = lambda t: zero_b
 
-    # the step's scalars as device tensors of the working dtype, as the
-    # JAX package's weakly typed Python floats become
-    dtt, idtt, two_dt = as_dev(dt * dt), as_dev(1.0 / (dt * dt)), \
-        as_dev(2.0 * dt)
-    probe = torch.as_tensor(np.asarray(probe_dofs, dtype=np.int64),
-                            device=device)
-    n_probe = probe.numel()
+        # the step's scalars as device tensors of the working dtype, as the
+        # JAX package's weakly typed Python floats become
+        dtt, idtt, two_dt = as_dev(dt * dt), as_dev(1.0 / (dt * dt)), \
+            as_dev(2.0 * dt)
+        probe = torch.as_tensor(np.asarray(probe_dofs, dtype=np.int64),
+                                device=device)
+        n_probe = probe.numel()
 
-    if use_hourglass:
-        def residual(disp_full, velo_full, t):
-            return quad_hg_residual(
-                coords_em, disp_full[dest].reshape(ns_e),
-                velo_full[dest].reshape(ns_e), E, nu, dens, bforce_fn(t),
-                thickness=thickness)
-    else:
-        geom = residual_geometry(coords_em, mesh.etype,
-                                 thickness=thickness if ndim == 2 else 1.0)
+        if use_hourglass:
+            def residual(disp_full, velo_full, t):
+                return quad_hg_residual(
+                    coords_em, disp_full[dest].reshape(ns_e),
+                    velo_full[dest].reshape(ns_e), E, nu, dens, bforce_fn(t),
+                    thickness=thickness)
+        else:
+            geom = residual_geometry(coords_em, mesh.etype,
+                                     thickness=thickness if ndim == 2 else 1.0)
 
-        def residual(disp_full, velo_full, t):
-            return apply_residual(geom, disp_full[dest].reshape(ns_e), D,
-                                  dens, bforce_fn(t))
+            def residual(disp_full, velo_full, t):
+                return apply_residual(geom, disp_full[dest].reshape(ns_e), D,
+                                      dens, bforce_fn(t))
 
-    if init_state is not None:
-        disp, disp_prev, velo = (as_dev(init_state.disp),
-                                 as_dev(init_state.disp_prev),
-                                 as_dev(init_state.velo))
-        start_step = init_state.step
-    else:
-        disp = torch.zeros(n_full, dtype=dtype, device=device)
-        disp_prev, velo = disp.clone(), disp.clone()
-    acce = torch.zeros(n_full, dtype=dtype, device=device)
+        if init_state is not None:
+            disp, disp_prev, velo = (as_dev(init_state.disp),
+                                     as_dev(init_state.disp_prev),
+                                     as_dev(init_state.velo))
+            start_step = init_state.step
+        else:
+            disp = torch.zeros(n_full, dtype=dtype, device=device)
+            disp_prev, velo = disp.clone(), disp.clone()
+        acce = torch.zeros(n_full, dtype=dtype, device=device)
 
-    end_step = start_step + nsteps
-    # t_k = k * dt in the working dtype, for every step at once
-    t_all = torch.arange(start_step, end_step, device=device).to(dtype) \
-        * as_dev(dt)
-    snapshots = bool(snapshot_every) and snapshot_cb is not None
-    chunk = snapshot_every if snapshots else nsteps
-    hist = []
-    k0 = start_step
-    while k0 < end_step:
-        kn = min(k0 + chunk, end_step)
-        buf = torch.empty((kn - k0, 2 * n_probe), dtype=dtype, device=device)
-        for k in range(k0, kn):
-            rhs = seg.sum(residual(disp, velo, t_all[k - start_step])) + fext
-            rhs = rhs + idtt * M_full * (2.0 * disp - disp_prev)
-            new = torch.where(upd, dtt * rhs / Msafe, 0.0)
-            velo = (new - disp_prev) / two_dt
-            if k == end_step - 1:
-                acce = (new - 2.0 * disp + disp_prev) * idtt
-            disp_prev, disp = disp, new
-            if n_probe:
-                buf[k - k0, :n_probe] = disp[probe]
-                buf[k - k0, n_probe:] = velo[probe]
-        hist.append(buf.cpu().numpy())
-        if snapshots:
-            snapshot_cb(kn, disp.cpu().to(torch.float64).numpy())
-        k0 = kn
+        end_step = start_step + nsteps
+        # t_k = k * dt in the working dtype, for every step at once
+        t_all = torch.arange(start_step, end_step, device=device).to(dtype) \
+            * as_dev(dt)
+        snapshots = bool(snapshot_every) and snapshot_cb is not None
+        chunk = snapshot_every if snapshots else nsteps
+        hist = []
+        k0 = start_step
+    with span("explicit.loop_s", timings):
+        while k0 < end_step:
+            kn = min(k0 + chunk, end_step)
+            buf = torch.empty((kn - k0, 2 * n_probe), dtype=dtype,
+                              device=device)
+            for k in range(k0, kn):
+                rhs = seg.sum(residual(disp, velo,
+                                       t_all[k - start_step])) + fext
+                rhs = rhs + idtt * M_full * (2.0 * disp - disp_prev)
+                new = torch.where(upd, dtt * rhs / Msafe, 0.0)
+                velo = (new - disp_prev) / two_dt
+                if k == end_step - 1:
+                    acce = (new - 2.0 * disp + disp_prev) * idtt
+                disp_prev, disp = disp, new
+                if n_probe:
+                    buf[k - k0, :n_probe] = disp[probe]
+                    buf[k - k0, n_probe:] = velo[probe]
+            hist.append(buf.cpu().numpy())
+            if snapshots:
+                snapshot_cb(kn, disp.cpu().to(torch.float64).numpy())
+            k0 = kn
+    count("steps", nsteps, timings)
 
     host = lambda a: a.cpu().to(torch.float64).numpy()
-    return ExplicitResult(
+    res = ExplicitResult(
         disp=host(disp),
         velo=host(velo),
         acce=host(acce),
@@ -217,4 +231,7 @@ def explicit_dynamics(
                        else np.zeros((0, 2 * n_probe))),
         times=np.arange(start_step, end_step, dtype=np.float64) * dt,
         disp_prev=host(disp_prev),
+        timings=timings,
     )
+    record("explicit_dynamics", timings)
+    return res

@@ -36,7 +36,6 @@ N/2^ndim values.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -59,6 +58,7 @@ from pfemfort_tpu_torch.solve.multigrid import GMGArrays, GMGMeta, \
 from pfemfort_tpu_torch.sparse.dia import DIAMatrix
 from pfemfort_tpu_torch.utils.device import resolve_device, \
     synchronize as _sync
+from pfemfort_tpu_torch.utils.timing import span
 
 
 @dataclasses.dataclass
@@ -433,49 +433,47 @@ def solve_sharded_mg(
     device = resolve_device(device)
     rank, size = dist.get_rank(), dist.get_world_size()
 
-    t0 = time.perf_counter()
-    if nu is None:
-        nu = 1 if ndof == 1 else 2
-    if omega is None and ndof == 1:
-        omega = 0.8
-    setup = build_dist_mg_setup(mesh, ndof, dirichlet, element_fn, size,
-                                rank, dtype=dtype, nu=nu, omega=omega,
-                                coarsest_max_dof=coarsest_max_dof,
-                                device=device)
-    _sync(device)
-    t_setup = time.perf_counter() - t0
+    timings = {}
+    with span("pattern_s", timings):
+        if nu is None:
+            nu = 1 if ndof == 1 else 2
+        if omega is None and ndof == 1:
+            omega = 0.8
+        setup = build_dist_mg_setup(mesh, ndof, dirichlet, element_fn, size,
+                                    rank, dtype=dtype, nu=nu, omega=omega,
+                                    coarsest_max_dof=coarsest_max_dof,
+                                    device=device)
+        _sync(device)
 
     as_dev = lambda a, dt=dtype: torch.as_tensor(a, dtype=dt, device=device)
-    t0 = time.perf_counter()
-    bc_l = torch.as_tensor(setup.bc_mask, device=device)
-    bcv_l = as_dev(setup.bc_vals)
-    vals_l, b_l = assemble_fine_shard(setup, element_fn,
-                                      as_dev(setup.coords),
-                                      as_dev(setup.validz), bc_l, bcv_l)
-    d0 = setup.offsets.index(0) if 0 in setup.offsets else 0
-    diag = vals_l[d0]
-    inv_diag = torch.where(diag != 0, 1.0 / diag, 0.0)
-    mask_l = torch.where(bc_l, 0.0, 1.0).to(dtype)
-    spmv_fine = fine_spmv_factory(setup, vals_l)
-    if setup.omega is None:
-        setup = with_omega(setup, fine_jacobi_weight(setup, spmv_fine, diag))
-    _sync(device)
-    t_asm = time.perf_counter() - t0
+    with span("assemble_s", timings):
+        bc_l = torch.as_tensor(setup.bc_mask, device=device)
+        bcv_l = as_dev(setup.bc_vals)
+        vals_l, b_l = assemble_fine_shard(setup, element_fn,
+                                          as_dev(setup.coords),
+                                          as_dev(setup.validz), bc_l, bcv_l)
+        d0 = setup.offsets.index(0) if 0 in setup.offsets else 0
+        diag = vals_l[d0]
+        inv_diag = torch.where(diag != 0, 1.0 / diag, 0.0)
+        mask_l = torch.where(bc_l, 0.0, 1.0).to(dtype)
+        spmv_fine = fine_spmv_factory(setup, vals_l)
+        if setup.omega is None:
+            setup = with_omega(setup,
+                               fine_jacobi_weight(setup, spmv_fine, diag))
+        _sync(device)
 
     coarse_arrays, _ = setup.coarse
     precond = dist_gmg_preconditioner(setup, inv_diag, mask_l,
                                       coarse_arrays, spmv_fine)
     dot, dot2 = _reduced_dots()
-    t0 = time.perf_counter()
-    x_l, stats = cg_solve(spmv_fine, b_l, x0=bcv_l, precond=precond,
-                          rtol=rtol, maxiter=maxiter, dot=dot, dot2=dot2)
-    x = _gathered(x_l)
-    _sync(device)
-    t_solve = time.perf_counter() - t0
+    with span("solve_s", timings):
+        x_l, stats = cg_solve(spmv_fine, b_l, x0=bcv_l, precond=precond,
+                              rtol=rtol, maxiter=maxiter, dot=dot, dot2=dot2)
+        x = _gathered(x_l)
+        _sync(device)
 
     u_full = x[:setup.n_true].cpu().to(torch.float64).numpy()
-    timings = dict(pattern_s=t_setup, assemble_s=t_asm, solve_s=t_solve,
-                   planes_per_shard=setup.planes_per_shard,
+    timings.update(planes_per_shard=setup.planes_per_shard,
                    mg_omega=setup.omega, mg_nu=setup.nu,
                    mg_levels=1 + len(coarse_arrays.mats),
                    distributed_mg=True)

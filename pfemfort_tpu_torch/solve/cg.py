@@ -14,19 +14,59 @@ local dot followed by an all_reduce, so every rank reads the same reduced
 rr and takes the same branch.
 
 Convergence: relative residual ||r|| / ||b|| <= rtol (or ||r|| <= atol).
+
+Each solve also reports where its host time went: `loop_s`, the loop from
+its start to its exit; `wait_s`, the host's time inside the convergence
+read, summed over iterations (mostly waiting on the device); `host_reads`,
+every blocking device-to-host read (one per loop test, then the final
+relres and converged).  Two clock reads an iteration, no synchronise.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+import dataclasses
+import time
+from typing import Callable, Optional
 
 import torch
 
 
-class SolveStats(NamedTuple):
+@dataclasses.dataclass(frozen=True)
+class SolveStats:
     iters: int        # iterations performed
     relres: float     # final relative residual
     converged: bool
+    # where the host's time went; not part of the result, so not compared
+    loop_s: float = dataclasses.field(default=0.0, compare=False)
+    wait_s: float = dataclasses.field(default=0.0, compare=False)
+    host_reads: int = dataclasses.field(default=0, compare=False)
+
+    def _replace(self, **changes) -> "SolveStats":
+        """A copy with `changes` (the name it had as a NamedTuple)."""
+        return dataclasses.replace(self, **changes)
+
+
+def krylov_timings(stats) -> dict:
+    """A SolveStats' or RefineStats' loop figures as timings keys (none for
+    a solver that counts nothing, GMRES)."""
+    if not stats.host_reads:
+        return {}
+    return {"krylov.loop_s": stats.loop_s, "krylov.wait_s": stats.wait_s,
+            "krylov.host_reads": stats.host_reads}
+
+
+class _Reads:
+    """The loop's blocking reads of the convergence flag, and their time."""
+
+    def __init__(self):
+        self.n, self.wait_s, self.t0 = 0, 0.0, time.perf_counter()
+
+    def flag(self, t: torch.Tensor) -> bool:
+        t0 = time.perf_counter()
+        out = bool(t)
+        self.wait_s += time.perf_counter() - t0
+        self.n += 1
+        return out
 
 
 def cg_solve(
@@ -69,8 +109,9 @@ def cg_solve(
     rz = dot(r, z)
     rr = dot(r, r)
 
+    reads = _Reads()
     k = 0
-    while k < maxiter and bool(rr > tol2):
+    while k < maxiter and reads.flag(rr > tol2):
         Ap = operator(p)
         alpha = rz / dot(p, Ap)
         x.addcmul_(p, alpha)
@@ -81,14 +122,16 @@ def cg_solve(
         rz = rz_new
         k += 1
 
-    return x, _stats(k, rr, bnorm, tol2)
+    return x, _stats(k, rr, bnorm, tol2, reads)
 
 
 def _stats(k: int, rr: torch.Tensor, bnorm: torch.Tensor,
-           tol2: torch.Tensor) -> SolveStats:
+           tol2: torch.Tensor, reads: _Reads) -> SolveStats:
+    loop_s = time.perf_counter() - reads.t0
     relres = torch.sqrt(rr) / torch.where(bnorm > 0, bnorm, 1.0)
     return SolveStats(iters=k, relres=float(relres),
-                      converged=bool(rr <= tol2))
+                      converged=bool(rr <= tol2), loop_s=loop_s,
+                      wait_s=reads.wait_s, host_reads=reads.n + 2)
 
 
 def bicgstab_solve(
@@ -122,8 +165,9 @@ def bicgstab_solve(
     rho = alpha = omega = torch.ones((), dtype=b.dtype, device=b.device)
     rr = dot(r, r)
 
+    reads = _Reads()
     k = 0
-    while k < maxiter and bool(rr > tol2):
+    while k < maxiter and reads.flag(rr > tol2):
         rho_new = dot(rhat, r)
         beta = (rho_new / rho) * (alpha / omega)
         p = r + beta * (p - omega * v)
@@ -139,7 +183,7 @@ def bicgstab_solve(
         rho = rho_new
         rr = dot(r, r)
         k += 1
-    return x, _stats(k, rr, bnorm, tol2)
+    return x, _stats(k, rr, bnorm, tol2, reads)
 
 
 def jacobi_preconditioner(diag: torch.Tensor) -> Callable:

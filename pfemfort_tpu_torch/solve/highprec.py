@@ -31,7 +31,7 @@ place of the O(n) Jacobi-CG count (546 at n=200).
 from __future__ import annotations
 
 import dataclasses
-import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -44,10 +44,12 @@ from pfemfort_tpu_torch.mesh import generate as gen
 from pfemfort_tpu_torch.mesh.core import Mesh
 from pfemfort_tpu_torch.solve.multigrid import _is_affine_box, build_gmg, \
     gmg_preconditioner, symmetrize_dirichlet
+from pfemfort_tpu_torch.solve.cg import krylov_timings
 from pfemfort_tpu_torch.solve.refine import cg_with_refinement
 from pfemfort_tpu_torch.sparse.ops import dia_operator
 from pfemfort_tpu_torch.utils.device import resolve_device, \
     synchronize as _sync
+from pfemfort_tpu_torch.utils.timing import record, span
 
 
 def lattice_bc(mesh: Mesh, dirichlet: np.ndarray):
@@ -65,14 +67,17 @@ def lattice_bc(mesh: Mesh, dirichlet: np.ndarray):
 
 
 def full_system_f64(mesh: Mesh, element_fn, bc_mask: torch.Tensor,
-                    bc_vals: torch.Tensor, device):
+                    bc_vals: torch.Tensor, device,
+                    timings: Optional[dict] = None):
     """(A (DIA, identity Dirichlet rows), b) of the float64 full system of
     a box_tet mesh, assembled on `device`; and the assembly's chunk
-    count."""
+    count.  `timings`: where the span assemble.affine_s (the host's check
+    that the mesh is an affine box) goes."""
     s = mesh.structure
     nex, ney, nez = s["nex"], s["ney"], s["nez"]
     f64 = torch.float64
-    bounds = _is_affine_box(mesh)
+    with span("assemble.affine_s", timings):
+        bounds = _is_affine_box(mesh)
     if bounds is not None:
         (x0, x1), (y0, y1), (z0, z1) = bounds
         coords = gen.box_tet_coords_em_device(x0, x1, nex, y0, y1, ney,
@@ -114,8 +119,13 @@ def solve_box_poisson_1e8(
 
     device: 'cuda' (the default; raises without a card) or 'cpu'.
     Returns (u_full (n_node,) float64 numpy, RefineStats, timings) with
-    timings host_assemble_s (the float64 system on the device),
-    mg_setup_s, solve_s and assembly_chunks.
+    timings host_assemble_s (the float64 system on the device; inside it
+    assemble.affine_s, the host's affine-box check of the fine mesh),
+    mg_setup_s (inside it mg.coarsen_s, the host coarsening chain),
+    mg_levels, solve_s and assembly_chunks, and the inner CG loops'
+    krylov.loop_s, krylov.wait_s and krylov.host_reads (RefineStats' sums,
+    solve/refine.py).  Each stage ends in a device synchronise; the
+    children do not (utils/timing.py:span).
     """
     device = resolve_device(device)
     s = mesh.structure or {}
@@ -126,37 +136,39 @@ def solve_box_poisson_1e8(
     element_fn = lambda c: poisson_element_matrices(c, "tetra4",
                                                     source=source)
 
-    t0 = time.perf_counter()
-    bc_mask_np, bc_vals_np = lattice_bc(mesh, dirichlet)
-    bc_mask = torch.as_tensor(bc_mask_np, device=device)
-    bc_vals = torch.as_tensor(bc_vals_np, dtype=torch.float64, device=device)
-    A64, b64, n_chunks = full_system_f64(mesh, element_fn, bc_mask, bc_vals,
-                                         device)
-    _sync(device)
-    timings.update(host_assemble_s=time.perf_counter() - t0,
-                   assembly_chunks=n_chunks)
+    with span("host_assemble_s", timings):
+        bc_mask_np, bc_vals_np = lattice_bc(mesh, dirichlet)
+        bc_mask = torch.as_tensor(bc_mask_np, device=device)
+        bc_vals = torch.as_tensor(bc_vals_np, dtype=torch.float64,
+                                  device=device)
+        A64, b64, n_chunks = full_system_f64(mesh, element_fn, bc_mask,
+                                             bc_vals, device, timings)
+        _sync(device)
+    timings["assembly_chunks"] = n_chunks
 
-    t0 = time.perf_counter()
-    # inner operator: the float64 system rounded to float32; MG's fine
-    # level: the same values with identity BC rows AND columns
-    # (pfemfort_tpu/solve/highprec.py:140-155)
-    A32 = dataclasses.replace(A64, vals=A64.vals.to(torch.float32))
-    A_sym = symmetrize_dirichlet(A32, bc_mask)
-    mg = build_gmg(mesh, 1, bc_mask_np, element_fn, dtype=torch.float32,
-                   device=device, nu=nu, omega=omega,
-                   coarsest_max_dof=coarsest_max_dof, fine_matrix=A_sym)
-    if mg is None:
-        raise ValueError("mesh does not support the geometric hierarchy")
-    _sync(device)
-    timings["mg_setup_s"] = time.perf_counter() - t0
+    with span("mg_setup_s", timings):
+        # inner operator: the float64 system rounded to float32; MG's fine
+        # level: the same values with identity BC rows AND columns
+        # (pfemfort_tpu/solve/highprec.py:140-155)
+        A32 = dataclasses.replace(A64, vals=A64.vals.to(torch.float32))
+        A_sym = symmetrize_dirichlet(A32, bc_mask)
+        mg = build_gmg(mesh, 1, bc_mask_np, element_fn, dtype=torch.float32,
+                       device=device, nu=nu, omega=omega,
+                       coarsest_max_dof=coarsest_max_dof, fine_matrix=A_sym,
+                       timings=timings)
+        if mg is None:
+            raise ValueError("mesh does not support the geometric hierarchy")
+        _sync(device)
     timings["mg_levels"] = [A.n_rows for A in mg[0].mats]
 
-    t0 = time.perf_counter()
-    x0 = torch.where(bc_mask, bc_vals, 0.0)
-    x, stats = cg_with_refinement(
-        dia_operator(A64), dia_operator(A32), b64,
-        precond32=gmg_preconditioner(*mg), rtol=rtol, inner_rtol=inner_rtol,
-        max_outer=max_outer, inner_maxiter=inner_maxiter, x0=x0)
-    _sync(device)
-    timings["solve_s"] = time.perf_counter() - t0
+    with span("solve_s", timings):
+        x0 = torch.where(bc_mask, bc_vals, 0.0)
+        x, stats = cg_with_refinement(
+            dia_operator(A64), dia_operator(A32), b64,
+            precond32=gmg_preconditioner(*mg), rtol=rtol,
+            inner_rtol=inner_rtol, max_outer=max_outer,
+            inner_maxiter=inner_maxiter, x0=x0)
+        _sync(device)
+    timings.update(krylov_timings(stats))
+    record("solve_box_poisson_1e8", timings)
     return x.cpu().numpy(), stats, timings

@@ -35,6 +35,7 @@ import torch
 
 from pfemfort_tpu_torch.mesh.core import Mesh
 from pfemfort_tpu_torch.sparse.dia import DIAMatrix, dia_diagonal
+from pfemfort_tpu_torch.utils.timing import span
 
 
 # ---------------------------------------------------------------------------
@@ -245,6 +246,7 @@ def build_gmg(
     coarsest_max_dof: int = 4096,
     min_cells: int = 2,
     fine_matrix: Optional[DIAMatrix] = None,
+    timings: Optional[dict] = None,
 ) -> Optional[Tuple[GMGArrays, GMGMeta]]:
     """Build the multigrid hierarchy for a structured mesh.
 
@@ -267,6 +269,9 @@ def build_gmg(
     rows and columns) full-system fine-level DIA on `device`; skips the
     fine-level element assembly, the only expensive level at 48M elements
     (solve/highprec.py).
+
+    `timings`: where the span mg.coarsen_s (the host coarsening chain:
+    each coarse mesh and its Dirichlet mask) goes.
     """
     st = mesh.structure or {}
     if st.get("kind") not in ("box_tet", "rect_tria"):
@@ -276,21 +281,22 @@ def build_gmg(
     # --- coarsening chain (host side) ---
     meshes = [mesh]
     masks_np = [np.asarray(bc_mask_full, dtype=bool)]
-    while True:
-        s = meshes[-1].structure
-        dims = ([s["nex"], s["ney"], s["nez"]] if s["kind"] == "box_tet"
-                else [s["nex"], s["ney"]])
-        n_dof_here = int(np.prod([d + 1 for d in dims])) * ndof
-        if n_dof_here <= coarsest_max_dof:
-            break
-        if any(d % 2 or d // 2 < min_cells for d in dims):
-            break
-        coarse, _ = _coarse_box_mesh(meshes[-1])
-        shape = _lattice_shape(s)
-        sub = masks_np[-1].reshape(*shape, ndof)
-        sub = sub[(slice(None, None, 2),) * len(shape)]
-        meshes.append(coarse)
-        masks_np.append(sub.reshape(-1))
+    with span("mg.coarsen_s", timings):
+        while True:
+            s = meshes[-1].structure
+            dims = ([s["nex"], s["ney"], s["nez"]] if s["kind"] == "box_tet"
+                    else [s["nex"], s["ney"]])
+            n_dof_here = int(np.prod([d + 1 for d in dims])) * ndof
+            if n_dof_here <= coarsest_max_dof:
+                break
+            if any(d % 2 or d // 2 < min_cells for d in dims):
+                break
+            coarse, _ = _coarse_box_mesh(meshes[-1])
+            shape = _lattice_shape(s)
+            sub = masks_np[-1].reshape(*shape, ndof)
+            sub = sub[(slice(None, None, 2),) * len(shape)]
+            meshes.append(coarse)
+            masks_np.append(sub.reshape(-1))
 
     n_coarsest = meshes[-1].n_node * ndof
     use_cheby = n_coarsest > coarsest_max_dof

@@ -11,23 +11,35 @@ residuals (solverpetsc.F / PETSc defaults).  Here:
 Classical iterative refinement converges to f64-level residuals as long as
 CG contracts the error by more than the f32 rounding floor each cycle.  The
 host reads two scalars per outer cycle (the residual's norm and its largest
-entry), never per inner iteration beyond CG's own flag.
+entry), never per inner iteration beyond CG's own flag.  RefineStats sums
+the inner solves' loop_s, wait_s and host_reads (solve/cg.py) and adds its
+own reads to the last.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+import dataclasses
+from typing import Callable, Optional
 
 import torch
 
 from pfemfort_tpu_torch.solve.cg import cg_solve
 
 
-class RefineStats(NamedTuple):
+@dataclasses.dataclass(frozen=True)
+class RefineStats:
     outer_iters: int
     total_inner_iters: int
     relres: float          # final f64 relative residual
     converged: bool
+    # the inner loops' host time and every blocking read; not compared
+    loop_s: float = dataclasses.field(default=0.0, compare=False)
+    wait_s: float = dataclasses.field(default=0.0, compare=False)
+    host_reads: int = dataclasses.field(default=0, compare=False)
+
+    def _replace(self, **changes) -> "RefineStats":
+        """A copy with `changes` (the name it had as a NamedTuple)."""
+        return dataclasses.replace(self, **changes)
 
 
 def cg_with_refinement(
@@ -49,7 +61,8 @@ def cg_with_refinement(
     b64 = b64.to(torch.float64)
     bnorm = float(torch.linalg.vector_norm(b64))
     if bnorm == 0.0:
-        return torch.zeros_like(b64), RefineStats(0, 0, 0.0, True)
+        return torch.zeros_like(b64), RefineStats(0, 0, 0.0, True,
+                                                  host_reads=1)
 
     def resid(x64):
         return b64 - op64(x64)
@@ -60,11 +73,13 @@ def cg_with_refinement(
     else:
         x64 = x0.to(torch.float64)
         r64 = resid(x64)
-    total_inner = 0
+    total_inner, loop_s, wait_s, reads = 0, 0.0, 0.0, 1   # bnorm's read
     for outer in range(max_outer):
         relres = float(torch.linalg.vector_norm(r64)) / bnorm
+        reads += 1
         if relres <= rtol:
-            return x64, RefineStats(outer, total_inner, relres, True)
+            return x64, RefineStats(outer, total_inner, relres, True,
+                                    loop_s, wait_s, reads)
         # scale the residual so the f32 inner solve sees O(1) magnitudes
         scale = float(r64.abs().max())
         scale = scale if scale > 0 else 1.0
@@ -72,7 +87,10 @@ def cg_with_refinement(
                            precond=precond32, rtol=inner_rtol,
                            maxiter=inner_maxiter)
         total_inner += st.iters
+        loop_s, wait_s = loop_s + st.loop_s, wait_s + st.wait_s
+        reads += 1 + st.host_reads
         x64 = x64 + scale * d32.to(torch.float64)
         r64 = resid(x64)
     relres = float(torch.linalg.vector_norm(r64)) / bnorm
-    return x64, RefineStats(max_outer, total_inner, relres, relres <= rtol)
+    return x64, RefineStats(max_outer, total_inner, relres, relres <= rtol,
+                            loop_s, wait_s, reads + 1)

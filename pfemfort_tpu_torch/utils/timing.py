@@ -2,9 +2,29 @@
 """Timing/observability helpers (SURVEY §5 'Tracing/profiling' parity).
 
 The reference instruments solves with MPI_Wtime + PetscPrintf milestones
-(triapoissonparallelimpl1.F:175,914-921).  `Timer` collects named phase
-durations (synchronising the device of `block_on` so the numbers include
-the queued kernels), and `timed` is the context-manager form.
+(triapoissonparallelimpl1.F:175,914-921).  The port's one span facility:
+
+  span(key, into)     a context manager adding its block's host-clock
+                      seconds to into[key] (repeated spans of one key add
+                      up; into None keeps nothing).  While a torch.profiler
+                      runs it also opens record_function("pfem." + key), so
+                      the span sits on the profiler's clock beside the
+                      device's activity; with no profiler it costs two clock
+                      reads and one flag test.  A span never synchronises:
+                      a stage span ends where its code synchronises
+                      (utils/device.py:synchronize), and device work that a
+                      child span queues can land in its parent's self time.
+                      A dot in a key names a child of the stage it sits in
+                      ("pattern.census_s" inside "pattern_s").
+  count(key, n, into) adds n to the counter into[key].
+  RECENT              the last 32 Records (name, timings, profiled) that the
+                      public drivers appended on returning (`record`), for
+                      callers that do not hold the result.
+  stage_seconds       the sum of a timings dict's stages (keys ending in _s
+                      with no dot: children are inside their stages).
+
+`Timer` collects named phase durations through `span`, synchronising the
+device of `block_on` before the phase is closed, and `timed` prints one.
 
 The port adds the card's clock and the SpMV roofline that chip_smoke.py
 and the bench harness (bench.py) share: `device_ms` (CUDA events, the
@@ -17,9 +37,10 @@ the measurements time beside the kernels and the port never calls.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import time
-from typing import Dict, Tuple
+from typing import Deque, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -33,6 +54,51 @@ PEAK_GBPS = {"H100 PCIe": 2000.0, "H100 NVL": 3900.0, "H100": 3350.0}
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 
 
+def profiling() -> bool:
+    """Whether a torch.profiler is recording in this process."""
+    return torch.autograd._profiler_enabled()
+
+
+@contextlib.contextmanager
+def span(key: str, into: Optional[dict]):
+    """Add the block's host-clock seconds to into[key]; under a running
+    profiler, also a record_function range "pfem." + key."""
+    ctx = (torch.profiler.record_function("pfem." + key) if profiling()
+           else contextlib.nullcontext())
+    with ctx:
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if into is not None:
+                into[key] = into.get(key, 0.0) + time.perf_counter() - t0
+
+
+def count(key: str, n: int, into: dict) -> None:
+    """Add n to the counter into[key]."""
+    into[key] = into.get(key, 0) + n
+
+
+def stage_seconds(timings: dict) -> float:
+    """Seconds of a driver's stages: its keys ending in _s without a dot."""
+    return sum(v for k, v in timings.items()
+               if k.endswith("_s") and "." not in k)
+
+
+class Record(NamedTuple):
+    name: str          # the public driver that returned
+    timings: dict      # its result's timings
+    profiled: bool     # whether a torch.profiler was recording
+
+
+RECENT: Deque[Record] = collections.deque(maxlen=32)
+
+
+def record(name: str, timings: dict) -> None:
+    """Append a returning driver's timings to RECENT."""
+    RECENT.append(Record(name, timings, profiling()))
+
+
 class Timer:
     """Accumulates named phase timings; `block_on` (a tensor) synchronises
     its device before the phase is closed."""
@@ -42,14 +108,12 @@ class Timer:
 
     @contextlib.contextmanager
     def phase(self, name: str, block_on=None):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if block_on is not None and block_on.device.type == "cuda":
-                torch.cuda.synchronize(block_on.device)
-            self.phases[name] = self.phases.get(name, 0.0) \
-                + time.perf_counter() - t0
+        with span(name, self.phases):
+            try:
+                yield
+            finally:
+                if block_on is not None and block_on.device.type == "cuda":
+                    torch.cuda.synchronize(block_on.device)
 
     def report(self) -> str:
         total = sum(self.phases.values())
