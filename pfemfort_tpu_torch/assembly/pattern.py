@@ -9,9 +9,10 @@ scatter is precomputed host-side; device assembly is one segment-sum
 
 Two layouts:
   * 'dia' (lattice-structured numbering): the distinct diagonal offsets
-    (col - row) are detected with an O(nnz) bincount census — no sorting —
-    and every element entry maps to the flat slot d*N + row of a (D, N)
-    diagonal value array.
+    (col - row) are detected with an O(nnz) census, no sorting: one pass
+    of the host library over each element's dof pairs
+    (csrc/host_native.cpp:pfem_offset_census).  Every element entry maps
+    to the flat slot d*N + row of a (D, N) diagonal value array.
   * 'ell' (general fallback): unique (row, col) pairs -> CSR -> padded ELL,
     with a stable-sorted scatter plan, built by the host library's
     row-bucket sort (csrc/host_native.cpp:pfem_ell_pattern) or, when an
@@ -64,34 +65,11 @@ class AssemblyPattern:
 CENSUS_HEAD_ELEMS = 65_536
 
 
-def _entry_arrays(elem_dof: np.ndarray):
-    """Per-entry (row, col) arrays flattened in (i, j, e) order — matching
-    the element-minor Ke (ns, ns, E) produced by the element kernels."""
-    ns = elem_dof.shape[1]
-    edt = elem_dof.T.astype(np.int64)              # (ns, E)
-    E = edt.shape[1]
-    rows = np.broadcast_to(edt[:, None, :], (ns, ns, E)).ravel()
-    cols = np.broadcast_to(edt[None, :, :], (ns, ns, E)).ravel()
-    valid = (rows >= 0) & (cols >= 0)
-    return rows, cols, valid
-
-
-def _offset_census(elem_dof: np.ndarray, n_rows: int) -> np.ndarray:
-    """Distinct diagonal offsets (col - row) over all valid element entries.
-
-    O(nnz) bincount — no sorting."""
-    rows, cols, valid = _entry_arrays(elem_dof)
-    offs_shifted = np.where(valid, cols - rows + n_rows, 2 * n_rows)
-    cnt = np.bincount(offs_shifted, minlength=2 * n_rows + 1)
-    return np.nonzero(cnt[:2 * n_rows])[0] - n_rows
-
-
-def _rhs_dest(elem_dof: np.ndarray, n_rows: int):
-    """Flat rhs destinations in (i, e) order — matching Fe (ns, E)."""
-    rd = elem_dof.T.ravel().astype(np.int64)
-    rd = np.where(rd < 0, n_rows, rd)
+def _rhs_dest(edt: np.ndarray, n_rows: int):
+    """Flat rhs destinations in (i, e) order — matching Fe (ns, E) — from
+    the contiguous (ns, E) transpose of elem_dof."""
     dt = np.int32 if n_rows + 1 < 2**31 else np.int64
-    return rd.astype(dt)
+    return np.where(edt < 0, dt(n_rows), edt.astype(dt, copy=False)).ravel()
 
 
 def build_pattern(elem_dof: np.ndarray, n_rows: int, lane_pad: int = 8,
@@ -103,7 +81,8 @@ def build_pattern(elem_dof: np.ndarray, n_rows: int, lane_pad: int = 8,
     `lattice`: optional row-lattice shape (dofs/dofmap.py:reduced_lattice)
     enabling the N-D stencil SpMV (sparse/dia.py:DIAMatrix.lattice)."""
     elem_dof = np.asarray(elem_dof)
-    rhs_dest = _rhs_dest(elem_dof, n_rows)
+    edt = np.ascontiguousarray(elem_dof.T)        # (ns, E) element-minor
+    rhs_dest = _rhs_dest(edt, n_rows)
     if lattice is not None and int(np.prod(lattice)) != n_rows:
         lattice = None
 
@@ -111,9 +90,9 @@ def build_pattern(elem_dof: np.ndarray, n_rows: int, lane_pad: int = 8,
         # The offsets of the first elements are a subset of all offsets:
         # when they alone exceed max_offsets the whole census would too,
         # so a scrambled mesh skips the full O(nnz) pass.
-        uniq = _offset_census(elem_dof[:CENSUS_HEAD_ELEMS], n_rows)
+        uniq = host_native.offset_census(elem_dof[:CENSUS_HEAD_ELEMS], n_rows)
         if len(uniq) <= max_offsets:
-            uniq = _offset_census(elem_dof, n_rows)
+            uniq = host_native.offset_census(elem_dof, n_rows)
         if len(uniq) <= max_offsets and len(uniq) > 0:
             return AssemblyPattern(
                 layout="dia",
@@ -121,7 +100,7 @@ def build_pattern(elem_dof: np.ndarray, n_rows: int, lane_pad: int = 8,
                 rhs_dest=rhs_dest,
                 dia_offsets=tuple(int(o) for o in uniq),
                 dia_lattice=lattice,
-                elem_dof_t=np.ascontiguousarray(elem_dof.T, dtype=np.int32),
+                elem_dof_t=edt.astype(np.int32, copy=False),
             )
         if layout == "dia":
             raise ValueError(

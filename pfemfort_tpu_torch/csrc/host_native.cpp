@@ -2,15 +2,16 @@
 //
 // The port's host-side loops that are sequential by nature: mesh
 // partitioning (parallel/partition.py: coordinate RCB, greedy dual-graph
-// k-way, edge cut), the ELL pattern + sorted scatter plan
-// (assembly/pattern.py), greedy smoothed-aggregation (solve/amg.py) and the
-// IC(0) factorization (solve/ic0.py); and the native mesh generator and
-// legacy-VTK writer that the standalone programs pfem_gentet.cpp and
-// pfem_partition.cpp link against.  Built with the host C++ compiler at
+// k-way, edge cut), the DIA offset census and the ELL pattern + sorted
+// scatter plan (assembly/pattern.py), greedy smoothed-aggregation
+// (solve/amg.py) and the IC(0) factorization (solve/ic0.py); and the native
+// mesh generator and legacy-VTK writer that the standalone programs
+// pfem_gentet.cpp and pfem_partition.cpp link against.  Built with the host C++ compiler at
 // first use (cuda_build.py:HostLibrary, HostProgram) and called through
 // ctypes (host_native.py).  The functions are the JAX package's, unchanged, so both
 // packages give the same partitions, patterns, aggregates and factor bit
-// for bit.
+// for bit; the DIA offset census is the port's own and gives the offsets of
+// the JAX package's census.
 
 #include <algorithm>
 #include <cmath>
@@ -307,6 +308,46 @@ int64_t pfem_ell_pattern(const int32_t* elem_dof, int64_t n_elem, int32_t ns,
     }
   }
   return nnz;
+}
+
+// ---------------------------------------------------------------------------
+// DIA offset census (the port's own; assembly/pattern.py:build_pattern):
+// the distinct diagonal offsets (col - row) over every valid (row, col) pair
+// of every element, in one pass over each element's dof pairs into a byte
+// table of 2*n_rows + 1 entries indexed by offset + n_rows.  The pairs i < j
+// mark d = b - a, any valid dof marks 0, and the table is then made
+// symmetric (the ordered pair (b, a) gives -d), so each pair is read once
+// and no entry array is made.  Writes the offsets in ascending order to out
+// (caller-allocated, >= 2*n_rows - 1 entries) and returns how many; -1 when
+// n_rows overflows int32 or a dof lies outside [-1, n_rows).
+// ---------------------------------------------------------------------------
+int64_t pfem_offset_census(const int32_t* elem_dof, int64_t n_elem,
+                           int32_t ns, int64_t n_rows, int64_t* out) {
+  if (n_rows >= (int64_t)INT32_MAX) return -1;
+  const int64_t n_slot = n_elem * ns;
+  for (int64_t t = 0; t < n_slot; ++t)
+    if (elem_dof[t] < -1 || elem_dof[t] >= n_rows) return -1;
+  std::vector<uint8_t> seen(2 * n_rows + 1, 0);
+  uint8_t* const mid = seen.data() + n_rows;
+  for (int64_t e = 0; e < n_elem; ++e) {
+    const int32_t* d = elem_dof + e * ns;
+    for (int32_t i = 0; i < ns; ++i) {
+      const int32_t a = d[i];
+      if (a < 0) continue;
+      mid[0] = 1;
+      for (int32_t j = i + 1; j < ns; ++j) {
+        const int32_t b = d[j];
+        if (b < 0) continue;
+        mid[b - a] = 1;
+      }
+    }
+  }
+  for (int64_t k = 1; k <= n_rows; ++k)
+    mid[k] = mid[-k] = mid[k] | mid[-k];
+  int64_t n = 0;
+  for (int64_t k = 0; k <= 2 * n_rows; ++k)
+    if (seen[k]) out[n++] = k - n_rows;
+  return n;
 }
 
 

@@ -7,7 +7,8 @@ which falls back to Python or numpy (and gives up on IC(0) above 200k rows)
 when its native library is missing, a failed build raises here.  The one
 fallback kept is the JAX package's own size rule: `ell_pattern` returns None
 when an index would overflow int32, and assembly/pattern.py then takes its
-numpy builder.
+numpy builder.  `offset_census`, the port's own, has no fallback and raises
+on such input.
 
 The two standalone programs of the JAX package's native/Makefile,
 `pfem_gentet` (box -> 6-tet .dat files) and `pfem_partition` (RCB or greedy
@@ -38,6 +39,8 @@ library = HostLibrary("host_native", {
     "pfem_ell_pattern": ([_P32, ctypes.c_int64, ctypes.c_int32, ctypes.c_int64,
                           ctypes.c_int32, _P32, _P32, _P64, _P32, _P32],
                          ctypes.c_int64),
+    "pfem_offset_census": ([_P32, ctypes.c_int64, ctypes.c_int32,
+                            ctypes.c_int64, _P64], ctypes.c_int64),
     "pfem_samg_aggregate": ([ctypes.c_int64, _P64, _P32, _P64],
                             ctypes.c_int64),
     "pfem_ic0": ([ctypes.c_int64, _P64, _P32, _PD], ctypes.c_int64),
@@ -136,6 +139,26 @@ def ell_pattern(elem_dof: np.ndarray, n_rows: int, lane_pad: int = 8):
         return None
     return (mat_perm, mat_segids, indptr, indices[:nnz].copy(),
             int(k_out.value), int(nnz))
+
+
+def offset_census(elem_dof: np.ndarray, n_rows: int):
+    """The distinct diagonal offsets (col - row), ascending int64, over every
+    valid pair of element DOF rows (-1 for an eliminated dof).  Raises
+    ValueError unless every dof lies in [-1, n_rows) and n_rows fits the
+    library's int32."""
+    ed = np.asarray(elem_dof)
+    if n_rows >= 2**31 - 1 or (ed.dtype != np.int32 and ed.size and (
+            ed.min() < -1 or ed.max() >= n_rows)):
+        raise ValueError(f"offset census: a dof outside [-1, {n_rows}) "
+                         "or n_rows past int32")
+    ed = np.ascontiguousarray(ed, dtype=np.int32)
+    E, ns = ed.shape
+    out = np.empty(max(2 * n_rows - 1, 1), dtype=np.int64)
+    n = library.lib().pfem_offset_census(_ptr(ed, ctypes.c_int32), E, ns,
+                                          n_rows, _ptr(out, ctypes.c_int64))
+    if n < 0:
+        raise ValueError(f"offset census: a dof outside [-1, {n_rows})")
+    return out[:n].copy()
 
 
 def samg_aggregate(indptr: np.ndarray, indices: np.ndarray, n: int):

@@ -62,13 +62,13 @@ def recover_structure(mesh: Mesh, ndof: int, dirichlet: np.ndarray,
     census fits `max_offsets` diagonals, else None.  Cost: two O(nnz)
     censuses + one sort — negligible next to a solve.
     """
-    from pfemfort_tpu_torch.assembly.pattern import _offset_census
+    from pfemfort_tpu_torch import host_native
     from pfemfort_tpu_torch.dofs.dofmap import build_dofmap
 
     if mesh.structure is not None:
         return None
     dofmap = build_dofmap(mesh, ndof, dirichlet)
-    uniq0 = _offset_census(dofmap.elem_dof, dofmap.total_dof)
+    uniq0 = host_native.offset_census(dofmap.elem_dof, dofmap.total_dof)
     if len(uniq0) <= max_offsets:
         return None                    # already DIA-able as numbered
     perm = geometric_node_order(mesh.coords)
@@ -76,7 +76,7 @@ def recover_structure(mesh: Mesh, ndof: int, dirichlet: np.ndarray,
         return None
     mesh2, dbc2, fbc2 = apply_node_perm(mesh, perm, dirichlet, force_bc)
     dofmap2 = build_dofmap(mesh2, ndof, dbc2)
-    uniq2 = _offset_census(dofmap2.elem_dof, dofmap2.total_dof)
+    uniq2 = host_native.offset_census(dofmap2.elem_dof, dofmap2.total_dof)
     if len(uniq2) > max_offsets:
         return None                    # genuinely unstructured: keep ELL
     return mesh2, dbc2, fbc2, perm, dofmap

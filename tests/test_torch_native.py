@@ -99,6 +99,73 @@ def test_native_builder_declines_int32_overflow():
     assert host_native.ell_pattern(ed, 10) is None
 
 
+CENSUS_CASES = ["elasticity_box", "poisson_box_dirichlet", "renumbered_box",
+                "renumbered_box_ndof3", "delaunay", "all_eliminated"]
+
+
+def _census_case(kind):
+    """(elem_dof, n_rows) of one offset census case."""
+    if kind == "elasticity_box":
+        mesh, _ = generate.box_tet(0, 1, 4, 0, 1, 3, 0, 1, 5)
+        dm = build_dofmap(mesh, 3, _clamped(mesh))
+    elif kind in ("poisson_box_dirichlet", "all_eliminated"):
+        mesh, dbc = generate.box_tet(0, 1, 5, 0, 1, 4, 0, 1, 3)
+        dm = build_dofmap(mesh, 1, dbc)
+    else:
+        mesh, dbc, ndof = _case(kind)
+        dm = build_dofmap(mesh, ndof, dbc)
+    elem_dof = np.asarray(dm.elem_dof)
+    if kind == "all_eliminated":
+        elem_dof = np.full_like(elem_dof, -1)
+    return elem_dof, dm.total_dof
+
+
+@pytest.mark.parametrize("kind", CENSUS_CASES)
+def test_native_offset_census_matches_numpy_and_jax(kind):
+    """The host library's census gives the int64 offsets of the JAX
+    package's census, on numpy and on JAX, and build_pattern on it the JAX
+    package's pattern field for field."""
+    from pfemfort_tpu.assembly.pattern import _offset_census as j_census
+
+    elem_dof, n_rows = _census_case(kind)
+    native = host_native.offset_census(elem_dof, n_rows)
+    assert native.dtype == np.int64
+    assert (len(native) == 0) == (kind == "all_eliminated")
+    for device in (False, True):
+        other = np.asarray(j_census(elem_dof, n_rows, device=device))
+        assert other.dtype == np.int64
+        np.testing.assert_array_equal(native, other)
+
+    t = tpat.build_pattern(elem_dof, n_rows)
+    j = j_build_pattern(elem_dof, n_rows)
+    assert (t.layout, t.n_rows) == (j.layout, j.n_rows)
+    fields = (("rhs_dest", "elem_dof_t") if t.layout == "dia"
+              else ("rhs_dest",) + FIELDS)
+    assert t.dia_offsets == j.dia_offsets
+    for f in fields:
+        a, b = getattr(t, f), np.asarray(getattr(j, f))
+        assert a.dtype == b.dtype and a.flags.c_contiguous, f
+        np.testing.assert_array_equal(a, b, err_msg=f)
+
+
+def test_native_census_declines_int32_overflow():
+    """Past int32 rows or dofs, and for a dof outside [-1, n_rows), the
+    census raises (checked without allocating such a mesh), and
+    build_pattern with it."""
+    ed = np.lib.stride_tricks.as_strided(np.zeros(1, np.int32),
+                                         shape=(2**27, 16), strides=(0, 0))
+    bad = [(ed, 2**31 - 1),
+           (np.array([[0, 2**31]], dtype=np.int64), 10),
+           (np.array([[0, -2**31 - 1]], dtype=np.int64), 10),
+           (np.array([[0, 10]], np.int32), 10),          # a dof past n_rows
+           (np.array([[0, -2]], np.int32), 10)]          # not the sentinel
+    for elem_dof, n_rows in bad:
+        with pytest.raises(ValueError, match="offset census"):
+            host_native.offset_census(elem_dof, n_rows)
+    with pytest.raises(ValueError, match="offset census"):
+        tpat.build_pattern(np.array([[0, 10]], np.int32), 10)
+
+
 def _meshes(kind):
     if kind == "box_tet":
         return generate.box_tet(0, 1, 6, 0, 2, 5, 0, 1, 4)[0]

@@ -8,7 +8,9 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import pfemfort_tpu_torch as pt
-from pfemfort_tpu_torch.drivers.common import solve_implicit_fullsystem
+from pfemfort_tpu_torch import host_native
+from pfemfort_tpu_torch.drivers.common import solve_implicit, \
+    solve_implicit_fullsystem
 from pfemfort_tpu_torch.elements.poisson import poisson_element_matrices
 from pfemfort_tpu_torch.solve import refine
 from pfemfort_tpu_torch.solve.cg import bicgstab_solve, cg_solve
@@ -242,6 +244,28 @@ def test_the_pattern_paths_keys_are_the_table():
     _, _, t = solve_box_poisson_1e8(*_box(8), device="cpu")
     assert {"host_assemble_s", "assemble.affine_s", "mg_setup_s",
             "mg.coarsen_s", "solve_s"} | set(KRYLOV) <= set(t)
+
+
+def test_the_pattern_paths_census_runs_in_the_host_library(monkeypatch):
+    """The DIA path's two census passes (the head probe and the whole
+    mesh) both run in the host library, inside pattern.census_s; an ELL
+    mesh stops after the probe."""
+    calls = []
+    census = host_native.offset_census
+
+    def counted(elem_dof, n_rows):
+        calls.append(len(elem_dof))
+        return census(elem_dof, n_rows)
+
+    monkeypatch.setattr(host_native, "offset_census", counted)
+    t = _solve_elasticity(dtype=F64).timings
+    assert len(calls) == 2 and calls[1] == _elasticity()[0].n_elem
+    assert 0 < t["pattern.census_s"] <= t["pattern_s"]
+    calls.clear()
+    mesh, dbc = _permuted_box()
+    t = solve_implicit(mesh, 1, dbc, _poisson_fn, device="cpu", dtype=F64,
+                       recover=False).timings
+    assert len(calls) == 1 and "order_s" in t
 
 
 @pytest.mark.parametrize("case", sorted(DRIVERS))
