@@ -4,16 +4,20 @@
 // partitioning (parallel/partition.py: coordinate RCB, greedy dual-graph
 // k-way, edge cut), the DIA offset census and the ELL pattern + sorted
 // scatter plan (assembly/pattern.py), greedy smoothed-aggregation
-// (solve/amg.py) and the IC(0) factorization (solve/ic0.py); and the native
+// (solve/amg.py), the IC(0) factorization and the single passes of its
+// set-up (the DIA matrix's CSR, its lower triangle, T and T^T as padded
+// ELL, the diagonal census and DIA form of a routed block: solve/ic0.py,
+// solve/amg_device.py); and the native
 // mesh generator and legacy-VTK writer that the standalone programs
 // pfem_gentet.cpp and pfem_partition.cpp link against.  Built with the host C++ compiler at
 // first use (cuda_build.py:HostLibrary, HostProgram) and called through
 // ctypes (host_native.py).  The functions are the JAX package's, unchanged, so both
 // packages give the same partitions, patterns, aggregates and factor bit
-// for bit; the DIA offset census is the port's own and gives the offsets of
-// the JAX package's census.
+// for bit; the DIA offset census and the IC(0) set-up's passes are the
+// port's own and give the arrays of the numpy forms they replace.
 
 #include <algorithm>
+#include <atomic>
 #include <cmath>
 #include <cstdint>
 #include <cstdio>
@@ -394,31 +398,36 @@ int64_t pfem_samg_aggregate(int64_t n, const int64_t* sp, const int32_t* si,
 // overwritten with the factor.  Rows with non-positive pivots get a small
 // positive substitute (breakdown guard; the preconditioner stays SPD).
 // Returns the number of pivot substitutions.
+//
+// The sparse dot of row i's prefix with row k's strict prefix walks row k
+// and finds row i's entry of each column through a position map of row i
+// (the port's form of the JAX package's two-pointer merge): the same
+// products added in the same ascending column order, so the same factor
+// bit for bit on rows without repeated columns, with no branch on the
+// merge's comparisons.
 // ---------------------------------------------------------------------------
 int64_t pfem_ic0(int64_t n, const int64_t* lp, const int32_t* li,
                  double* lv) {
   int64_t fixups = 0;
+  // row i's place (from r0) of each of its columns; UINT32_MAX elsewhere
+  std::vector<uint32_t> pos(n, UINT32_MAX);
   for (int64_t i = 0; i < n; ++i) {
     const int64_t r0 = lp[i], r1 = lp[i + 1];
+    for (int64_t p = r0; p < r1; ++p) pos[li[p]] = (uint32_t)(p - r0);
     double dsum = 0.0;
     for (int64_t p = r0; p < r1; ++p) {
       const int32_t k = li[p];
       if (k < i) {
         // sparse dot of row i's prefix [r0, p) with row k's strict prefix
         double s = 0.0;
-        int64_t a = r0, b = lp[k];
         const int64_t bdiag = lp[k + 1] - 1;
-        while (a < p && b < bdiag) {
-          const int32_t ca = li[a], cb = li[b];
-          if (ca == cb) {
-            s += lv[a] * lv[b];
-            ++a;
-            ++b;
-          } else if (ca < cb) {
-            ++a;
-          } else {
-            ++b;
-          }
+        const uint32_t before = (uint32_t)(p - r0);
+        for (int64_t b = lp[k]; b < bdiag; ++b) {
+          // no branch: a miss adds +0.0, which leaves s's bits (never -0.0)
+          const uint32_t a = pos[li[b]];
+          const bool hit = a < before;
+          const double prod = lv[r0 + (hit ? a : 0)] * lv[b];
+          s += hit ? prod : 0.0;
         }
         lv[p] = (lv[p] - s) / lv[bdiag];
         dsum += lv[p] * lv[p];
@@ -431,8 +440,193 @@ int64_t pfem_ic0(int64_t n, const int64_t* lp, const int32_t* li,
         lv[p] = std::sqrt(d);
       }
     }
+    for (int64_t p = r0; p < r1; ++p) pos[li[p]] = UINT32_MAX;
   }
   return fixups;
+}
+
+}  // extern "C"
+
+// Runs f(lo, hi) on contiguous chunks of [0, n), one thread each: the
+// host's cores up to 8, one chunk below 2^16 rows.
+template <class F>
+static void for_row_chunks(int64_t n, F f) {
+  int64_t nt = std::min<int64_t>(8, std::thread::hardware_concurrency());
+  if (nt < 1 || n < (1 << 16)) nt = 1;
+  std::vector<std::thread> ts;
+  for (int64_t t = 1; t < nt; ++t)
+    ts.emplace_back(f, n * t / nt, n * (t + 1) / nt);
+  f(0, n / nt);
+  for (auto& th : ts) th.join();
+}
+
+extern "C" {
+
+// ---------------------------------------------------------------------------
+// The IC(0) set-up's passes over the host arrays (solve/ic0.py,
+// solve/amg_device.py), each in the order the numpy forms they replace
+// would give, so the arrays are the same bit for bit; the row-wise passes
+// run on row chunks in threads (for_row_chunks).
+//
+// pfem_dia_to_csr: the CSR of a (D, n) DIA value array, its diagonals
+// visited in the order `ord` (the offsets ascending), so each row's columns
+// come out ascending without a sort; stored entries inside the matrix are
+// kept whatever their value.  indptr (n + 1) and indices / vals (the count
+// of in-range entries) are the caller's.  Returns that count.
+// ---------------------------------------------------------------------------
+int64_t pfem_dia_to_csr(int64_t n, int64_t n_diag, const int64_t* offsets,
+                        const int64_t* ord, const double* dvals,
+                        int64_t* indptr, int32_t* indices, double* vals) {
+  indptr[0] = 0;
+  for_row_chunks(n, [&](int64_t lo, int64_t hi) {
+    for (int64_t r = lo; r < hi; ++r) {
+      int64_t deg = 0;
+      for (int64_t d = 0; d < n_diag; ++d)
+        deg += (r + offsets[d] >= 0 && r + offsets[d] < n);
+      indptr[r + 1] = deg;
+    }
+  });
+  for (int64_t r = 0; r < n; ++r) indptr[r + 1] += indptr[r];
+  for_row_chunks(n, [&](int64_t lo, int64_t hi) {
+    for (int64_t r = lo; r < hi; ++r) {
+      int64_t p = indptr[r];
+      for (int64_t k = 0; k < n_diag; ++k) {
+        const int64_t d = ord[k];
+        const int64_t c = r + offsets[d];
+        if (c < 0 || c >= n) continue;
+        indices[p] = (int32_t)c;
+        vals[p] = dvals[d * n + r];
+        ++p;
+      }
+    }
+  });
+  return indptr[n];
+}
+
+// pfem_csr_lower: the entries of a CSR with column <= row, in their order.
+// With li == nullptr it writes lp (n + 1) alone; given li and lv it fills
+// them from the lp that call wrote.  Returns the entry count.
+int64_t pfem_csr_lower(int64_t n, const int64_t* indptr,
+                       const int32_t* indices, const double* vals,
+                       int64_t* lp, int32_t* li, double* lv) {
+  if (li == nullptr) {
+    lp[0] = 0;
+    for_row_chunks(n, [&](int64_t lo, int64_t hi) {
+      for (int64_t r = lo; r < hi; ++r) {
+        int64_t q = 0;
+        for (int64_t p = indptr[r]; p < indptr[r + 1]; ++p)
+          q += (indices[p] <= r);
+        lp[r + 1] = q;
+      }
+    });
+    for (int64_t r = 0; r < n; ++r) lp[r + 1] += lp[r];
+    return lp[n];
+  }
+  for_row_chunks(n, [&](int64_t lo, int64_t hi) {
+    for (int64_t r = lo; r < hi; ++r) {
+      int64_t q = lp[r];
+      for (int64_t p = indptr[r]; p < indptr[r + 1]; ++p) {
+        if (indices[p] > r) continue;
+        li[q] = indices[p];
+        lv[q] = vals[p];
+        ++q;
+      }
+    }
+  });
+  return lp[n];
+}
+
+// pfem_ic0_degrees: the entries of T = D^-1 L - I (those of the factor's
+// rows with column < row) per row (tdeg) and per column (ttdeg, the rows of
+// T^T); both zeroed by the caller.  Returns T's entry count.
+int64_t pfem_ic0_degrees(int64_t n, const int64_t* lp, const int32_t* li,
+                         int64_t* tdeg, int64_t* ttdeg) {
+  int64_t nnz = 0;
+  for (int64_t r = 0; r < n; ++r) {
+    for (int64_t p = lp[r]; p < lp[r + 1]; ++p) {
+      if (li[p] >= r) continue;
+      ++tdeg[r];
+      ++ttdeg[li[p]];
+      ++nnz;
+    }
+  }
+  return nnz;
+}
+
+// pfem_ic0_ell: T and T^T as padded ELL (kt / ktt slots a row, column n
+// and value 0 in the padding): T[r, c] = lv * dinv[r] in the factor's
+// order, and each column's entries in T^T in ascending row order, the
+// order of a stable sort of T's entries by column.
+void pfem_ic0_ell(int64_t n, const int64_t* lp, const int32_t* li,
+                  const double* lv, const double* dinv, int64_t kt,
+                  int32_t* t_cols, double* t_vals, int64_t ktt,
+                  int32_t* tt_cols, double* tt_vals) {
+  for_row_chunks(n, [&](int64_t lo, int64_t hi) {
+    std::fill(t_cols + lo * kt, t_cols + hi * kt, (int32_t)n);
+    std::fill(t_vals + lo * kt, t_vals + hi * kt, 0.0);
+    std::fill(tt_cols + lo * ktt, tt_cols + hi * ktt, (int32_t)n);
+    std::fill(tt_vals + lo * ktt, tt_vals + hi * ktt, 0.0);
+    for (int64_t r = lo; r < hi; ++r) {
+      int64_t w = r * kt;
+      for (int64_t p = lp[r]; p < lp[r + 1]; ++p) {
+        if (li[p] >= r) continue;
+        t_cols[w] = li[p];
+        t_vals[w] = lv[p] * dinv[r];
+        ++w;
+      }
+    }
+  });
+  std::vector<int64_t> fill(n, 0);
+  for (int64_t r = 0; r < n; ++r) {
+    for (int64_t p = lp[r]; p < lp[r + 1]; ++p) {
+      const int32_t c = li[p];
+      if (c >= r) continue;
+      const int64_t s = (int64_t)c * ktt + fill[c]++;
+      tt_cols[s] = (int32_t)r;
+      tt_vals[s] = lv[p] * dinv[r];
+    }
+  }
+}
+
+// pfem_ell_offset_counts: the slots of an (n, k) ELL column array whose
+// column lies below n, by diagonal c - r + n - 1 (counts: 2n - 1, zeroed
+// by the caller).
+void pfem_ell_offset_counts(int64_t n, int64_t k, const int32_t* cols,
+                            int64_t* counts) {
+  for (int64_t r = 0; r < n; ++r)
+    for (int64_t j = 0; j < k; ++j) {
+      const int64_t c = cols[r * k + j];
+      if (c >= 0 && c < n) ++counts[c - r + n - 1];
+    }
+}
+
+// pfem_ell_to_dia: the (D, n) DIA values of an (n, k) ELL block, given the
+// diagonal index of each offset (dia_of: 2n - 1, -1 where absent); dvals
+// (n_diag * n) is zeroed here and each slot's value added to its place in
+// slot order.  Returns -1 when an in-range slot lies on an absent offset,
+// else 0.
+int64_t pfem_ell_to_dia(int64_t n, int64_t k, int64_t n_diag,
+                        const int32_t* cols, const double* vals,
+                        const int32_t* dia_of, double* dvals) {
+  std::atomic<bool> bad(false);
+  for_row_chunks(n, [&](int64_t lo, int64_t hi) {
+    for (int64_t d = 0; d < n_diag; ++d)
+      std::fill(dvals + d * n + lo, dvals + d * n + hi, 0.0);
+    int64_t miss = 0;
+    for (int64_t r = lo; r < hi; ++r)
+      for (int64_t j = 0; j < k; ++j) {
+        const int64_t c = cols[r * k + j];
+        if (c < 0 || c >= n) continue;
+        const int32_t d = dia_of[c - r + n - 1];
+        if (d < 0) {
+          ++miss;
+          continue;
+        }
+        dvals[(int64_t)d * n + r] += vals[r * k + j];
+      }
+    if (miss) bad = true;
+  });
+  return bad ? -1 : 0;
 }
 
 // ---------------------------------------------------------------------------

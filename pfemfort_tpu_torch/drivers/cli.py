@@ -26,6 +26,9 @@ drivers/sharded.py on N ranks (the DIA route, or the ELL route for a mesh
 without a per-rank DIA layout; `--precond ic0|bjacobi|amg` applies there,
 and `--precond mg` takes the distributed multigrid's Jacobi fall-back: a
 mesh read from files has no generator structure, as in the JAX CLI).
+Without `--shards`, `elasticity --precond jacobi|ic0|amg` preconditions
+the reduced system (the JAX CLI ignores it there and runs Jacobi); its
+other choices are refused.
 Under torchrun (RANK in the environment)
 each process is one rank of the group torchrun set up; launched by hand,
 the command re-runs itself under torchrun with N rank processes
@@ -46,6 +49,8 @@ import time
 import torch
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
+# what `elasticity --precond` takes without --shards: the reduced solve's
+_SINGLE_ELASTICITY_PRECONDS = ("jacobi", "ic0", "amg")
 
 
 def _read(args):
@@ -183,9 +188,16 @@ def cmd_elasticity(args):
         dmat_plane_strain, dmat_plane_stress, elasticity_stiffness
 
     _solver_opts(args)
-    # --precond selects the sharded solve's preconditioner; a single-device
-    # solve ignores it, as the JAX CLI does
+    # --precond: the sharded solve's preconditioner (bjacobi when not
+    # given), or the single-device solve's (jacobi when not given; one the
+    # reduced solve does not take is refused)
     sharded = args.shards and args.shards > 1
+    if args.precond is None:
+        args.precond = "bjacobi" if sharded else "jacobi"
+    elif not sharded and args.precond not in _SINGLE_ELASTICITY_PRECONDS:
+        raise SystemExit(f"--precond {args.precond}: a single-device "
+                         "elasticity solve takes one of "
+                         f"{', '.join(_SINGLE_ELASTICITY_PRECONDS)}")
     if sharded:
         rc = _launch_ranks(args, args.argv)
         if rc is not None:
@@ -207,7 +219,8 @@ def cmd_elasticity(args):
         res = solve_elasticity(
             mesh, dbc, args.E, args.nu, force_bc=fbc,
             bforce=None, plane=args.plane, rtol=args.rtol,
-            method=args.ksp, refine=args.refine, device=device, dtype=dtype)
+            method=args.ksp, refine=args.refine, precond=args.precond,
+            device=device, dtype=dtype)
     return _finish(args, mesh, mesh.ndim, res, t0)
 
 
@@ -421,9 +434,10 @@ def build_parser():
                          "per-rank DIA or ELL route, one card per rank")
     sp.add_argument("--precond",
                     choices=["jacobi", "bjacobi", "ic0", "amg", "mg"],
-                    default="bjacobi",
-                    help="sharded-solve preconditioner; a single-device "
-                         "solve uses Jacobi")
+                    default=None,
+                    help="sharded solve: jacobi, bjacobi (the default), "
+                         "ic0, amg or mg; single device: jacobi (the "
+                         "default), ic0 or amg on the reduced system")
     sp.add_argument("--refine", action="store_true",
                     help="float32 inner CG refined to a TRUE float64 rtol")
     sp.set_defaults(fn=cmd_elasticity)

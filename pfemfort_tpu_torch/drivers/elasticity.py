@@ -20,6 +20,10 @@ from pfemfort_tpu_torch.elements.elasticity import (
 )
 from pfemfort_tpu_torch.mesh.core import Mesh
 
+# the preconditioners of the full system (drivers/common.py:
+# solve_implicit_fullsystem)
+_FULL_PRECONDS = ("jacobi", "mg")
+
 
 def solve_elasticity(
     mesh: Mesh,
@@ -48,14 +52,28 @@ def solve_elasticity(
     (PFEMFort src/elementutilitieselasticity3D.F:287-296).
     device, dtype: as in drivers/common.py:solve_implicit.
 
-    bc_mode='full' solves the full node-dof system with identity Dirichlet
-    rows, preconditioned by `precond` ('jacobi' or 'mg').  The reduced
-    system is always Jacobi-preconditioned: `precond` is not passed on
-    there, as in the JAX package (pfemfort_tpu/drivers/elasticity.py:65-68).
-    refine: float32-inner / float64-outer refinement of the reduced system.
+    The reduced system (bc_mode='reduced') is preconditioned by `precond`,
+    any that drivers/common.py:solve_implicit takes ('jacobi', 'cheby',
+    'ic0', 'amg'; 'mg' is the full system's and gives Jacobi there);
+    timings["precond_used"] says which ran (the JAX package's reduced
+    elasticity is always Jacobi, pfemfort_tpu/drivers/elasticity.py:65-68).
+    'ic0' is the reference's own solver on one rank: PETSc CG with
+    block Jacobi, whose one block is ILU(0), IC(0) on this SPD system
+    (src/solverpetsc.F:187,206).  bc_mode='full' solves the full node-dof
+    system with identity Dirichlet rows, preconditioned by 'jacobi' or
+    'mg'; any other `precond` raises ValueError there.
+    refine: float32-inner / float64-outer refinement of the reduced system,
+    its inner CG Jacobi-preconditioned: with any other `precond` it raises
+    ValueError (the full system ignores refine).
     """
     if bc_mode not in ("reduced", "full"):
         raise ValueError(f"bc_mode={bc_mode!r}: 'reduced' or 'full'")
+    if bc_mode == "full" and precond not in _FULL_PRECONDS:
+        raise ValueError(f"precond={precond!r} with bc_mode='full': one of "
+                         f"{list(_FULL_PRECONDS)}")
+    if refine and bc_mode == "reduced" and precond != "jacobi":
+        raise ValueError(f"precond={precond!r} with refine=True: the "
+                         "refined solve's inner CG is Jacobi-preconditioned")
     ndim = mesh.ndim
     if ndim == 2:
         D = dmat_plane_stress(E, nu) if plane == "stress" \
@@ -77,4 +95,4 @@ def solve_elasticity(
     return solve_implicit(
         mesh, ndim, dirichlet, element_fn, force_bc=force_bc, device=device,
         dtype=dtype, rtol=rtol, maxiter=maxiter, method=method,
-        refine=refine)
+        refine=refine, precond=precond)

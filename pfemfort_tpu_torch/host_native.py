@@ -44,6 +44,18 @@ library = HostLibrary("host_native", {
     "pfem_samg_aggregate": ([ctypes.c_int64, _P64, _P32, _P64],
                             ctypes.c_int64),
     "pfem_ic0": ([ctypes.c_int64, _P64, _P32, _PD], ctypes.c_int64),
+    "pfem_dia_to_csr": ([ctypes.c_int64, ctypes.c_int64, _P64, _P64, _PD,
+                         _P64, _P32, _PD], ctypes.c_int64),
+    "pfem_csr_lower": ([ctypes.c_int64, _P64, _P32, _PD, _P64, _P32, _PD],
+                       ctypes.c_int64),
+    "pfem_ic0_degrees": ([ctypes.c_int64, _P64, _P32, _P64, _P64],
+                         ctypes.c_int64),
+    "pfem_ic0_ell": ([ctypes.c_int64, _P64, _P32, _PD, _PD, ctypes.c_int64,
+                      _P32, _PD, ctypes.c_int64, _P32, _PD], None),
+    "pfem_ell_offset_counts": ([ctypes.c_int64, ctypes.c_int64, _P32, _P64],
+                               None),
+    "pfem_ell_to_dia": ([ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                         _P32, _PD, _P32, _PD], ctypes.c_int64),
     "pfem_gen_tet_mesh": ([ctypes.c_double, ctypes.c_double, ctypes.c_int64,
                            ctypes.c_double, ctypes.c_double, ctypes.c_int64,
                            ctypes.c_double, ctypes.c_double, ctypes.c_int64,
@@ -187,3 +199,138 @@ def ic0(indptr: np.ndarray, indices: np.ndarray, vals: np.ndarray) -> int:
     return int(library.lib().pfem_ic0(len(lp) - 1, _ptr(lp, ctypes.c_int64),
                                       _ptr(li, ctypes.c_int32),
                                       _ptr(vals, ctypes.c_double)))
+
+
+def _check_csr(indptr, indices, vals, n: int):
+    """indptr (n + 1) int64, indices int32 and vals float64 (contiguous), one
+    value per index and every index in [0, n); raises ValueError else."""
+    ip = np.ascontiguousarray(indptr, dtype=np.int64)
+    ix = np.ascontiguousarray(indices, dtype=np.int32)
+    v = np.ascontiguousarray(vals, dtype=np.float64)
+    if ip.shape != (n + 1,) or ip[0] != 0 or ix.shape != (ip[-1],) \
+            or v.shape != ix.shape or np.any(np.diff(ip) < 0) \
+            or (len(ix) and (ix.min() < 0 or ix.max() >= n)):
+        raise ValueError("a CSR needs n + 1 ascending indptr entries from 0 "
+                         "and one value per index in [0, n)")
+    return ip, ix, v
+
+
+def dia_to_csr(dvals: np.ndarray, offsets):
+    """(indptr int64, indices int32, vals float64) of the (D, n) DIA values
+    `dvals` on `offsets`: every in-range stored entry, each row's columns
+    ascending (the diagonals are visited in ascending offset order, equal
+    offsets in their given order)."""
+    dv = np.ascontiguousarray(dvals, dtype=np.float64)
+    offs = np.ascontiguousarray(offsets, dtype=np.int64)
+    D, n = dv.shape
+    if offs.shape != (D,) or n >= 2**31 - 1:
+        raise ValueError("dia_to_csr: one offset per diagonal and n_rows "
+                         "within int32")
+    ord_ = np.ascontiguousarray(np.argsort(offs, kind="stable"),
+                                dtype=np.int64)
+    nnz = int(np.maximum(n - np.abs(offs), 0).sum())
+    indptr = np.empty(n + 1, dtype=np.int64)
+    indices = np.empty(nnz, dtype=np.int32)
+    vals = np.empty(nnz, dtype=np.float64)
+    library.lib().pfem_dia_to_csr(
+        n, D, _ptr(offs, ctypes.c_int64), _ptr(ord_, ctypes.c_int64),
+        _ptr(dv, ctypes.c_double), _ptr(indptr, ctypes.c_int64),
+        _ptr(indices, ctypes.c_int32), _ptr(vals, ctypes.c_double))
+    return indptr, indices, vals
+
+
+def csr_lower(indptr, indices, vals, n: int):
+    """(lp, li int32, lv float64): the entries of a CSR with column <= row,
+    in their order, as a CSR of their own."""
+    ip, ix, v = _check_csr(indptr, indices, vals, n)
+    lp = np.empty(n + 1, dtype=np.int64)
+    lib = library.lib()
+    args = (n, _ptr(ip, ctypes.c_int64), _ptr(ix, ctypes.c_int32),
+            _ptr(v, ctypes.c_double), _ptr(lp, ctypes.c_int64))
+    nnz = lib.pfem_csr_lower(*args, None, None)
+    li = np.empty(nnz, dtype=np.int32)
+    lv = np.empty(nnz, dtype=np.float64)
+    lib.pfem_csr_lower(*args, _ptr(li, ctypes.c_int32),
+                       _ptr(lv, ctypes.c_double))
+    return lp, li, lv
+
+
+def ic0_ell(lp, li, lv, dinv, lane_pad: int):
+    """T = D^-1 L - I (T[r, c] = lv * dinv[r] over the factor's entries with
+    c < r) and T^T as padded ELL (column n and value 0 in the padding; each
+    width a multiple of lane_pad, at least lane_pad): (t_cols int32, t_vals,
+    tt_cols int32, tt_vals, T's entry count).  T^T holds each column's
+    entries in ascending row order."""
+    n = len(lp) - 1
+    ip, ix, v = _check_csr(lp, li, lv, n)
+    di = np.ascontiguousarray(dinv, dtype=np.float64)
+    if di.shape != (n,):
+        raise ValueError("ic0_ell: one dinv entry per row")
+    lib = library.lib()
+    tdeg = np.zeros(n, dtype=np.int64)
+    ttdeg = np.zeros(n, dtype=np.int64)
+    nnz = int(lib.pfem_ic0_degrees(n, _ptr(ip, ctypes.c_int64),
+                                   _ptr(ix, ctypes.c_int32),
+                                   _ptr(tdeg, ctypes.c_int64),
+                                   _ptr(ttdeg, ctypes.c_int64)))
+    width = lambda deg: -(-max(int(deg.max(initial=0)), 1) // lane_pad) \
+        * lane_pad
+    kt, ktt = width(tdeg), width(ttdeg)
+    t_cols = np.empty((n, kt), dtype=np.int32)
+    t_vals = np.empty((n, kt), dtype=np.float64)
+    tt_cols = np.empty((n, ktt), dtype=np.int32)
+    tt_vals = np.empty((n, ktt), dtype=np.float64)
+    lib.pfem_ic0_ell(n, _ptr(ip, ctypes.c_int64), _ptr(ix, ctypes.c_int32),
+                     _ptr(v, ctypes.c_double), _ptr(di, ctypes.c_double),
+                     kt, _ptr(t_cols, ctypes.c_int32),
+                     _ptr(t_vals, ctypes.c_double), ktt,
+                     _ptr(tt_cols, ctypes.c_int32),
+                     _ptr(tt_vals, ctypes.c_double))
+    return t_cols, t_vals, tt_cols, tt_vals, nnz
+
+
+def _ell_cols(cols: np.ndarray) -> np.ndarray:
+    c = np.asarray(cols)
+    if c.ndim != 2 or c.shape[0] >= 2**31 - 1 or (
+            c.size and c.min() < 0):
+        raise ValueError("an ELL block needs (n, k) non-negative columns "
+                         "and n within int32")
+    if c.dtype != np.int32 and c.size and c.max() >= 2**31:
+        raise ValueError("an ELL column past int32")
+    return np.ascontiguousarray(c, dtype=np.int32)
+
+
+def ell_offset_counts(cols: np.ndarray) -> np.ndarray:
+    """(2n - 1,) int64: the slots of an (n, k) ELL column array whose column
+    lies below n, by diagonal c - r + n - 1: the census of
+    sparse/hybrid.py:diagonal_counts."""
+    c = _ell_cols(cols)
+    n, k = c.shape
+    counts = np.zeros(max(2 * n - 1, 0), dtype=np.int64)
+    library.lib().pfem_ell_offset_counts(n, k, _ptr(c, ctypes.c_int32),
+                                         _ptr(counts, ctypes.c_int64))
+    return counts
+
+
+def ell_to_dia(cols: np.ndarray, vals: np.ndarray, offsets) -> np.ndarray:
+    """The (D, n) float64 DIA values of a square (n, k) ELL block whose
+    in-range slots all lie on `offsets` (ascending, distinct), each value
+    added to its zeroed place in slot order."""
+    c = _ell_cols(cols)
+    n, k = c.shape
+    v = np.ascontiguousarray(vals, dtype=np.float64)
+    offs = np.asarray(offsets, dtype=np.int64)
+    if v.shape != c.shape or (len(offs) and (
+            offs.min() <= -n or offs.max() >= n)):
+        raise ValueError("ell_to_dia: one value per slot and offsets "
+                         "inside the block")
+    dia_of = np.full(max(2 * n - 1, 0), -1, dtype=np.int32)
+    dia_of[offs + n - 1] = np.arange(len(offs), dtype=np.int32)
+    dvals = np.empty((len(offs), n), dtype=np.float64)
+    if library.lib().pfem_ell_to_dia(n, k, len(offs),
+                                     _ptr(c, ctypes.c_int32),
+                                     _ptr(v, ctypes.c_double),
+                                     _ptr(dia_of, ctypes.c_int32),
+                                     _ptr(dvals, ctypes.c_double)) < 0:
+        raise ValueError("ell_to_dia: a slot off the given offsets")
+    return dvals

@@ -422,8 +422,7 @@ def hybrid_counts(cols_local) -> np.ndarray:
     its slots with an own column (local id < P) by local diagonal
     c - r + P - 1, from its (P, K) ghost-extended columns.  A ghost column
     is never on a local diagonal."""
-    cols = np.asarray(cols_local, dtype=np.int64)
-    return diagonal_counts(cols, cols.shape[0])
+    return diagonal_counts(np.asarray(cols_local))
 
 
 def hybrid_offsets(counts_sum, n_shards: int, fill_threshold: float = 0.2,

@@ -40,6 +40,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from pfemfort_tpu_torch import host_native
 from pfemfort_tpu_torch.solve.amg import SAMGArrays, SAMGMeta
 from pfemfort_tpu_torch.solve.ic0 import IC0Arrays, ic0_apply
 from pfemfort_tpu_torch.sparse.dia import DIAMatrix
@@ -47,7 +48,9 @@ from pfemfort_tpu_torch.sparse.dia_spmv_cuda import dia_spmv
 from pfemfort_tpu_torch.sparse.ell_spmv_cuda import ell_spmv
 from pfemfort_tpu_torch.sparse.formats import ELLMatrix
 from pfemfort_tpu_torch.sparse.hybrid import HybridMatrix, apply_hybrid, \
-    build_hybrid_plan, hybrid_from_plan, plan_bytes
+    dense_offsets, diagonal_counts, hybrid_from_plan, plan_bytes, \
+    split_on_offsets
+from pfemfort_tpu_torch.sparse.ordering import permuted_sorted_cols
 from pfemfort_tpu_torch.sparse.sliced import SlicedELL, slice_ell, \
     sliced_slots
 
@@ -80,49 +83,55 @@ class DeviceEll:
     hybrid: Optional[HybridMatrix] = None
 
 
-def _dia_form(cols: np.ndarray, vals: np.ndarray, n: int):
-    """(offsets, (D, n) values) of a square ELL block, or None when its
-    slots span more than DIA_MAX_OFFSETS diagonals."""
-    rows = np.broadcast_to(np.arange(n, dtype=np.int64)[:, None], cols.shape)
-    valid = cols < n
-    offs = cols[valid].astype(np.int64) - rows[valid]
-    uniq = np.unique(offs)
-    if len(uniq) > DIA_MAX_OFFSETS:
-        return None
-    flat = np.searchsorted(uniq, offs) * n + rows[valid]
-    dvals = np.bincount(flat, weights=vals[valid], minlength=len(uniq) * n)
-    return tuple(int(o) for o in uniq), dvals.reshape(len(uniq), n)
-
-
 def build_device_ell(cols: np.ndarray, vals: np.ndarray, n_cols: int,
                      dtype=torch.float32, *, device) -> DeviceEll:
     """Lay out one (n, K) padded-ELL block (sentinel col >= n_cols) on
-    `device` in the form that reads the fewest bytes per product."""
+    `device` in the form that reads the fewest bytes per product.
+
+    A square block's diagonals are counted once, and that census prices
+    the DIA form and each hybrid split; a split that keeps every diagonal
+    leaves no remainder, so its bytes are its diagonals' and its plan is
+    built only if it is taken."""
     cols = np.asarray(cols)
     vals = np.asarray(vals, dtype=np.float64)
     n = cols.shape[0]
     size = torch.empty((), dtype=dtype).element_size()
     cand = [(sliced_slots(cols, n_cols) * (size + 4), "ell", None)]
+    sorted_cols = []                 # each row's slots sorted, made once
+
+    def split(offsets):
+        if not sorted_cols:
+            sorted_cols.extend(permuted_sorted_cols(cols, n, None, n)[:2])
+        return split_on_offsets(*sorted_cols, n, offsets)
+
     if n == n_cols and n > 0:
-        dia = _dia_form(cols, vals, n)
-        if dia is not None:
-            cand.append((len(dia[0]) * n * size, "dia", dia))
+        counts = diagonal_counts(cols)
+        present = np.nonzero(counts)[0]
+        if len(present) <= DIA_MAX_OFFSETS:
+            cand.append((len(present) * n * size, "dia", None))
         for thr, max_d in HYBRID_SPLITS:
-            plan = build_hybrid_plan(cols, n, fill_threshold=thr,
-                                     max_d=max_d)
-            cand.append((plan_bytes(plan, size), "hybrid", plan))
+            offsets = dense_offsets(counts, n, thr, max_d)
+            if len(offsets) == len(present):      # no remainder
+                cand.append((n * len(offsets) * size, "hybrid", offsets))
+            else:
+                plan = split(offsets)
+                cand.append((plan_bytes(plan, size), "hybrid", plan))
     if n * n_cols <= DENSE_MAX_ENTRIES:
         cand.append((n * n_cols * size, "dense", None))
-    _, kind, dia = min(cand, key=lambda c: c[0])
+    _, kind, plan = min(cand, key=lambda c: c[0])
     if kind == "hybrid":
+        if isinstance(plan, tuple):               # priced, not yet built
+            plan = split(plan)
         return DeviceEll(kind="hybrid", n_rows=n, n_cols=n_cols,
-                         hybrid=hybrid_from_plan(dia, vals, dtype, device))
+                         hybrid=hybrid_from_plan(plan, vals, dtype, device))
     as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
     if kind == "dia":
-        offsets, dvals = dia
+        offsets = tuple(int(o) for o in present - (n - 1))
         return DeviceEll(
             kind="dia", n_rows=n, n_cols=n_cols,
-            dia=DIAMatrix(vals=as_t(dvals), offsets=offsets, n_rows=n))
+            dia=DIAMatrix(vals=as_t(host_native.ell_to_dia(cols, vals,
+                                                           offsets)),
+                          offsets=offsets, n_rows=n))
     if kind == "dense":
         dense = np.zeros((n, n_cols), dtype=np.float64)
         ok = cols < n_cols
@@ -251,12 +260,16 @@ class IC0Device(NamedTuple):
 
 
 def build_ic0_device(arrs: IC0Arrays, dtype=torch.float32,
-                     *, device) -> IC0Device:
-    """Route an IC0Arrays factor's triangular blocks (solve/ic0.py)."""
+                     *, device, timings: Optional[dict] = None) -> IC0Device:
+    """Route an IC0Arrays factor's triangular blocks (solve/ic0.py).
+    `timings`: ic0.route, the form each block took ([T's, T^T's])."""
     route = lambda A: build_device_ell(*_host(A), n_cols=A.n_cols,
                                        dtype=dtype, device=device)
-    return IC0Device(t=route(arrs.t), tt=route(arrs.tt),
-                     dinv=arrs.dinv.to(device=device, dtype=dtype))
+    dev = IC0Device(t=route(arrs.t), tt=route(arrs.tt),
+                    dinv=arrs.dinv.to(device=device, dtype=dtype))
+    if timings is not None:
+        timings["ic0.route"] = [dev.t.kind, dev.tt.kind]
+    return dev
 
 
 def ic0_device_preconditioner(dev: IC0Device, m: int = 4) -> Callable:

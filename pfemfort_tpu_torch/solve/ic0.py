@@ -23,7 +23,7 @@ when a preconditioner is made, in the sliced layout of kernel B2
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,33 +31,22 @@ import torch
 from pfemfort_tpu_torch import host_native
 from pfemfort_tpu_torch.sparse.dia import DIAMatrix
 from pfemfort_tpu_torch.sparse.ell_spmv_cuda import ell_spmv
-from pfemfort_tpu_torch.sparse.formats import ELLMatrix, round_up
+from pfemfort_tpu_torch.sparse.formats import ELLMatrix
 from pfemfort_tpu_torch.sparse.sliced import ell_to_sliced
+from pfemfort_tpu_torch.utils.timing import count, span
 
 
 def _csr_from_matrix(A, pattern=None) -> Tuple[np.ndarray, np.ndarray,
                                                np.ndarray, int]:
     """Host CSR (indptr, indices, float64 vals, n) of a DIA or ELL matrix;
-    an ELL matrix needs the pattern it was assembled on."""
+    an ELL matrix needs the pattern it was assembled on.  A DIA matrix's
+    rows take every stored entry inside the matrix, its diagonals visited in
+    ascending offset order, so each row's columns come out ascending in
+    one pass of the host library (no sort)."""
     if isinstance(A, DIAMatrix):
-        n = A.n_rows
         vals = A.vals.detach().cpu().to(torch.float64).numpy()   # (D, N)
-        rows_l, cols_l, vals_l = [], [], []
-        r = np.arange(n, dtype=np.int64)
-        for d, o in enumerate(A.offsets):
-            c = r + o
-            ok = (c >= 0) & (c < n)
-            rows_l.append(r[ok])
-            cols_l.append(c[ok])
-            vals_l.append(vals[d, ok])
-        rows = np.concatenate(rows_l)
-        cols = np.concatenate(cols_l)
-        v = np.concatenate(vals_l)
-        order = np.lexsort((cols, rows))
-        rows, cols, v = rows[order], cols[order], v[order]
-        indptr = np.zeros(n + 1, dtype=np.int64)
-        np.cumsum(np.bincount(rows, minlength=n), out=indptr[1:])
-        return indptr, cols.astype(np.int32), v, n
+        indptr, indices, v = host_native.dia_to_csr(vals, A.offsets)
+        return indptr, indices, v, A.n_rows
     if pattern is None or pattern.layout != "ell":
         raise ValueError("an ELL matrix needs its ELL assembly pattern")
     n = pattern.n_rows
@@ -79,54 +68,34 @@ class IC0Arrays:
     dinv: torch.Tensor
 
 
-def _to_ell(r, c, v, n: int, lane_pad: int):
-    deg = np.bincount(r, minlength=n)
-    K = int(round_up(max(int(deg.max(initial=0)), 1), lane_pad))
-    start = np.zeros(n + 1, dtype=np.int64)
-    np.cumsum(deg, out=start[1:])
-    within = np.arange(len(r), dtype=np.int64) - start[r]
-    cols = np.full((n, K), n, dtype=np.int32)
-    vals = np.zeros((n, K), dtype=np.float64)
-    cols[r, within] = c
-    vals[r, within] = v
-    return cols, vals
-
-
-def ic0_factor_csr(indptr, indices, vals, n: int):
-    """Factor on the host: (t_rows, t_cols, t_vals, dinv) of the strictly
-    lower T = D^{-1} L - I and 1/diag(L), all numpy."""
-    lower = indices <= np.repeat(np.arange(n, dtype=np.int64),
-                                 np.diff(indptr))
-    li = np.ascontiguousarray(indices[lower], dtype=np.int32)
-    lv = np.ascontiguousarray(vals[lower], dtype=np.float64)
-    lp = np.zeros(n + 1, dtype=np.int64)
-    np.cumsum(np.bincount(
-        np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))[lower],
-        minlength=n), out=lp[1:])
-    host_native.ic0(lp, li, lv)
-
-    # L = D (I + T): T[i, j] = L[i, j] / L[i, i] for j < i
-    diag = lv[lp[1:] - 1]                       # diag is last in each row
-    dinv = 1.0 / diag
-    rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(lp))
-    strict = li < rows
-    tr, tc = rows[strict], li[strict].astype(np.int64)
-    return tr, tc, lv[strict] * dinv[tr], dinv
-
-
 def build_ic0_from_csr(indptr, indices, vals, n: int, lane_pad: int = 8,
-                       dtype=torch.float32, *, device) -> IC0Arrays:
+                       dtype=torch.float32, *, device,
+                       timings: Optional[dict] = None) -> IC0Arrays:
     """Factor a host CSR (possibly permuted into the solve's row order) and
-    stage T / T^T and 1/diag(L) on `device`."""
-    tr, tc, tv, dinv = ic0_factor_csr(indptr, indices, vals, n)
-    t_cols, t_vals = _to_ell(tr, tc, tv, n, lane_pad)
-    o = np.lexsort((tr, tc))                    # transpose: sort by column
-    tt_cols, tt_vals = _to_ell(tc[o], tr[o], tv[o], n, lane_pad)
-    ell = lambda c, v: ELLMatrix(
-        cols=torch.as_tensor(c, device=device),
-        vals=torch.as_tensor(v, dtype=dtype, device=device), n_cols=n)
-    return IC0Arrays(t=ell(t_cols, t_vals), tt=ell(tt_cols, tt_vals),
-                     dinv=torch.as_tensor(dinv, dtype=dtype, device=device))
+    stage T / T^T and 1/diag(L) on `device`, with L = D (I + T).
+
+    `timings`: where the spans go (utils/timing.py, no synchronise of their
+    own): ic0.factor_s (L's lower triangle, the host library's factor and
+    1/diag(L)) and ic0.layout_s (T and T^T as padded ELL, one pass of the
+    host library: T^T holds each column's entries in ascending row order,
+    as a stable sort by column would; their copies to `device`); and the
+    counter ic0.t_nnz, T's entries."""
+    with span("ic0.factor_s", timings):
+        lp, li, lv = host_native.csr_lower(indptr, indices, vals, n)
+        host_native.ic0(lp, li, lv)
+        dinv = 1.0 / lv[lp[1:] - 1]             # diag is last in each row
+    with span("ic0.layout_s", timings):
+        t_cols, t_vals, tt_cols, tt_vals, t_nnz = host_native.ic0_ell(
+            lp, li, lv, dinv, lane_pad)
+        ell = lambda c, v: ELLMatrix(
+            cols=torch.as_tensor(c, device=device),
+            vals=torch.as_tensor(v, dtype=dtype, device=device), n_cols=n)
+        arrs = IC0Arrays(t=ell(t_cols, t_vals), tt=ell(tt_cols, tt_vals),
+                         dinv=torch.as_tensor(dinv, dtype=dtype,
+                                              device=device))
+    if timings is not None:
+        count("ic0.t_nnz", t_nnz, timings)
+    return arrs
 
 
 def build_ic0_shard_block(cols_local: np.ndarray, vals: np.ndarray,

@@ -37,6 +37,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from pfemfort_tpu_torch import host_native
 from pfemfort_tpu_torch.sparse.dia import DIAMatrix
 from pfemfort_tpu_torch.sparse.dia_spmv_cuda import dia_spmv
 from pfemfort_tpu_torch.sparse.ell_spmv_cuda import ell_spmv
@@ -99,19 +100,16 @@ def split_sorted(cols: np.ndarray, src_of_slot: np.ndarray, n_rows: int,
     """`build_hybrid_plan` from the permuted columns and their sources
     (sparse/ordering.py:permuted_sorted_cols), for callers that have
     them."""
-    offsets = dense_offsets(diagonal_counts(cols, n_rows), len(cols),
+    offsets = dense_offsets(diagonal_counts(cols), len(cols),
                             fill_threshold, max_d)
     return split_on_offsets(cols, src_of_slot, n_rows, offsets)
 
 
-def diagonal_counts(cols: np.ndarray, n_rows: int) -> np.ndarray:
-    """(2 n_rows - 1,) int64: the slots of an (n_rows, K) column array
-    whose column lies below n_rows, by diagonal c - r + n_rows - 1."""
-    rows2d = np.arange(cols.shape[0], dtype=np.int64)[:, None]
-    valid = cols < n_rows
-    off = np.where(valid, cols - rows2d, 0)
-    return np.bincount((off + n_rows - 1).ravel()[valid.ravel()],
-                       minlength=2 * n_rows - 1)
+def diagonal_counts(cols: np.ndarray) -> np.ndarray:
+    """(2n - 1,) int64: the slots of an (n, K) column array whose column
+    lies below n, by diagonal c - r + n - 1 (one pass of the host
+    library)."""
+    return host_native.ell_offset_counts(cols)
 
 
 def dense_offsets(counts: np.ndarray, rows: int, fill_threshold: float = 0.2,

@@ -269,9 +269,11 @@ def test_elasticity_patterns_have_the_kernel_widths(case, layout, width):
                                     dict(precond="amg")])
 def test_elasticity_options_outside_the_slice_raise(option):
     """These options no longer raise: each gives the JAX package's result
-    on the loaded cantilever.  The reduced solve does not pass `precond` on
-    (the JAX package's reduced elasticity is always Jacobi), so
-    precond='amg' gives the Jacobi solve bit for bit.  refine=True sums the
+    on the loaded cantilever.  The reduced solve passes `precond` on (the
+    JAX package's reduced elasticity is always Jacobi); SA-AMG cannot
+    coarsen this 168-row system and falls back to Jacobi, as it says in
+    precond_used, so precond='amg' gives the Jacobi solve bit for bit and
+    the JAX package's result.  refine=True sums the
     float32 inner CG counts, which move with the order of the sums, so
     they may differ by 10%; both reach the true float64 rtol, and the
     solutions agree to the float64 solution's own accuracy."""
@@ -291,5 +293,7 @@ def test_elasticity_options_outside_the_slice_raise(option):
     if "precond" in option:
         r0 = pt.solve_elasticity(_port_mesh(mesh), dbc, 240.565, 0.3,
                                  dtype=torch.float64, **kw, device="cpu")
-        assert rt.stats == r0.stats and "precond_used" not in rt.timings
+        assert rt.stats == r0.stats and "precond_used" not in r0.timings
+        assert (rt.timings["precond_requested"],
+                rt.timings["precond_used"]) == ("amg", "jacobi")
         np.testing.assert_array_equal(rt.u_full, r0.u_full)

@@ -24,7 +24,8 @@ PATTERN = ("pattern.dofmap_s", "pattern.census_s", "pattern.plan_s",
 KRYLOV = ("krylov.loop_s", "krylov.wait_s", "krylov.host_reads")
 # the stage each dotted key sits in
 PARENT = {"pattern": "pattern_s", "assemble": "host_assemble_s",
-          "mg": "mg_setup_s", "krylov": "solve_s"}
+          "mg": "mg_setup_s", "krylov": "solve_s", "ic0": "ic0_setup_s"}
+IC0 = ("ic0.csr_s", "ic0.factor_s", "ic0.layout_s")
 
 
 def _elasticity(n=3):
@@ -67,6 +68,12 @@ def _fullsystem():
                                      dtype=F64, precond="mg")
 
 
+def _ic0_ell_path():
+    mesh, dbc = _permuted_box()
+    return solve_implicit(mesh, 1, dbc, _poisson_fn, device="cpu", dtype=F64,
+                          recover=False, precond="ic0")
+
+
 def _explicit(nsteps=7):
     mesh, dbc = _elasticity()
     return pt.explicit_dynamics(mesh, dbc, 2.1e7, 0.1, 7.6, 2e-5, nsteps,
@@ -82,6 +89,9 @@ DRIVERS = {
     "ELL path": ("solve_implicit", lambda: pt.solve_poisson(
         *_permuted_box(), dtype=torch.float32, device="cpu",
         rtol=1e-6).timings),
+    "ic0 pattern path": ("solve_implicit", lambda: _solve_elasticity(
+        dtype=F64, precond="ic0").timings),
+    "ic0 ELL path": ("solve_implicit", lambda: _ic0_ell_path().timings),
     "refined": ("solve_implicit_refined",
                 lambda: _solve_elasticity(refine=True).timings),
     "full system mg": ("solve_implicit_fullsystem",
@@ -266,6 +276,20 @@ def test_the_pattern_paths_census_runs_in_the_host_library(monkeypatch):
     t = solve_implicit(mesh, 1, dbc, _poisson_fn, device="cpu", dtype=F64,
                        recover=False).timings
     assert len(calls) == 1 and "order_s" in t
+
+
+@pytest.mark.parametrize("case", ["ic0 pattern path", "ic0 ELL path"])
+def test_the_ic0_set_up_spans_and_counters(case):
+    """IC(0)'s set-up: its three child spans inside ic0_setup_s, T's entry
+    count and the form each of T and T^T was routed to."""
+    t = DRIVERS[case][1]()
+    assert ("order_s" in t) == (case == "ic0 ELL path")
+    assert set(IC0) <= set(t) and t["precond_used"] == "ic0"
+    assert all(t[k] > 0 for k in IC0)
+    assert sum(t[k] for k in IC0) <= t["ic0_setup_s"]
+    assert t["ic0.t_nnz"] > 0 and isinstance(t["ic0.t_nnz"], int)
+    assert len(t["ic0.route"]) == 2
+    assert set(t["ic0.route"]) <= {"dia", "ell", "hybrid", "dense"}
 
 
 @pytest.mark.parametrize("case", sorted(DRIVERS))
