@@ -8,8 +8,10 @@ exits non-zero (and prints no result line) without them.  It imports nothing
 of JAX.  Phases, one JSON line each:
 
   1. device          the card's name and power limit (nvidia-smi);
-  2. build           nvcc builds both kernels, one process per source,
+  2. build           nvcc builds both SpMV kernels, one process per source,
                      started together (csrc/dia_spmv.cu, csrc/ell_spmv.cu);
+                     B3 (csrc/explicit_step.cu) builds at its first launch,
+                     one library per element shape and type;
   3. kernel          each kernel against its plain PyTorch SpMV on the card,
                      in float32 (relative error <= 1e-5) and float64
                      (<= 1e-12).  DIA: the box_tet n=96 lattice system and a
@@ -34,8 +36,9 @@ of JAX.  Phases, one JSON line each:
   5. solve_ell       solve_implicit on the renumbered n=96 mesh with
                      recover=False (the ELL path, float32, so the hybrid
                      operator: lex order, 15 dense diagonals, no remainder):
-                     the same bars, B1 launches = iterations + 1, B2
-                     launches = 0; the ELL assembly repeated bit for bit;
+                     the same bars, B1 launches = iterations + 2 (r0, one
+                     an iteration, the answer's residual after the loop),
+                     B2 launches = 0; the ELL assembly repeated bit for bit;
                      and the host pattern build's seconds;
   6. solve_recovered solve_poisson on box_tet n=48 with its nodes renumbered:
                      the structure is recovered, B1 launches >= iterations,
@@ -59,7 +62,22 @@ of JAX.  Phases, one JSON line each:
                      x=0 clamped, probes 670/671, 2,500 steps: float32 twice
                      bit for bit, 1,250 + checkpoint + 1,250 bit for bit,
                      float64 against float32 on the probes; a quad preset
-                     (hourglass) run, float64, card against CPU; ms per step;
+                     (hourglass) run, float64, card against CPU; ms per step
+                     (the steps run through kernel B3, csrc/explicit_step.cu:
+                     each run counts B3's launches from zero and checks
+                     explicit.kernel_steps = steps, an element and a node
+                     pass a step, the node pass alone for the hourglass
+                     quad, none on the CPU);
+ 9b. explicit_b3     B3 as explicit_dynamics builds it: one step on the card
+                     against the same step on the CPU, bit for bit (the
+                     element pass's forces, the node pass's new disp and
+                     velo), on phase 9's tria case from its last states and
+                     on the explicit cell's 1,572,864-element tetra4 box
+                     from a seeded state, float32 and float64; each pass's
+                     device us, back to back and each behind a write that
+                     empties the L2, beside the bytes it must move (its
+                     bound at the card's HBM peak); the box's float32 case
+                     is the `kernels` line's B3 entry;
  10. cli             `python -m pfemfort_tpu_torch` elasticity and explicit
                      as subprocesses on .dat files, --device cuda;
  11. mg            solve_poisson on box_tet n=96, float32, bc_mode='full',
@@ -96,7 +114,7 @@ of JAX.  Phases, one JSON line each:
                      bit; the n=96 ELL solves' pattern_s (rng 0 and 2);
  19. hybrid          scrambled Delaunay n=60 (205,379 rows), float32, rtol
                      1e-6: dense diagonals and a remainder, so the solve
-                     launches B1 and B2 (each >= iterations + 1); the hybrid
+                     launches B1 and B2 (each iterations + 2); the hybrid
                      product against the plain ELL product of the ordered
                      system (<= 1e-5), each part against its plain version;
  20. matfree         solve_poisson(matrix_free=True), float32, rtol 1e-6, on
@@ -298,9 +316,10 @@ from pfemfort_tpu_torch.assembly.fullsystem import zero_dirichlet_rows
 from pfemfort_tpu_torch.drivers import presets
 from pfemfort_tpu_torch.drivers.common import build_ell_ordering, \
     build_reduced_assembler, solve_implicit
+from pfemfort_tpu_torch.dynamics import explicit_cuda
 from pfemfort_tpu_torch.dynamics.checkpoint import load_state, save_state, \
     ExplicitState
-from pfemfort_tpu_torch.elements.elasticity import dmat_3d, \
+from pfemfort_tpu_torch.elements.elasticity import apply_residual, dmat_3d, \
     dmat_plane_stress, elasticity_stiffness
 from pfemfort_tpu_torch.elements.geometry import to_element_minor
 from pfemfort_tpu_torch.elements.poisson import poisson_element_matrices
@@ -366,6 +385,7 @@ EL2D_U_REL = 1e-8           # DIA vs ELL solutions, float64, rtol 1e-6
 # cut to keep the whole script well inside its time limit).
 EXPLICIT_CELLS, EXPLICIT_STEPS = (1000, 200), 2500
 EXPLICIT_F32_VS_F64 = 0.25
+B3_BOX_CELLS = 64           # phase 9b: the explicit cell's box, 1,572,864 tetra4
 QUAD_CELLS, QUAD_STEPS = (200, 40), 500
 # Preconditioners, the full system and refinement.  Bars from the JAX
 # package: its bench's flagship MG stage (7 iterations, 4 levels), its amg
@@ -940,18 +960,40 @@ def _elasticity2d(dev, counted, errs, rng):
 
 
 def _explicit_run(mesh, dbc, preset, nsteps, device, dtype, **kw):
+    """explicit_dynamics with kernel B3's counters at zero: (result,
+    seconds, B3's launches by entry point).  Checks that every step on the
+    card ran through B3 (its element and node passes once a step, the node
+    pass alone under the torch hourglass residual) and none on the CPU."""
     bforce = torch.tensor(preset.bforce, dtype=dtype, device=device)
     if preset.pulse_t is None:
         bforce_fn = lambda t: bforce
     else:
         pulse = torch.tensor(preset.pulse_t, dtype=dtype, device=device)
         bforce_fn = lambda t: bforce * torch.where(t <= pulse, 1.0, 0.0)
+    for k in explicit_cuda._KERNELS.values():
+        k.launches = 0
+        k.entry_launches.clear()
     t0 = time.perf_counter()
     res = explicit_dynamics(
         mesh, dbc, preset.E, preset.nu, preset.dens, preset.dt, nsteps,
         bforce_fn=bforce_fn, thickness=preset.thickness,
         use_hourglass=preset.use_hourglass, device=device, dtype=dtype, **kw)
-    return res, time.perf_counter() - t0
+    seconds = time.perf_counter() - t0
+    launches = collections.Counter()
+    for k in explicit_cuda._KERNELS.values():
+        launches.update(k.entry_launches)
+    on_card = torch.device(device).type == "cuda"
+    want = {} if not on_card else {"explicit_step_node": nsteps} \
+        if preset.use_hourglass else {"explicit_step_element": nsteps,
+                                      "explicit_step_node": nsteps}
+    kernel_steps = res.timings["explicit.kernel_steps"]
+    _check(kernel_steps == (nsteps if on_card else 0)
+           and dict(+launches) == want
+           and sum(k.launches for k in explicit_cuda._KERNELS.values())
+           == sum(want.values()),
+           f"explicit on {device}: {nsteps} steps, {kernel_steps} through "
+           f"B3, launches {dict(launches)}")
+    return res, seconds, dict(+launches)
 
 
 def _same(a, b, fields=("disp", "disp_prev", "velo", "acce",
@@ -966,20 +1008,32 @@ def _explicit(dev):
     dbc = _clamped(mesh)
     kw = dict(probe_dofs=p.probe_dofs)
     f32 = torch.float32
-    a, ta = _explicit_run(mesh, dbc, p, EXPLICIT_STEPS, dev, f32, **kw)
-    b, _ = _explicit_run(mesh, dbc, p, EXPLICIT_STEPS, dev, f32, **kw)
+    counted = []        # B3's launches in each run, counted from zero
+
+    def run(label, *args, **kwargs):
+        res, seconds, launches = _explicit_run(*args, **kwargs)
+        counted.append(dict(run=label, steps=res.timings["steps"],
+                            kernel_steps=res.timings["explicit.kernel_steps"],
+                            launches=launches))
+        return res, seconds
+
+    a, ta = run("tria f32", mesh, dbc, p, EXPLICIT_STEPS, dev, f32, **kw)
+    b, _ = run("tria f32 again", mesh, dbc, p, EXPLICIT_STEPS, dev, f32,
+               **kw)
     half_steps = EXPLICIT_STEPS // 2
-    half, th = _explicit_run(mesh, dbc, p, half_steps, dev, f32, **kw)
+    half, th = run("tria f32 first half", mesh, dbc, p, half_steps, dev, f32,
+                   **kw)
     with tempfile.TemporaryDirectory() as tmp:
         path = str(Path(tmp) / "state.npz")
         save_state(path, ExplicitState(disp=half.disp,
                                        disp_prev=half.disp_prev,
                                        velo=half.velo, step=half_steps))
         state = load_state(path)
-    rest, _ = _explicit_run(mesh, dbc, p, EXPLICIT_STEPS - half_steps, dev,
-                            f32, init_state=state, **kw)
-    c, t64 = _explicit_run(mesh, dbc, p, EXPLICIT_STEPS, dev,
-                           torch.float64, **kw)
+    rest, _ = run("tria f32 resumed", mesh, dbc, p,
+                  EXPLICIT_STEPS - half_steps, dev, f32, init_state=state,
+                  **kw)
+    c, t64 = run("tria f64", mesh, dbc, p, EXPLICIT_STEPS, dev,
+                 torch.float64, **kw)
     repeat = _same(a, b)
     resumed = _same(rest, a, ("disp", "disp_prev", "velo", "acce")) \
         and np.array_equal(np.concatenate([half.probe_history,
@@ -1013,16 +1067,148 @@ def _explicit(dev):
     qx, qy = QUAD_CELLS
     qmesh = generate.rect_quad(0, 10, qx, 0, 2, qy)
     qkw = dict(force_bc=_edge_loads(qmesh, 1e3), probe_dofs=(2 * qx + 1,))
-    (qc, _), (qg, tq) = (_explicit_run(qmesh, _clamped(qmesh), q, QUAD_STEPS,
-                                       d, torch.float64, **qkw)
+    (qc, _), (qg, tq) = (run(f"quad (hourglass) f64 {d}", qmesh,
+                             _clamped(qmesh), q, QUAD_STEPS, d,
+                             torch.float64, **qkw)
                          for d in ("cpu", dev))
     qrel = float(np.abs(qg.disp - qc.disp).max() / np.abs(qc.disp).max())
     _phase("explicit", preset="quad (hourglass)", cells=[qx, qy],
            steps=QUAD_STEPS, card_vs_cpu_rel=qrel, bound=1e-10,
            seconds=tq, u_max=float(np.abs(qc.disp).max()))
+    _phase("explicit", b3_launches=counted)
     _check(qrel <= 1e-10 and np.abs(qc.disp).max() > 0,
            f"quad preset card vs CPU: {qrel}")
+    single["b3_launches"] = counted
     return single
+
+
+def _b3_step(mesh, dbc, preset, device, dtype, b, state):
+    """One step of explicit_dynamics from `state` under the constant body
+    force b: (result, what the step computed its forces with).  On the
+    card that is the loop's own kernel B3 step (`ExplicitStep`), on the CPU
+    the forces `apply_residual` returned, element-major."""
+    from unittest import mock
+    from pfemfort_tpu_torch.dynamics import explicit as explicit_mod
+
+    seen = []
+
+    class Kept(explicit_cuda.ExplicitStep):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            seen.append(self)
+
+    def kept_residual(*args, **kwargs):
+        fe = apply_residual(*args, **kwargs)
+        seen.append(fe)
+        return fe
+
+    on_card = torch.device(device).type == "cuda"
+    with mock.patch.object(explicit_mod, *(("ExplicitStep", Kept) if on_card
+                                           else ("apply_residual",
+                                                 kept_residual))):
+        res = explicit_dynamics(
+            mesh, dbc, preset.E, preset.nu, preset.dens, preset.dt, 1,
+            bforce_fn=lambda t: b, thickness=preset.thickness,
+            device=device, dtype=dtype, init_state=state)
+    if on_card:
+        return res, seen[0]
+    npe, nd = mesh.conn.shape[1], mesh.ndim
+    return res, seen[0].reshape(npe, nd, -1).permute(2, 0, 1).reshape(-1)
+
+
+def _b3_case(dev, smi, peak, label, mesh, dbc, preset, dtype, b, state):
+    """One B3 case of phase 9b: the card's step against the CPU's from the
+    same state, bit for bit (the element pass's forces, and the new
+    displacements and velocities of the node pass), and each pass's
+    device us beside its bytes at the card's HBM peak."""
+    nd, E, npe = mesh.ndim, mesh.n_elem, mesh.conn.shape[1]
+    size = torch.tensor([], dtype=dtype).element_size()
+    cpu, fe_cpu = _b3_step(mesh, dbc, preset, "cpu", dtype, b.cpu(), state)
+    card, step = _b3_step(mesh, dbc, preset, dev, dtype, b.to(dev), state)
+    ud, upd = (torch.as_tensor(a, dtype=dtype, device=dev)
+               for a in (state.disp, state.disp_prev))
+    fe = step.forces(ud, None, None)
+    differ = {"forces": int((fe.cpu() != fe_cpu).sum()),
+              "disp": int((card.disp != cpu.disp).sum()),
+              "velo": int((card.velo != cpu.velo).sum())}
+    n_full, G = mesh.n_node * nd, step.element.gradN.shape[0]
+    # read: node ids, gradN, dvol, u; write: Fe.  read: offsets, the plan's
+    # entries, Fe, fext, M, upd (bytes), u, u_prev; write: u, v
+    bytes_el = E * (npe * 4 + G * (nd * npe + 1) * size
+                    + npe * nd * size) + n_full * size
+    bytes_node = (mesh.n_node + 1) * 4 + E * npe * 4 + E * npe * nd * size \
+        + n_full * (6 * size + 1)
+    times, hidden, cold = {}, {}, {}
+    scratch = torch.empty(2 * int(COLD_L2_BELOW_BYTES) // 4,
+                          dtype=torch.float32, device=dev)
+    for name, fn in (("element", lambda: step.forces(ud, None, None)),
+                     ("node", lambda: step.update(fe, ud, upd)),
+                     ("step", lambda: step(ud, upd, None, None))):
+        fn()
+        times[name], hidden[name] = _device_ms(fn, reps=50)
+        cold[name] = _each_device_ms(fn, scratch)
+    del scratch
+    bound = {k: v / (peak * 1e9) * 1e3 for k, v in (
+        ("element", bytes_el), ("node", bytes_node),
+        ("step", bytes_el + bytes_node))}
+    case = dict(case=label, dtype=str(dtype)[6:], elements=E, dofs=n_full,
+                differ_from_cpu=differ,
+                device_us={k: 1e3 * v for k, v in times.items()},
+                cold_l2_device_us={k: 1e3 * v for k, v in cold.items()},
+                host_hidden=hidden,
+                bound_us={k: 1e3 * v for k, v in bound.items()},
+                bytes={"element": bytes_el, "node": bytes_node},
+                cold_l2_share_of_bound={k: bound[k] / cold[k]
+                                        for k in bound})
+    _phase("explicit_b3", card=smi, **case)
+    _check(not any(differ.values()),
+           f"B3 {label} {dtype} differs from the CPU's step: {differ}")
+    return case
+
+
+def _explicit_b3(dev, single, smi, peak):
+    """Phase 9b: kernel B3 as explicit_dynamics builds it, one step on the
+    card against the same step on the CPU, bit for bit, and each pass's
+    device time beside the bytes it must move: phase 9's tria case from
+    phase 9's last states, and the explicit benchmark cell's 1,572,864
+    tetra4 box from a seeded state, each in float32 and float64."""
+    out = {"name": "explicit_step", "route": "cuda",
+           "source": "pfemfort_tpu_torch/csrc/explicit_step.cu",
+           "replaces": None, "cases": []}
+    p = presets.TRIA_EXPLICIT
+    nx, ny = EXPLICIT_CELLS
+    tria = generate.rect_tria(0, 10, nx, 0, 2, ny)
+    for dtype in (torch.float32, torch.float64):
+        r = single[dtype]
+        state = ExplicitState(disp=r.disp, disp_prev=r.disp_prev,
+                              velo=r.velo, step=EXPLICIT_STEPS)
+        out["cases"].append(_b3_case(
+            dev, smi, peak, f"tria3 {nx}x{ny}", tria, _clamped(tria), p,
+            dtype, torch.tensor(p.bforce, dtype=dtype), state))
+    # the cell's box (benchmark/configs/elastodynamics3d_box64.json): 16 a
+    # side, 64 cells, x = 0 clamped, the prism preset's material, dt and
+    # body force
+    n = B3_BOX_CELLS
+    box, _ = generate.box_tet(0, 16, n, 0, 16, n, 0, 16, n)
+    cell = presets.PRISM_EXPLICIT
+    rng = np.random.default_rng(21)
+    n_full = box.n_node * 3
+    fixed = _clamped(box)[:, :2].astype(np.int64) @ np.array([3, 1])
+    u = 1e-4 * rng.standard_normal((2, n_full))
+    u[:, fixed] = 0.0
+    for dtype in (torch.float32, torch.float64):
+        state = ExplicitState(disp=u[0], disp_prev=u[1],
+                              velo=np.zeros(n_full), step=0)
+        out["cases"].append(_b3_case(
+            dev, smi, peak, f"tetra4 box {n}^3", box, _clamped(box), cell,
+            dtype, torch.tensor(cell.bforce, dtype=dtype), state))
+    cell_f32 = out["cases"][2]
+    out.update(shape=f"tetra4 box {n}^3, {box.n_elem} elements, float32 "
+                     f"(the explicit cell's)",
+               device_us=cell_f32["cold_l2_device_us"]["step"],
+               warm_device_us=cell_f32["device_us"]["step"],
+               bound_us=cell_f32["bound_us"]["step"], bound_by="bytes")
+    return out
 
 
 @contextlib.contextmanager
@@ -1493,8 +1679,8 @@ def _delaunay_f32(dev, counted, errs, rng, mesh_future):
            and bool(np.isfinite(r.u_full).all()), f"delaunay f32: {r.stats}")
     _check(r.u_reduced.numel() >= 200_000 and t.get("hybrid_diagonals", 0) > 0
            and t.get("hybrid_nnz_rem", 0) > 0
-           and launches["dia_spmv"] == r.stats.iters + 1
-           and launches["ell_spmv"] == r.stats.iters + 1,
+           and launches["dia_spmv"] == r.stats.iters + 2
+           and launches["ell_spmv"] == r.stats.iters + 2,
            f"delaunay f32 did not run both parts: {launches} {t}")
 
     # the same system: ordered ELL, its hybrid split, their products
@@ -2905,7 +3091,14 @@ def main():
         lib.build()
         return time.perf_counter() - t0
 
-    libs = dict(KERNELS, host_native=host_native.library)
+    # B3 in the shapes and types of phases 9 and 9b (tria3 f32/f64, the
+    # hourglass quad4's node pass in f64, the tetra4 box f32/f64)
+    b3 = {f"explicit_step {npe},{nd},{g} {str(dt)[6:]}":
+          explicit_cuda.kernel(npe, nd, g, dt) for npe, nd, g, dt in (
+              (3, 2, 1, torch.float32), (3, 2, 1, torch.float64),
+              (4, 2, 4, torch.float64), (4, 3, 1, torch.float32),
+              (4, 3, 1, torch.float64))}
+    libs = dict(KERNELS, **b3, host_native=host_native.library)
     with ThreadPoolExecutor(len(libs) + len(host_native.PROGRAMS)) as pool:
         builds = {name: pool.submit(build, k) for name, k in libs.items()}
         programs = {name: pool.submit(build, p)
@@ -2913,7 +3106,8 @@ def main():
         for name, fut in builds.items():
             seconds = fut.result()
             libs[name].lib()
-            _phase("build", **{"kernel" if name in KERNELS else "host": name},
+            _phase("build", **{"host" if name == "host_native" else
+                               "kernel": name},
                    library=libs[name].library_path().name, seconds=seconds)
         for name, fut in programs.items():
             _phase("build", program=name, seconds=fut.result(),
@@ -3034,7 +3228,9 @@ def main():
            and res.timings.get("hybrid_diagonals") == 15
            and res.timings.get("hybrid_nnz_rem") == 0,
            f"solve_ell: the hybrid is not the lattice stencil {res.timings}")
-    _check(launches_ell["dia_spmv"] == st.iters + 1 and
+    # one product for r0, one an iteration and one for the answer's
+    # residual after the loop (drivers/common.py:_held_to_its_residual)
+    _check(launches_ell["dia_spmv"] == st.iters + 2 and
            launches_ell["ell_spmv"] == 0,
            f"ELL solve launches {launches_ell} vs {st.iters} iters")
     _check(repeat, "ELL assembly on the card is not bit-for-bit repeatable")
@@ -3070,6 +3266,7 @@ def main():
     A_el2, A_el2_ell, el2_dia, el2_ell = _elasticity2d(dev, counted, errs,
                                                        rng)
     explicit_single = _explicit(dev)
+    b3 = _explicit_b3(dev, explicit_single, smi, peak_gbps(kind))
     _cli(dev)
 
     # 11.-14. preconditioners and the full system
@@ -3321,7 +3518,8 @@ def main():
     ell_entry["rank_hybrid"] = {
         "replaces": "pfemfort_tpu/parallel/dist_ell.py:449 (the remainder)",
         "shapes": rank_hybrid(False)}
-    print(json.dumps({"kernels": [dia_entry, ell_entry]}), flush=True)
+    b3["launches"] = explicit_single["b3_launches"]
+    print(json.dumps({"kernels": [dia_entry, ell_entry, b3]}), flush=True)
     multihost.shutdown()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

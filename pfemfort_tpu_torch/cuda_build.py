@@ -6,9 +6,11 @@ source and the flags, and loaded with ctypes.  No PyTorch headers, so a
 build takes seconds.
 
 * `CudaKernel`: the hand-written CUDA kernels (csrc/*.cu), built with nvcc
-  for sm_90a.  Every entry point launches on the stream it is given,
-  allocates nothing, does not synchronise and returns cudaGetLastError();
-  `<name>_error_string` turns that code into text.
+  for sm_90a, a source once for each set of -D macros it is given (kernel
+  B3 takes its element shape and type so).  Every entry point launches on
+  the stream it is given, allocates nothing, does not synchronise and
+  returns cudaGetLastError(); `<name>_error_string` turns that code into
+  text.
 * `HostLibrary`: host C++ (csrc/*.cpp), built with the host compiler (c++ or
   g++): the preconditioners' set-up loops (csrc/host_native.cpp).  A
   missing compiler raises; there is no Python loop in its place.
@@ -128,11 +130,14 @@ class CudaKernel(_SharedLibrary):
     flags = NVCC_FLAGS
     compiler = staticmethod(nvcc)
 
-    def __init__(self, name: str, entries: Dict[str, Sequence]):
-        """entries: entry point name -> ctypes argtypes (each returns int)."""
+    def __init__(self, name: str, entries: Dict[str, Sequence],
+                 defines: Sequence[str] = ()):
+        """entries: entry point name -> ctypes argtypes (each returns int).
+        defines: NAME=VALUE macros of this build (-D), one library each."""
         table = {e: (a, ctypes.c_int) for e, a in entries.items()}
         table[f"{name}_error_string"] = ([ctypes.c_int], ctypes.c_char_p)
         super().__init__(name, table)
+        self.flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
         self.launches = 0
         self.entry_launches = collections.Counter()
 

@@ -18,11 +18,19 @@ difference, PFEMFort src/triaelasticityexplicit.F:1072-1085):
 Dirichlet BCs are homogeneous (the reference assumes all-zero BC values in
 the explicit path; triaelasticityexplicit.F:1060-1062).
 
+On the card the step is kernel B3 (dynamics/explicit_cuda.py,
+csrc/explicit_step.cu): an element pass that forms the residual in
+registers from the gathered displacements, and a node pass that sums each
+dof's entries in the same fixed order and applies the update; the quad4
+hourglass residual stays in torch and feeds the node pass.  A CPU tensor
+takes the plain step below.
+
 Three things differ from the JAX `lax.scan` on purpose:
   * Determinism.  The mass and the per-step residual are scattered with
     assembly/assemble.py:Segments (destinations sorted once at set-up,
-    sorted segments reduced without atomics), so an f32 run repeats bit for
-    bit on the card and a resumed run matches an uninterrupted one.
+    sorted segments reduced without atomics; on the card B3 sums in the
+    same order), so an f32 run repeats bit for bit on the card and a
+    resumed run matches an uninterrupted one.
   * No per-step host sync.  The probe values go into a preallocated
     (nsteps, 2*n_probe) device buffer that is copied to the host once per
     snapshot chunk (once per run without snapshots); only the last step's
@@ -41,6 +49,7 @@ import torch
 
 from pfemfort_tpu_torch.assembly.assemble import Segments
 from pfemfort_tpu_torch.dofs.dofmap import build_dofmap
+from pfemfort_tpu_torch.dynamics.explicit_cuda import ExplicitStep
 from pfemfort_tpu_torch.elements.elasticity import (
     apply_residual,
     dmat_3d,
@@ -113,8 +122,10 @@ def explicit_dynamics(
         (run steps [start_step, start_step+nsteps)).
     Timings (host clock, no synchronise of their own): explicit.setup_s,
     from the call to the first step (the DOF map, the element coordinates,
-    the sorted scatter, the lumped mass); explicit.loop_s, from the first
-    step to the last chunk's probe copy to the host; steps, the steps run.
+    the sorted scatter, the lumped mass, on the card B3's plan and
+    geometry); explicit.loop_s, from the first step to the last chunk's
+    probe copy to the host; steps, the steps run; explicit.kernel_steps,
+    those of them that ran through B3 (all on the card, none on the CPU).
     The result's own copies to the host lie outside both spans.
     """
     timings = {}
@@ -139,14 +150,16 @@ def explicit_dynamics(
         seg = Segments.from_dest(dest, n_full + 1)
         ns_e = dofmap.elem_nodedof.shape[1], mesh.n_elem
 
-        # Lumped mass over the full vector.
-        M_full = seg.sum(lumped_mass(coords_em, mesh.etype, dens, ndof,
-                                     ngp=_MASS_NGP[mesh.etype]))
-
+        # Lumped mass over the full vector (on the card B3 sums it).
+        mass_em = lumped_mass(coords_em, mesh.etype, dens, ndof,
+                              ngp=_MASS_NGP[mesh.etype])
         free = torch.as_tensor(dofmap.free_mask_full(), device=device)
-        has_mass = M_full > 0
-        upd = torch.logical_and(free, has_mass)
-        Msafe = torch.where(has_mass, M_full, 1.0)
+        on_card = device.type == "cuda"
+        if not on_card:
+            M_full = seg.sum(mass_em)
+            has_mass = M_full > 0
+            upd = torch.logical_and(free, has_mass)
+            Msafe = torch.where(has_mass, M_full, 1.0)
 
         fext = np.zeros(n_full, dtype=np.float64)
         if force_bc is not None and len(force_bc):
@@ -174,12 +187,30 @@ def explicit_dynamics(
                     velo_full[dest].reshape(ns_e), E, nu, dens, bforce_fn(t),
                     thickness=thickness)
         else:
-            geom = residual_geometry(coords_em, mesh.etype,
-                                     thickness=thickness if ndim == 2 else 1.0)
+            residual = None
+        if on_card:
+            step = ExplicitStep(
+                coords_em, mesh.conn, mesh.etype, seg, D, dens,
+                thickness if ndim == 2 else 1.0, fext, free, mass_em, dt,
+                bforce_fn, residual=residual)
+            if residual is None:
+                del coords_em, dest, seg    # B3 keeps what it reads
+            del mass_em
+        else:
+            if residual is None:
+                geom = residual_geometry(
+                    coords_em, mesh.etype,
+                    thickness=thickness if ndim == 2 else 1.0)
 
-            def residual(disp_full, velo_full, t):
-                return apply_residual(geom, disp_full[dest].reshape(ns_e), D,
-                                      dens, bforce_fn(t))
+                def residual(disp_full, velo_full, t):
+                    return apply_residual(geom, disp_full[dest].reshape(ns_e),
+                                          D, dens, bforce_fn(t))
+
+            def step(disp, disp_prev, velo, t):
+                rhs = seg.sum(residual(disp, velo, t)) + fext
+                rhs = rhs + idtt * M_full * (2.0 * disp - disp_prev)
+                new = torch.where(upd, dtt * rhs / Msafe, 0.0)
+                return new, (new - disp_prev) / two_dt
 
         if init_state is not None:
             disp, disp_prev, velo = (as_dev(init_state.disp),
@@ -205,11 +236,8 @@ def explicit_dynamics(
             buf = torch.empty((kn - k0, 2 * n_probe), dtype=dtype,
                               device=device)
             for k in range(k0, kn):
-                rhs = seg.sum(residual(disp, velo,
-                                       t_all[k - start_step])) + fext
-                rhs = rhs + idtt * M_full * (2.0 * disp - disp_prev)
-                new = torch.where(upd, dtt * rhs / Msafe, 0.0)
-                velo = (new - disp_prev) / two_dt
+                new, velo = step(disp, disp_prev, velo,
+                                 t_all[k - start_step])
                 if k == end_step - 1:
                     acce = (new - 2.0 * disp + disp_prev) * idtt
                 disp_prev, disp = disp, new
@@ -221,6 +249,7 @@ def explicit_dynamics(
                 snapshot_cb(kn, disp.cpu().to(torch.float64).numpy())
             k0 = kn
     count("steps", nsteps, timings)
+    count("explicit.kernel_steps", nsteps if on_card else 0, timings)
 
     host = lambda a: a.cpu().to(torch.float64).numpy()
     res = ExplicitResult(

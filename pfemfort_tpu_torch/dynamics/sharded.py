@@ -13,7 +13,9 @@ what the reference intended, one process per rank:
     elements, the same fixed-order gather-sum as the single-device loop
     (assembly/assemble.py:Segments: no atomics, so float32 repeats bit for
     bit), and the halo sums sent back and added to the neighbours' rows
-    (the PETSc VecAssembly ghost-add, two more pairs);
+    (the PETSc VecAssembly ghost-add, two more pairs); on the card the
+    residual is kernel B3's element pass and the sums take its node pass's
+    order (dynamics/explicit_cuda.py), as the single-device loop's do;
   * the time loop is a host loop whose state stays on the rank's device;
     the probes are recorded per step on the rank that owns them and
     summed over the ranks ONCE at the end (zeros plus the one owner's
@@ -35,6 +37,8 @@ import torch.distributed as dist
 from pfemfort_tpu_torch.assembly.assemble import Segments
 from pfemfort_tpu_torch.dofs.dofmap import build_dofmap
 from pfemfort_tpu_torch.dynamics.explicit import _MASS_NGP, ExplicitResult
+from pfemfort_tpu_torch.dynamics.explicit_cuda import ElementPass, \
+    node_plan, ordered_summer
 from pfemfort_tpu_torch.elements.elasticity import apply_residual, dmat_3d, \
     dmat_plane_strain, lumped_mass, residual_geometry
 from pfemfort_tpu_torch.mesh.core import Mesh
@@ -193,26 +197,44 @@ def explicit_dynamics_sharded(
         zero_b = torch.zeros(ndim, dtype=dtype, device=device)
         bforce_fn = lambda t: zero_b
 
-    coords_em = as_dev(setup.coords)
-    gid = torch.as_tensor(setup.gather, device=device)
-    seg = Segments.from_dest(gid.reshape(-1), ext + 1)
-    wm = as_dev(setup.wmask)
     free = torch.as_tensor(setup.free, device=device)
     ring_halo, ring_add = _ring(W)
+    thick = thickness if ndim == 2 else 1.0
+    if device.type == "cuda":
+        # kernel B3's element pass on the rank's own elements, summed in
+        # its node pass's order: at world size 1 the single-device loop's
+        # bits
+        k = int(setup.wmask.sum())
+        coords_em = as_dev(setup.coords[:, :, :k])
+        gid = torch.as_tensor(setup.gather[:, :k], device=device)
+        plan = node_plan(Segments.from_dest(gid.reshape(-1), ext + 1), k,
+                         mesh.npe, ndof, ext // ndof)
+        element = ElementPass(coords_em, setup.gather[::ndof, :k].T // ndof,
+                              mesh.etype, D, dens, thick, bforce_fn, ext)
+        mass_em = lumped_mass(coords_em, mesh.etype, dens, ndof,
+                              ngp=_MASS_NGP[mesh.etype])
+        summed = ordered_summer(plan, ndof)
+        M = ring_add(summed(mass_em.T.contiguous().reshape(-1)))
 
-    M = ring_add(seg.sum(lumped_mass(coords_em, mesh.etype, dens, ndof,
-                                     ngp=_MASS_NGP[mesh.etype])
-                         * wm[None, :]))
+        def residual(disp_own, t):
+            return ring_add(summed(element(ring_halo(disp_own), t)))
+    else:
+        coords_em = as_dev(setup.coords)
+        gid = torch.as_tensor(setup.gather, device=device)
+        seg = Segments.from_dest(gid.reshape(-1), ext + 1)
+        wm = as_dev(setup.wmask)
+        M = ring_add(seg.sum(lumped_mass(coords_em, mesh.etype, dens, ndof,
+                                         ngp=_MASS_NGP[mesh.etype])
+                             * wm[None, :]))
+        geom = residual_geometry(coords_em, mesh.etype, thickness=thick)
+
+        def residual(disp_own, t):
+            disp_em = ring_halo(disp_own)[gid]              # (ns, Emax)
+            Fe = apply_residual(geom, disp_em, D, dens, bforce_fn(t))
+            return ring_add(seg.sum(Fe * wm[None, :]))
     has_mass = M > 0
     upd = torch.logical_and(free, has_mass)
     Msafe = torch.where(has_mass, M, 1.0)
-    geom = residual_geometry(coords_em, mesh.etype,
-                             thickness=thickness if ndim == 2 else 1.0)
-
-    def residual(disp_own, t):
-        disp_em = ring_halo(disp_own)[gid]              # (ns, Emax)
-        Fe = apply_residual(geom, disp_em, D, dens, bforce_fn(t))
-        return ring_add(seg.sum(Fe * wm[None, :]))
 
     dtt, idtt, two_dt = as_dev(dt * dt), as_dev(1.0 / (dt * dt)), \
         as_dev(2.0 * dt)

@@ -307,9 +307,11 @@ def test_children_never_exceed_their_stage_and_the_driver_records(case):
 def test_the_explicit_result_carries_its_spans():
     res = _explicit(nsteps=7)
     t = res.timings
-    assert set(t) == {"explicit.setup_s", "explicit.loop_s", "steps"}
+    assert set(t) == {"explicit.setup_s", "explicit.loop_s", "steps",
+                      "explicit.kernel_steps"}
     assert t["steps"] == 7 and t["explicit.setup_s"] > 0 \
         and t["explicit.loop_s"] > 0
+    assert t["explicit.kernel_steps"] == 0      # the CPU runs no kernel
     rec = timing.RECENT[-1]
     assert rec.name == "explicit_dynamics" and rec.timings is t \
         and rec.profiled is False
