@@ -114,6 +114,18 @@ def build_structured_plan_2d(nex: int, ney: int,
                             entries=entries, rhs_entries=rhs_entries)
 
 
+def structured_plan(mesh, ndof: int):
+    """(plan, matrix assembler, rhs assembler) of the structured slice-add
+    assembly of a generated box_tet or rect_tria mesh's full system."""
+    s = mesh.structure
+    if s["kind"] == "box_tet":
+        return (build_structured_plan(s["nex"], s["ney"], s["nez"],
+                                      ndof=ndof),
+                assemble_dia_structured, assemble_rhs_structured)
+    return (build_structured_plan_2d(s["nex"], s["ney"], ndof=ndof),
+            assemble_dia_structured_2d, assemble_rhs_structured_2d)
+
+
 def assemble_dia_structured_2d(Ke: torch.Tensor,
                                plan: StructuredPlan2D) -> DIAMatrix:
     """Ke (ns, ns, E) with e = cell*2 + class -> DIA over the 2D lattice,

@@ -82,7 +82,8 @@ from pfemfort_tpu_torch.dofs.dofmap import build_dofmap, reduced_lattice
 from pfemfort_tpu_torch.drivers.common import build_ell_ordering, \
     build_reduced_assembler, solve_implicit
 from pfemfort_tpu_torch.drivers.poisson import solve_poisson
-from pfemfort_tpu_torch.elements.geometry import to_element_minor
+from pfemfort_tpu_torch.elements.geometry import box_element_coords, \
+    element_coords
 from pfemfort_tpu_torch.elements.poisson import poisson_element_matrices
 from pfemfort_tpu_torch.mesh import generate
 from pfemfort_tpu_torch.mesh.core import Mesh
@@ -438,8 +439,7 @@ def flagship(b: Bench, n: int):
     mesh, dbc = _box(n)
     dofmap = build_dofmap(mesh, 1, dbc, with_elem=False)
     assemble = build_reduced_assembler(mesh, 1, dofmap, _poisson_fn, f32, dev)
-    coords = generate.box_tet_coords_em_device(0, 1, n, 0, 1, n, 0, 1, n,
-                                               dtype=f32, device=dev)
+    coords = box_element_coords(mesh, ((0, 1),) * 3, f32, dev)
     b.sync()
     d.update(mesh=f"tet {n}x{n}x{n}x6 = {mesh.n_elem} elems",
              n_elem=int(mesh.n_elem), n_dof=int(dofmap.total_dof),
@@ -585,8 +585,7 @@ def large(b: Bench, n: int):
     # elements/s and the matrix's nonzeros
     dofmap = build_dofmap(mesh, 1, dbc, with_elem=False)
     assemble = build_reduced_assembler(mesh, 1, dofmap, _poisson_fn, f32, dev)
-    coords = generate.box_tet_coords_em_device(0, 1, n, 0, 1, n, 0, 1, n,
-                                               dtype=f32, device=dev)
+    coords = box_element_coords(mesh, ((0, 1),) * 3, f32, dev)
     A, _ = assemble(coords)
     d.update(n_dof=int(A.n_rows), nnz=_dia_nnz(A),
              assembly_chunks=getattr(assemble, "n_chunks", 1))
@@ -682,8 +681,7 @@ def unstructured(b: Bench, n: int):
     t0 = time.perf_counter()
     dofmap = build_dofmap(mesh, 1, dbc)
     assemble = build_reduced_assembler(mesh, 1, dofmap, _poisson_fn, f32, dev)
-    coords = torch.as_tensor(to_element_minor(mesh.elem_coords()), dtype=f32,
-                             device=dev)
+    coords = element_coords(mesh, f32, dev)
     ordering = build_ell_ordering(assemble.pattern,
                                   mesh.coords[dofmap.assy_for_soln],
                                   dofmap.assy_for_soln % 1, dev)
@@ -786,10 +784,7 @@ def dist_spmv(b: Bench, n: int):
     t0 = time.perf_counter()
     mesh, dbc = _box(n)
     sys_ = build_sharded_system(mesh, 1, dbc, 1, method="slab")
-    coords = torch.as_tensor(to_element_minor(mesh.elem_coords()), dtype=f32,
-                             device=dev)
-    Ke, _ = _poisson_fn(coords)
-    del coords
+    Ke, _ = _poisson_fn(element_coords(mesh, f32, dev))
     A = assemble_matrix(Ke, build_assembly_plan(sys_.pattern, dev))
     del Ke
     A = DIAMatrix(vals=A.vals, offsets=A.offsets, n_rows=A.n_rows)
@@ -814,8 +809,7 @@ def dist_spmv(b: Bench, n: int):
     sys_ = build_sharded_system(pmesh, 1, pdbc, S, method="rcb",
                                 layout="ell")
     P, n_rows = sys_.rows_per_shard, sys_.n_rows_padded
-    Ke, _ = _poisson_fn(torch.as_tensor(to_element_minor(
-        pmesh.elem_coords()), dtype=f32, device=dev))
+    Ke, _ = _poisson_fn(element_coords(pmesh, f32, dev))
     A_all = assemble_ell_values(Ke, build_assembly_plan(sys_.pattern, dev))
     del Ke
     blocks = [A_all.cols[t * P:(t + 1) * P] for t in range(S)]

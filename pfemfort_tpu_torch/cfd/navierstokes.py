@@ -37,8 +37,8 @@ from pfemfort_tpu_torch.assembly.assemble import Segments, \
 from pfemfort_tpu_torch.assembly.pattern import build_pattern
 from pfemfort_tpu_torch.dofs.dofmap import build_dofmap
 from pfemfort_tpu_torch.elements.basis import tabulate_basis
-from pfemfort_tpu_torch.elements.geometry import grads_and_det, \
-    to_element_minor
+from pfemfort_tpu_torch.elements.geometry import element_coords, \
+    grads_and_det
 from pfemfort_tpu_torch.elements.poisson import poisson_element_matrices
 from pfemfort_tpu_torch.mesh.core import Mesh
 from pfemfort_tpu_torch.solve.cg import cg_solve, jacobi_preconditioner
@@ -90,7 +90,7 @@ def fractional_step_ns(
 
     # --- static tables -----------------------------------------------------
     _, wts, N, dNdu = tabulate_basis(mesh.etype, 1)
-    coords_em = as_dev(to_element_minor(mesh.elem_coords()))
+    coords_em = element_coords(mesh, dtype, device)
     gradN, det = grads_and_det(coords_em, dNdu)   # (G, nd, npe, E), (G, E)
     dvol = as_dev(wts)[:, None] * det             # (G, E)
 

@@ -51,7 +51,9 @@ from pfemfort_tpu_torch.assembly.pattern import AssemblyPattern, \
     build_pattern
 from pfemfort_tpu_torch.dofs.dofmap import build_dofmap, full_lattice, \
     reduced_box, reduced_lattice
-from pfemfort_tpu_torch.elements.geometry import to_element_minor
+from pfemfort_tpu_torch.dofs.loads import nodal_loads, \
+    reduced_loads as _point_loads
+from pfemfort_tpu_torch.elements.geometry import element_coords
 from pfemfort_tpu_torch.mesh.core import Mesh
 from pfemfort_tpu_torch.mesh.reorder import recover_structure
 from pfemfort_tpu_torch.solve.amg import build_samg
@@ -101,18 +103,6 @@ def _structured_box(mesh: Mesh, dofmap):
     return reduced_box(mesh, dofmap)
 
 
-def _structured_plan(mesh: Mesh, ndof: int):
-    """(plan, matrix assembler, rhs assembler) of the structured slice-add
-    assembly of a generated box_tet or rect_tria mesh's full system."""
-    s = mesh.structure
-    if s["kind"] == "box_tet":
-        return (st.build_structured_plan(s["nex"], s["ney"], s["nez"],
-                                         ndof=ndof),
-                st.assemble_dia_structured, st.assemble_rhs_structured)
-    return (st.build_structured_plan_2d(s["nex"], s["ney"], ndof=ndof),
-            st.assemble_dia_structured_2d, st.assemble_rhs_structured_2d)
-
-
 def build_reduced_assembler(mesh: Mesh, ndof: int, dofmap, element_fn,
                             dtype: torch.dtype, device: torch.device,
                             timings: Optional[dict] = None):
@@ -133,7 +123,7 @@ def build_reduced_assembler(mesh: Mesh, ndof: int, dofmap, element_fn,
     if red_box is None:
         return _pattern_assembler(mesh, dofmap, element_fn, dtype, device,
                                   timings)
-    plan, asm_mat, asm_rhs = _structured_plan(mesh, ndof)
+    plan, asm_mat, asm_rhs = st.structured_plan(mesh, ndof)
     shape = full_lattice(mesh)
     bc_vals_full = torch.as_tensor(dofmap.bc_values_full, dtype=dtype,
                                    device=device)
@@ -177,18 +167,6 @@ def _pattern_assembler(mesh, dofmap, element_fn, dtype, device, timings):
 
     assemble.pattern = pattern
     return assemble
-
-
-def _point_loads(dofmap, force_bc) -> np.ndarray:
-    """Nodal ForceBC rows -> reduced rhs vector (row-ownership guard as in
-    triaelasticityparallelimpl1.F:976-987)."""
-    fvec = np.zeros(dofmap.total_dof, dtype=np.float64)
-    if force_bc is not None and len(force_bc):
-        rows = dofmap.node_dof[force_bc[:, 0].astype(np.int64),
-                               force_bc[:, 1].astype(np.int64)]
-        keep = rows >= 0
-        np.add.at(fvec, rows[keep], force_bc[keep, 2])
-    return fvec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -417,17 +395,9 @@ def solve_implicit(
 
     timings = {}
     with span("pattern_s", timings):
-        dofmap = _dofmap(mesh, ndof, dirichlet, timings)
-        assemble_reduced = build_reduced_assembler(
-            mesh, ndof, dofmap, element_fn, dtype, device, timings)
-        with span("pattern.coords_s", timings):
-            coords_em = torch.as_tensor(to_element_minor(mesh.elem_coords()),
-                                        dtype=dtype, device=device)
-            fvec = torch.as_tensor(_point_loads(dofmap, force_bc),
-                                   dtype=dtype, device=device)
-        _sync(device)
-    if getattr(assemble_reduced, "n_chunks", 1) > 1:
-        timings["assembly_chunks"] = assemble_reduced.n_chunks
+        dofmap, assemble_reduced, coords_em, fvec = _reduced_setup(
+            mesh, ndof, dirichlet, element_fn, force_bc, dtype, device,
+            timings)
 
     ordering = None
     pattern = getattr(assemble_reduced, "pattern", None)
@@ -514,14 +484,27 @@ def _held_to_its_residual(stats: SolveStats, operator, b,
     return stats._replace(converged=False)
 
 
-def _dofmap(mesh: Mesh, ndof: int, dirichlet: np.ndarray, timings: dict):
-    """The reduced DOF map (with its element tables when the mesh takes the
-    pattern path), under the span pattern.dofmap_s."""
+def _reduced_setup(mesh: Mesh, ndof: int, dirichlet: np.ndarray,
+                   element_fn: Callable, force_bc: Optional[np.ndarray],
+                   dtype: torch.dtype, device: torch.device, timings: dict):
+    """(dofmap, assemble, coords_em, fvec) of the reduced system, inside the
+    caller's pattern_s: the DOF map (pattern.dofmap_s), the assembler, the
+    coordinates and point loads on `device` (pattern.coords_s), a device
+    synchronise; assembly_chunks when the assembly is chunked."""
     with span("pattern.dofmap_s", timings):
         dofmap = build_dofmap(mesh, ndof, dirichlet, with_elem=False)
         if _structured_box(mesh, dofmap) is None:
             dofmap = build_dofmap(mesh, ndof, dirichlet)
-    return dofmap
+    assemble = build_reduced_assembler(mesh, ndof, dofmap, element_fn, dtype,
+                                       device, timings)
+    with span("pattern.coords_s", timings):
+        coords_em = element_coords(mesh, dtype, device)
+        fvec = torch.as_tensor(_point_loads(dofmap, force_bc), dtype=dtype,
+                               device=device)
+    _sync(device)
+    if getattr(assemble, "n_chunks", 1) > 1:
+        timings["assembly_chunks"] = assemble.n_chunks
+    return dofmap, assemble, coords_em, fvec
 
 
 def solve_implicit_fullsystem(
@@ -570,25 +553,20 @@ def solve_implicit_fullsystem(
         dofmap = build_dofmap(mesh, ndof, dirichlet,
                               with_elem=not structured)
         if structured:
-            plan, asm_mat, asm_rhs = _structured_plan(mesh, ndof)
+            plan, asm_mat, asm_rhs = st.structured_plan(mesh, ndof)
         else:
             # full system: every element slot keeps its global node-dof row
             plan = build_assembly_plan(
                 build_pattern(dofmap.elem_nodedof, n_full), device)
             asm_mat, asm_rhs = assemble_matrix, assemble_rhs
 
-        coords_em = torch.as_tensor(to_element_minor(mesh.elem_coords()),
-                                    dtype=dtype, device=device)
+        coords_em = element_coords(mesh, dtype, device)
         bc_mask_np = ~dofmap.free_mask_full()
         bc_mask = torch.as_tensor(bc_mask_np, device=device)
         bc_vals = torch.as_tensor(dofmap.bc_values_full, dtype=dtype,
                                   device=device)
-        fvec = np.zeros(n_full, dtype=np.float64)
-        if force_bc is not None and len(force_bc):
-            idx = (force_bc[:, 0].astype(np.int64) * ndof
-                   + force_bc[:, 1].astype(np.int64))
-            np.add.at(fvec, idx, force_bc[:, 2])
-        fvec = torch.as_tensor(fvec, dtype=dtype, device=device)
+        fvec = torch.as_tensor(nodal_loads(force_bc, mesh.n_node, ndof),
+                               dtype=dtype, device=device)
         _sync(device)
 
     if maxiter is None:
@@ -642,17 +620,9 @@ def _solve_implicit_refined(mesh, ndof, dirichlet, element_fn, force_bc,
     f64 = torch.float64
     timings = {}
     with span("pattern_s", timings):
-        dofmap = _dofmap(mesh, ndof, dirichlet, timings)
-        assemble64 = build_reduced_assembler(mesh, ndof, dofmap, element_fn,
-                                             f64, device, timings)
-        with span("pattern.coords_s", timings):
-            coords64 = torch.as_tensor(to_element_minor(mesh.elem_coords()),
-                                       dtype=f64, device=device)
-            fvec = torch.as_tensor(_point_loads(dofmap, force_bc), dtype=f64,
-                                   device=device)
-        _sync(device)
-    if getattr(assemble64, "n_chunks", 1) > 1:
-        timings["assembly_chunks"] = assemble64.n_chunks
+        dofmap, assemble64, coords64, fvec = _reduced_setup(
+            mesh, ndof, dirichlet, element_fn, force_bc, f64, device,
+            timings)
 
     if maxiter is None:
         maxiter = max(10 * dofmap.total_dof, 1000)

@@ -11,7 +11,7 @@ import torch
 from pfemfort_tpu_torch.drivers.common import ImplicitResult, \
     solve_implicit, solve_implicit_fullsystem
 from pfemfort_tpu_torch.dofs.dofmap import build_dofmap
-from pfemfort_tpu_torch.elements.geometry import to_element_minor
+from pfemfort_tpu_torch.elements.geometry import element_coords
 from pfemfort_tpu_torch.elements.poisson import poisson_element_matrices
 from pfemfort_tpu_torch.mesh.core import Mesh
 from pfemfort_tpu_torch.solve.cg import cg_solve, jacobi_preconditioner, \
@@ -98,8 +98,7 @@ def _solve_poisson_matfree(mesh, dirichlet, kappa, af, source, device, dtype,
     timings = {}
     with span("pattern_s", timings):
         dofmap = build_dofmap(mesh, 1, dirichlet)
-        coords_em = torch.as_tensor(to_element_minor(mesh.elem_coords()),
-                                    dtype=dtype, device=device)
+        coords_em = element_coords(mesh, dtype, device)
         ubc_e = torch.as_tensor(dofmap.bc_values_full[dofmap.elem_nodedof].T,
                                 dtype=dtype, device=device)
         _sync(device)

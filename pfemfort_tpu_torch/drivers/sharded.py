@@ -43,6 +43,7 @@ import torch
 
 from pfemfort_tpu_torch.assembly.assemble import dirichlet_rhs_correction
 from pfemfort_tpu_torch.dofs.dofmap import build_dofmap
+from pfemfort_tpu_torch.dofs.loads import reduced_loads
 from pfemfort_tpu_torch.drivers.common import ImplicitResult
 from pfemfort_tpu_torch.mesh.core import Mesh
 from pfemfort_tpu_torch.mesh.reorder import recover_structure
@@ -65,16 +66,10 @@ from pfemfort_tpu_torch.utils.timing import span
 
 
 def _force_vector(dofmap, eq_perm, n_rows_padded, force_bc) -> np.ndarray:
-    """Nodal ForceBC rows -> padded shard-ordered external force vector
-    (the reference's rhs VecSetValues with row-ownership guard,
-    triaelasticityparallelimpl1.F:976-987)."""
-    fvec = np.zeros(dofmap.total_dof, dtype=np.float64)
-    rows = dofmap.node_dof[force_bc[:, 0].astype(np.int64),
-                           force_bc[:, 1].astype(np.int64)]
-    keep = rows >= 0
-    np.add.at(fvec, rows[keep], force_bc[keep, 2])
+    """Nodal ForceBC rows -> padded shard-ordered external force vector:
+    the reduced loads (dofs/loads.py) scattered by `eq_perm`."""
     out = np.zeros(n_rows_padded, dtype=np.float64)
-    out[eq_perm] = fvec
+    out[eq_perm] = reduced_loads(dofmap, force_bc)
     return out
 
 

@@ -49,6 +49,7 @@ import torch
 
 from pfemfort_tpu_torch.assembly.assemble import Segments
 from pfemfort_tpu_torch.dofs.dofmap import build_dofmap
+from pfemfort_tpu_torch.dofs.loads import nodal_loads
 from pfemfort_tpu_torch.dynamics.explicit_cuda import ExplicitStep
 from pfemfort_tpu_torch.elements.elasticity import (
     apply_residual,
@@ -58,7 +59,7 @@ from pfemfort_tpu_torch.elements.elasticity import (
     quad_hg_residual,
     residual_geometry,
 )
-from pfemfort_tpu_torch.elements.geometry import to_element_minor
+from pfemfort_tpu_torch.elements.geometry import element_coords
 from pfemfort_tpu_torch.mesh.core import Mesh
 from pfemfort_tpu_torch.utils.device import resolve_device
 from pfemfort_tpu_torch.utils.timing import count, record, span
@@ -141,7 +142,7 @@ def explicit_dynamics(
 
         D = dmat_plane_strain(E, nu) if ndim == 2 else dmat_3d(E, nu)
 
-        coords_em = as_dev(to_element_minor(mesh.elem_coords()))
+        coords_em = element_coords(mesh, dtype, device)
         # element-minor node-dof gather table (ns, E), flattened; the same
         # destinations, sorted once, scatter every element vector
         dest = torch.as_tensor(
@@ -161,12 +162,7 @@ def explicit_dynamics(
             upd = torch.logical_and(free, has_mass)
             Msafe = torch.where(has_mass, M_full, 1.0)
 
-        fext = np.zeros(n_full, dtype=np.float64)
-        if force_bc is not None and len(force_bc):
-            idx = (force_bc[:, 0].astype(np.int64) * ndof
-                   + force_bc[:, 1].astype(np.int64))
-            np.add.at(fext, idx, force_bc[:, 2])
-        fext = as_dev(fext)
+        fext = as_dev(nodal_loads(force_bc, mesh.n_node, ndof))
 
         if bforce_fn is None:
             zero_b = torch.zeros(ndim, dtype=dtype, device=device)

@@ -41,6 +41,7 @@ from pfemfort_tpu_torch.dynamics.explicit_cuda import ElementPass, \
     node_plan, ordered_summer
 from pfemfort_tpu_torch.elements.elasticity import apply_residual, dmat_3d, \
     dmat_plane_strain, lumped_mass, residual_geometry
+from pfemfort_tpu_torch.elements.geometry import rank_element_coords
 from pfemfort_tpu_torch.mesh.core import Mesh
 from pfemfort_tpu_torch.parallel.dist_ell import _exchange
 from pfemfort_tpu_torch.parallel.partition import slab_partition
@@ -93,8 +94,7 @@ def build_sharded_explicit(mesh: Mesh, ndof: int, dirichlet: np.ndarray,
         raise ValueError("an element spans more than two slabs; "
                          "use fewer shards or a finer mesh")
     Emax = int(np.bincount(elem_part, minlength=n_shards).max())
-    npe, ndim = mesh.npe, mesh.ndim
-    ns = npe * ndof
+    ns = mesh.npe * ndof
 
     # halo width in node-dofs: the farthest node past an owner's own block
     rel = conn_new - (elem_part * Pn)[:, None]
@@ -105,17 +105,15 @@ def build_sharded_explicit(mesh: Mesh, ndof: int, dirichlet: np.ndarray,
 
     els = np.nonzero(elem_part == rank)[0]
     k = len(els)
-    coords = np.zeros((npe, ndim, Emax))
+    # padding elements: element 0's geometry, slot 0, weight 0
+    coords = rank_element_coords(mesh, els, Emax)
     gather = np.zeros((ns, Emax), dtype=np.int64)
     wmask = np.zeros(Emax)
-    coords[:, :, :k] = np.transpose(mesh.coords[mesh.conn[els]], (1, 2, 0))
     # extended index of a node-dof: (node_new - rank*Pn)*ndof + d + W
     loc = (conn_new[els] - rank * Pn) * ndof
     gather[:, :k] = ((loc[:, :, None] + np.arange(ndof)[None, None, :])
                      .reshape(k, ns) + W).T
     wmask[:k] = 1.0
-    if k < Emax:   # padding elements: slot 0, weight 0
-        coords[:, :, k:] = coords[:, :, k - 1:k] if k else 1.0
 
     free = np.zeros(Prow, dtype=bool)
     own = np.nonzero(node_part == rank)[0]

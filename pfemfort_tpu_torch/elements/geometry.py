@@ -11,6 +11,9 @@ take and return the same layouts, and on the card E-last keeps every
 elementwise pass coalesced (neighbouring threads on neighbouring elements).
 The tiny (pdim x pdim) inverses are closed-form.
 
+Every way a mesh's element coordinates reach a solver is made here: the
+host gather, an affine box made on the device, a rank's padded block.
+
 Index conventions (matching the Fortran):
   J[g,a,d,e] = sum_i dNdu[g,a,i] * coords[i,d,e]     ("B" in the reference)
   gradN[g,d,i,e] = sum_a inv(J)[g,d,a,e] * dNdu[g,a,i]
@@ -19,13 +22,76 @@ Index conventions (matching the Fortran):
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
+
+from pfemfort_tpu_torch.mesh.core import Mesh
+from pfemfort_tpu_torch.mesh.generate import box_tet_coords_em_device
 
 
 def to_element_minor(coords_e: np.ndarray) -> np.ndarray:
     """(E, npe, ndim) host array -> (npe, ndim, E) contiguous."""
     return np.ascontiguousarray(np.transpose(coords_e, (1, 2, 0)))
+
+
+def element_coords(mesh: Mesh, dtype: torch.dtype, device) -> torch.Tensor:
+    """(npe, ndim, E) element-minor coordinates of `mesh` on `device`: the
+    host gather through the connectivity, transposed, copied once."""
+    return torch.as_tensor(to_element_minor(mesh.elem_coords()), dtype=dtype,
+                           device=device)
+
+
+def affine_box_bounds(mesh: Mesh) -> Optional[tuple]:
+    """Bounds per axis when `mesh` is a box_tet whose node coords ARE the
+    separable affine lattice (so they can be made on the device); None
+    otherwise."""
+    s = mesh.structure or {}
+    if s.get("kind") != "box_tet":
+        return None
+    shape = (s["nez"] + 1, s["ney"] + 1, s["nex"] + 1)
+    c = mesh.coords.reshape(*shape, 3)
+    lo = mesh.coords.min(axis=0)
+    hi = mesh.coords.max(axis=0)
+    for ax in range(3):
+        axis_dim = 2 - ax
+        want = np.linspace(lo[ax], hi[ax], c.shape[axis_dim])
+        sl = [0, 0, 0, ax]
+        sl[axis_dim] = slice(None)
+        if not np.allclose(c[tuple(sl)], want, atol=1e-12 + 1e-9 *
+                           max(abs(lo[ax]), abs(hi[ax]))):
+            return None
+        # separability: the coordinate must not vary along the other axes
+        var = c[..., ax]
+        red = tuple(d for d in range(3) if d != axis_dim)
+        if float(np.abs(var.max(axis=red) - var.min(axis=red)).max()) > 1e-9:
+            return None
+    return tuple((float(lo[a]), float(hi[a])) for a in range(3))
+
+
+def box_element_coords(mesh: Mesh, bounds: Optional[tuple],
+                       dtype: torch.dtype, device) -> torch.Tensor:
+    """A box_tet mesh's element coordinates made on `device` from `bounds`
+    (`affine_box_bounds`; they round differently from the gather), or
+    `element_coords` when `bounds` is None."""
+    if bounds is None:
+        return element_coords(mesh, dtype, device)
+    s = mesh.structure
+    (x0, x1), (y0, y1), (z0, z1) = bounds
+    return box_tet_coords_em_device(x0, x1, s["nex"], y0, y1, s["ney"],
+                                    z0, z1, s["nez"], dtype=dtype,
+                                    device=device)
+
+
+def rank_element_coords(mesh: Mesh, els: np.ndarray,
+                        width: int) -> np.ndarray:
+    """(npe, ndim, width) float64 host coordinates of the elements `els`,
+    padded with element 0's (a padding element's kernel stays finite)."""
+    coords = np.empty((mesh.npe, mesh.ndim, width), dtype=np.float64)
+    coords[:] = mesh.coords[mesh.conn[0]][:, :, None]
+    coords[:, :, :len(els)] = to_element_minor(mesh.coords[mesh.conn[els]])
+    return coords
 
 
 def _det_inv_2x2(J: torch.Tensor):

@@ -37,6 +37,7 @@ import torch
 import torch.distributed as dist
 
 from pfemfort_tpu_torch.assembly.assemble import Segments
+from pfemfort_tpu_torch.elements.geometry import rank_element_coords
 from pfemfort_tpu_torch.mesh.core import Mesh
 from pfemfort_tpu_torch.parallel.halo import halo_width
 from pfemfort_tpu_torch.parallel.shard import ShardedSystem, \
@@ -106,18 +107,14 @@ def build_dist_setup(
     counts = np.bincount(owner, minlength=n_shards)
     emax = max(int(counts.max()), 1)
 
-    npe, ndim = mesh.npe, mesh.ndim
     dofmap = sys_.dofmap
     els = np.nonzero(owner == rank)[0]
     k = len(els)
-    coords = np.empty((npe, ndim, emax), dtype=np.float64)
+    # padding elements reuse element 0's geometry (finite Ke, all rows -1)
+    coords = rank_element_coords(mesh, els, emax)
     edt_l = np.full((ns, emax), -1, dtype=np.int32)
     ubc = np.zeros((ns, emax), dtype=np.float64)
-    # padding elements reuse element 0's geometry (finite Ke, all rows -1)
-    coords[:] = mesh.coords[mesh.conn[0]][:, :, None]
     if k:
-        coords[:, :, :k] = np.transpose(mesh.coords[mesh.conn[els]],
-                                        (1, 2, 0))
         loc = edt[:, els].astype(np.int64)
         edt_l[:, :k] = np.where(loc >= 0, loc - rank * P, -1)
         ubc[:, :k] = dofmap.bc_values_full[dofmap.elem_nodedof[els]].T

@@ -66,6 +66,7 @@ import torch
 import torch.distributed as dist
 
 from pfemfort_tpu_torch.assembly.assemble import Segments
+from pfemfort_tpu_torch.elements.geometry import rank_element_coords
 from pfemfort_tpu_torch.mesh.core import Mesh
 from pfemfort_tpu_torch.parallel.shard import ShardedSystem, \
     build_sharded_system
@@ -243,13 +244,10 @@ def build_dist_ell_setup(
         recv_mat_dest[s, :cm] = buf[:cm]
         recv_rhs_dest[s, :len(buf) - cm] = buf[cm:]
 
-    coords = np.empty((mesh.npe, mesh.ndim, emax), dtype=np.float64)
-    ubc = np.zeros((ns, emax), dtype=np.float64)
     # padding elements reuse element 0's geometry (finite Ke, all dropped)
-    coords[:] = mesh.coords[mesh.conn[0]][:, :, None]
+    coords = rank_element_coords(mesh, els, emax)
+    ubc = np.zeros((ns, emax), dtype=np.float64)
     if k:
-        coords[:, :, :k] = np.transpose(mesh.coords[mesh.conn[els]],
-                                        (1, 2, 0))
         ubc[:, :k] = dofmap.bc_values_full[dofmap.elem_nodedof[els]].T
     return DistELLSetup(
         sys=sys_, ell_k=K, w_mat=w_mat, w_rhs=w_rhs, emax=emax, rank=rank,

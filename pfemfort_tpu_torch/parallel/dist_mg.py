@@ -45,6 +45,7 @@ import torch.distributed as dist
 from pfemfort_tpu_torch.assembly.structured import StructuredPlan, \
     _add_matrix_blocks, _add_rhs_blocks, build_structured_plan
 from pfemfort_tpu_torch.dofs.dofmap import build_dofmap
+from pfemfort_tpu_torch.elements.geometry import rank_element_coords
 from pfemfort_tpu_torch.mesh.core import Mesh
 from pfemfort_tpu_torch.parallel.dist_assembly import _send_spill
 from pfemfort_tpu_torch.parallel.dist_ell import _exchange
@@ -159,20 +160,12 @@ def build_dist_mg_setup(
 
     # this rank's element slab (elements are z-major, 6 per hex, contiguous);
     # padding cells copy element 0's coordinates and are masked by validz
-    npe, ndim = mesh.npe, mesh.ndim
     epp = ney * nex * 6                                 # elements per z-cell
-    ecap = pp * epp
-    conn_t = mesh.conn.T                                # (npe, E)
-    coords = np.empty((npe, ndim, ecap), dtype=np.float64)
-    coords[:] = mesh.coords[conn_t[:, 0]][:, :, None]
-    validz = np.zeros(pp, dtype=np.float64)
     z0 = rank * pp
     z1 = min(z0 + pp, nez)
-    ke = max(z1 - z0, 0) * epp
-    if ke:
-        sl = conn_t[:, z0 * epp:z0 * epp + ke]
-        coords[:, :, :ke] = mesh.coords[sl].transpose(0, 2, 1)
-        validz[:z1 - z0] = 1.0
+    coords = rank_element_coords(mesh, np.arange(z0 * epp, max(z0, z1) * epp),
+                                 pp * epp)
+    validz = (np.arange(pp) < z1 - z0).astype(np.float64)
 
     # replicated coarse tail: the GMG hierarchy built from level 1
     coarse_mesh, _ = _coarse_box_mesh(mesh)

@@ -9,7 +9,7 @@ solverpetsc.F:476-490):
 
   * the float64 FULL system (all node-dofs, identity Dirichlet rows) is
     assembled on the card: element-minor coordinates generated on the card
-    for an affine box (mesh/generate.py:box_tet_coords_em_device), the
+    for an affine box (elements/geometry.py:box_element_coords), the
     structured slice-add assembly (z-slab chunks above 12M elements), then
     MatZeroRows (assembly/fullsystem.py);
   * inner solves run float32 CG on that system cast to float32,
@@ -38,11 +38,11 @@ import torch
 
 from pfemfort_tpu_torch.assembly import structured as st
 from pfemfort_tpu_torch.assembly.fullsystem import zero_dirichlet_rows
-from pfemfort_tpu_torch.elements.geometry import to_element_minor
+from pfemfort_tpu_torch.elements.geometry import affine_box_bounds, \
+    box_element_coords
 from pfemfort_tpu_torch.elements.poisson import poisson_element_matrices
-from pfemfort_tpu_torch.mesh import generate as gen
 from pfemfort_tpu_torch.mesh.core import Mesh
-from pfemfort_tpu_torch.solve.multigrid import _is_affine_box, build_gmg, \
+from pfemfort_tpu_torch.solve.multigrid import build_gmg, \
     gmg_preconditioner, symmetrize_dirichlet
 from pfemfort_tpu_torch.solve.cg import krylov_timings
 from pfemfort_tpu_torch.solve.refine import cg_with_refinement
@@ -73,28 +73,18 @@ def full_system_f64(mesh: Mesh, element_fn, bc_mask: torch.Tensor,
     a box_tet mesh, assembled on `device`; and the assembly's chunk
     count.  `timings`: where the span assemble.affine_s (the host's check
     that the mesh is an affine box) goes."""
-    s = mesh.structure
-    nex, ney, nez = s["nex"], s["ney"], s["nez"]
-    f64 = torch.float64
     with span("assemble.affine_s", timings):
-        bounds = _is_affine_box(mesh)
-    if bounds is not None:
-        (x0, x1), (y0, y1), (z0, z1) = bounds
-        coords = gen.box_tet_coords_em_device(x0, x1, nex, y0, y1, ney,
-                                              z0, z1, nez, dtype=f64,
-                                              device=device)
-    else:
-        coords = torch.as_tensor(to_element_minor(mesh.elem_coords()),
-                                 dtype=f64, device=device)
-    plan = st.build_structured_plan(nex, ney, nez, ndof=1)
-    n_chunks = st.chunk_count(nez, mesh.n_elem)
+        bounds = affine_box_bounds(mesh)
+    coords = box_element_coords(mesh, bounds, torch.float64, device)
+    plan, asm_mat, asm_rhs = st.structured_plan(mesh, 1)
+    n_chunks = st.chunk_count(mesh.structure["nez"], mesh.n_elem)
     if n_chunks > 1:
         A, b = st.assemble_structured_chunked(element_fn, coords, plan,
                                               n_chunks)
     else:
         Ke, Fe = element_fn(coords)
-        A = st.assemble_dia_structured(Ke, plan)
-        b = st.assemble_rhs_structured(Fe, plan)
+        A = asm_mat(Ke, plan)
+        b = asm_rhs(Fe, plan)
         del Ke, Fe
     del coords
     A, b = zero_dirichlet_rows(A, b, bc_mask, bc_vals)

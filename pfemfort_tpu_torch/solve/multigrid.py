@@ -33,6 +33,9 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from pfemfort_tpu_torch.dofs.dofmap import full_lattice
+from pfemfort_tpu_torch.elements.geometry import affine_box_bounds, \
+    box_element_coords
 from pfemfort_tpu_torch.mesh.core import Mesh
 from pfemfort_tpu_torch.sparse.dia import DIAMatrix, dia_diagonal
 from pfemfort_tpu_torch.utils.timing import span
@@ -160,66 +163,16 @@ def _coarse_box_mesh(mesh: Mesh) -> Tuple[Mesh, dict]:
     return coarse, coarse.structure
 
 
-def _lattice_shape(structure: dict) -> Tuple[int, ...]:
-    if structure["kind"] == "box_tet":
-        return (structure["nez"] + 1, structure["ney"] + 1,
-                structure["nex"] + 1)
-    return (structure["ney"] + 1, structure["nex"] + 1)
-
-
-def _is_affine_box(mesh: Mesh) -> Optional[Tuple[Tuple[float, float], ...]]:
-    """Bounds per axis when the node coords ARE the separable affine
-    lattice (so they can be regenerated on the device); None otherwise."""
-    s = mesh.structure
-    shape = (s["nez"] + 1, s["ney"] + 1, s["nex"] + 1)
-    c = mesh.coords.reshape(*shape, 3)
-    lo = mesh.coords.min(axis=0)
-    hi = mesh.coords.max(axis=0)
-    for ax in range(3):
-        axis_dim = 2 - ax
-        want = np.linspace(lo[ax], hi[ax], c.shape[axis_dim])
-        sl = [0, 0, 0, ax]
-        sl[axis_dim] = slice(None)
-        if not np.allclose(c[tuple(sl)], want, atol=1e-12 + 1e-9 *
-                           max(abs(lo[ax]), abs(hi[ax]))):
-            return None
-        # separability: the coordinate must not vary along the other axes
-        var = c[..., ax]
-        red = tuple(d for d in range(3) if d != axis_dim)
-        if float(np.abs(var.max(axis=red) - var.min(axis=red)).max()) > 1e-9:
-            return None
-    return tuple((float(lo[a]), float(hi[a])) for a in range(3))
-
-
 def _assemble_level(mesh: Mesh, ndof: int, element_fn: Callable, dtype,
                     device, bc_mask: torch.Tensor) -> DIAMatrix:
     """Element matrices -> structured slice-add assembly -> BC
     symmetrization.  Affine box lattices generate their element-minor
-    coordinates on the device (mesh/generate.py:box_tet_coords_em_device)."""
-    from pfemfort_tpu_torch.assembly import structured as st
-    from pfemfort_tpu_torch.elements.geometry import to_element_minor
+    coordinates on the device (elements/geometry.py:box_element_coords)."""
+    from pfemfort_tpu_torch.assembly.structured import structured_plan
 
-    s = mesh.structure
-    coords_em = None
-    if s["kind"] == "box_tet":
-        plan = st.build_structured_plan(s["nex"], s["ney"], s["nez"],
-                                        ndof=ndof)
-        assemble = st.assemble_dia_structured
-        bounds = _is_affine_box(mesh)
-        if bounds is not None:
-            from pfemfort_tpu_torch.mesh import generate as gen
-
-            (x0, x1), (y0, y1), (z0, z1) = bounds
-            coords_em = gen.box_tet_coords_em_device(
-                x0, x1, s["nex"], y0, y1, s["ney"], z0, z1, s["nez"],
-                dtype=dtype, device=device)
-    else:
-        plan = st.build_structured_plan_2d(s["nex"], s["ney"], ndof=ndof)
-        assemble = st.assemble_dia_structured_2d
-    if coords_em is None:
-        coords_em = torch.as_tensor(to_element_minor(mesh.elem_coords()),
-                                    dtype=dtype, device=device)
-    Ke, _ = element_fn(coords_em)
+    plan, assemble, _ = structured_plan(mesh, ndof)
+    Ke, _ = element_fn(box_element_coords(mesh, affine_box_bounds(mesh),
+                                          dtype, device))
     return symmetrize_dirichlet(assemble(Ke, plan), bc_mask)
 
 
@@ -292,7 +245,7 @@ def build_gmg(
             if any(d % 2 or d // 2 < min_cells for d in dims):
                 break
             coarse, _ = _coarse_box_mesh(meshes[-1])
-            shape = _lattice_shape(s)
+            shape = full_lattice(meshes[-1])
             sub = masks_np[-1].reshape(*shape, ndof)
             sub = sub[(slice(None, None, 2),) * len(shape)]
             meshes.append(coarse)
@@ -341,7 +294,7 @@ def build_gmg(
     arrays = GMGArrays(mats=tuple(mats), inv_diags=tuple(inv_diags),
                        masks=tuple(masks), coarse_inv=coarse_inv)
     meta = GMGMeta(
-        shapes=tuple(_lattice_shape(m.structure) for m in meshes),
+        shapes=tuple(full_lattice(m) for m in meshes),
         ndof=ndof, nu=nu, omega=omega, coarse_cheby=coarse_cheby)
     return arrays, meta
 

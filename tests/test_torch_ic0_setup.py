@@ -35,7 +35,6 @@ from pfemfort_tpu_torch import host_native
 from pfemfort_tpu_torch.drivers import common
 from pfemfort_tpu_torch.elements.elasticity import dmat_3d, \
     dmat_plane_stress, elasticity_stiffness
-from pfemfort_tpu_torch.elements.geometry import to_element_minor
 from pfemfort_tpu_torch.elements.poisson import poisson_element_matrices
 from pfemfort_tpu_torch.solve import amg_device as tad
 from pfemfort_tpu_torch.solve import ic0 as tic
@@ -143,10 +142,9 @@ def _assembled(mesh, ndof, dbc, fn, recover=True):
     builds them."""
     if not recover:
         mesh = pt.Mesh(mesh.etype, mesh.coords, mesh.conn)
-    dofmap = common._dofmap(mesh, ndof, dbc, {})
-    asm = common.build_reduced_assembler(mesh, ndof, dofmap, fn, F64, "cpu")
-    A, _ = asm(torch.as_tensor(to_element_minor(mesh.elem_coords()),
-                               dtype=F64))
+    dofmap, asm, coords, _ = common._reduced_setup(
+        mesh, ndof, dbc, fn, None, F64, torch.device("cpu"), {})
+    A, _ = asm(coords)
     pattern = getattr(asm, "pattern", None)
     ordering = None
     if pattern is not None and pattern.layout == "ell":
