@@ -29,8 +29,9 @@ Three things differ from the JAX `lax.scan` on purpose:
   * Determinism.  The mass and the per-step residual are scattered with
     assembly/assemble.py:Segments (destinations sorted once at set-up,
     sorted segments reduced without atomics; on the card B3 sums in the
-    same order), so an f32 run repeats bit for bit on the card and a
-    resumed run matches an uninterrupted one.
+    same order, its plan sorted on the card from the connectivity), so an
+    f32 run repeats bit for bit on the card and a resumed run matches an
+    uninterrupted one.
   * No per-step host sync.  The probe values go into a preallocated
     (nsteps, 2*n_probe) device buffer that is copied to the host once per
     snapshot chunk (once per run without snapshots); only the last step's
@@ -59,7 +60,7 @@ from pfemfort_tpu_torch.elements.elasticity import (
     quad_hg_residual,
     residual_geometry,
 )
-from pfemfort_tpu_torch.elements.geometry import element_coords
+from pfemfort_tpu_torch.elements.geometry import gather_element_coords
 from pfemfort_tpu_torch.mesh.core import Mesh
 from pfemfort_tpu_torch.utils.device import resolve_device
 from pfemfort_tpu_torch.utils.timing import count, record, span
@@ -122,47 +123,54 @@ def explicit_dynamics(
       init_state/start_step: resume from a dynamics.checkpoint.ExplicitState
         (run steps [start_step, start_step+nsteps)).
     Timings (host clock, no synchronise of their own): explicit.setup_s,
-    from the call to the first step (the DOF map, the element coordinates,
-    the sorted scatter, the lumped mass, on the card B3's plan and
-    geometry); explicit.loop_s, from the first step to the last chunk's
-    probe copy to the host; steps, the steps run; explicit.kernel_steps,
-    those of them that ran through B3 (all on the card, none on the CPU).
-    The result's own copies to the host lie outside both spans.
+    from the call to the first step (the DOF map, the loads, the starting
+    state and its two children); inside it explicit.setup.coords_s, the
+    connectivity's one copy and the element coordinates gathered through
+    it (`gather_element_coords`), and explicit.setup.plan_s, the
+    lumped mass and the sums' order with what the step reads (on the card
+    B3's node plan from the connectivity, the mass summed in its order and
+    the element pass's geometry; on the CPU the sorted scatter of the DOF
+    map's node-dof table and the residual's geometry); explicit.loop_s,
+    from the first step to the last chunk's probe copy to the host; steps,
+    the steps run; explicit.kernel_steps, those of them that ran through
+    B3 (all on the card, none on the CPU); explicit.setup_h2d_bytes, the
+    bytes of the host arrays the set-up sends to the card (the node
+    coordinates, the connectivity, the free mask, the loads, the probe
+    ids, a resumed state; 0 on the CPU; the step's scalars and basis
+    tables, a few bytes each, are not counted).  The result's own copies
+    to the host lie outside every span.
     """
     timings = {}
     with span("explicit.setup_s", timings):
         device = resolve_device(device)
         if dtype is None:
             dtype = torch.get_default_dtype()
+        on_card = device.type == "cuda"
         ndim = mesh.ndim
         ndof = ndim
-        dofmap = build_dofmap(mesh, ndof, dirichlet)
         n_full = mesh.n_node * ndof
         as_dev = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
 
+        def send(a, to_dtype=dtype):
+            """A host array on `device`, converted on the host first and
+            counted as sent to the card."""
+            t = torch.as_tensor(a, dtype=to_dtype)
+            count("explicit.setup_h2d_bytes", t.nbytes if on_card else 0,
+                  timings)
+            return t.to(device)
+
         D = dmat_plane_strain(E, nu) if ndim == 2 else dmat_3d(E, nu)
-
-        coords_em = element_coords(mesh, dtype, device)
-        # element-minor node-dof gather table (ns, E), flattened; the same
-        # destinations, sorted once, scatter every element vector
-        dest = torch.as_tensor(
-            dofmap.elem_nodedof.T.reshape(-1).astype(np.int64),
-            device=device)
-        seg = Segments.from_dest(dest, n_full + 1)
-        ns_e = dofmap.elem_nodedof.shape[1], mesh.n_elem
-
-        # Lumped mass over the full vector (on the card B3 sums it).
-        mass_em = lumped_mass(coords_em, mesh.etype, dens, ndof,
-                              ngp=_MASS_NGP[mesh.etype])
-        free = torch.as_tensor(dofmap.free_mask_full(), device=device)
-        on_card = device.type == "cuda"
-        if not on_card:
-            M_full = seg.sum(mass_em)
-            has_mass = M_full > 0
-            upd = torch.logical_and(free, has_mass)
-            Msafe = torch.where(has_mass, M_full, 1.0)
-
-        fext = as_dev(nodal_loads(force_bc, mesh.n_node, ndof))
+        with span("explicit.setup.coords_s", timings):
+            # the connectivity sent once, as (npe, E) int32: the gather, on
+            # the card B3's plan and element pass and the hourglass
+            # residual's gather table all read it
+            conn_t = send(mesh.conn, torch.int32).T.contiguous()
+            coords_em = gather_element_coords(send(mesh.coords), conn_t)
+        # the card needs the free mask alone; the CPU's sorted scatter reads
+        # the element-minor node-dof table
+        dofmap = build_dofmap(mesh, ndof, dirichlet, with_elem=not on_card)
+        free = send(dofmap.free_mask_full(), torch.bool)
+        fext = send(nodal_loads(force_bc, mesh.n_node, ndof))
 
         if bforce_fn is None:
             zero_b = torch.zeros(ndim, dtype=dtype, device=device)
@@ -172,46 +180,70 @@ def explicit_dynamics(
         # JAX package's weakly typed Python floats become
         dtt, idtt, two_dt = as_dev(dt * dt), as_dev(1.0 / (dt * dt)), \
             as_dev(2.0 * dt)
-        probe = torch.as_tensor(np.asarray(probe_dofs, dtype=np.int64),
-                                device=device)
+        probe = send(np.asarray(probe_dofs, dtype=np.int64), torch.int64)
         n_probe = probe.numel()
 
-        if use_hourglass:
-            def residual(disp_full, velo_full, t):
-                return quad_hg_residual(
-                    coords_em, disp_full[dest].reshape(ns_e),
-                    velo_full[dest].reshape(ns_e), E, nu, dens, bforce_fn(t),
-                    thickness=thickness)
-        else:
-            residual = None
-        if on_card:
-            step = ExplicitStep(
-                coords_em, mesh.conn, mesh.etype, seg, D, dens,
-                thickness if ndim == 2 else 1.0, fext, free, mass_em, dt,
-                bforce_fn, residual=residual)
-            if residual is None:
-                del coords_em, dest, seg    # B3 keeps what it reads
-            del mass_em
-        else:
-            if residual is None:
-                geom = residual_geometry(
-                    coords_em, mesh.etype,
-                    thickness=thickness if ndim == 2 else 1.0)
+        with span("explicit.setup.plan_s", timings):
+            # the node-dof gather table, element-minor (ns, E) flattened:
+            # entry (i * ndof + c) * E + e is conn[e, i] * ndof + c
+            if on_card:
+                dest = (conn_t.long()[:, None, :] * ndof + torch.arange(
+                    ndof, device=device)[None, :, None]).reshape(-1) \
+                    if use_hourglass else None
+            else:
+                dest = torch.as_tensor(
+                    dofmap.elem_nodedof.T.reshape(-1).astype(np.int64),
+                    device=device)
+            ns_e = mesh.npe * ndof, mesh.n_elem
+            mass_em = lumped_mass(coords_em, mesh.etype, dens, ndof,
+                                  ngp=_MASS_NGP[mesh.etype])
 
+            if use_hourglass:
                 def residual(disp_full, velo_full, t):
-                    return apply_residual(geom, disp_full[dest].reshape(ns_e),
-                                          D, dens, bforce_fn(t))
+                    return quad_hg_residual(
+                        coords_em, disp_full[dest].reshape(ns_e),
+                        velo_full[dest].reshape(ns_e), E, nu, dens,
+                        bforce_fn(t), thickness=thickness)
+            else:
+                residual = None
+            if on_card:
+                # B3's plan from conn_t, the mass summed in its order, and
+                # the element pass's geometry
+                step = ExplicitStep(
+                    coords_em, conn_t, mesh.etype, D, dens,
+                    thickness if ndim == 2 else 1.0, fext, free, mass_em,
+                    dt, bforce_fn, residual=residual)
+                if residual is None:
+                    del coords_em           # B3 keeps what it reads
+                del mass_em, conn_t
+            else:
+                # the mass and every step's residual scattered in one
+                # sorted order
+                seg = Segments.from_dest(dest, n_full + 1)
+                M_full = seg.sum(mass_em)
+                has_mass = M_full > 0
+                upd = torch.logical_and(free, has_mass)
+                Msafe = torch.where(has_mass, M_full, 1.0)
+                if residual is None:
+                    geom = residual_geometry(
+                        coords_em, mesh.etype,
+                        thickness=thickness if ndim == 2 else 1.0)
 
-            def step(disp, disp_prev, velo, t):
-                rhs = seg.sum(residual(disp, velo, t)) + fext
-                rhs = rhs + idtt * M_full * (2.0 * disp - disp_prev)
-                new = torch.where(upd, dtt * rhs / Msafe, 0.0)
-                return new, (new - disp_prev) / two_dt
+                    def residual(disp_full, velo_full, t):
+                        return apply_residual(
+                            geom, disp_full[dest].reshape(ns_e), D, dens,
+                            bforce_fn(t))
+
+                def step(disp, disp_prev, velo, t):
+                    rhs = seg.sum(residual(disp, velo, t)) + fext
+                    rhs = rhs + idtt * M_full * (2.0 * disp - disp_prev)
+                    new = torch.where(upd, dtt * rhs / Msafe, 0.0)
+                    return new, (new - disp_prev) / two_dt
 
         if init_state is not None:
-            disp, disp_prev, velo = (as_dev(init_state.disp),
-                                     as_dev(init_state.disp_prev),
-                                     as_dev(init_state.velo))
+            disp, disp_prev, velo = (send(init_state.disp),
+                                     send(init_state.disp_prev),
+                                     send(init_state.velo))
             start_step = init_state.step
         else:
             disp = torch.zeros(n_full, dtype=dtype, device=device)

@@ -32,7 +32,6 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from pfemfort_tpu_torch.assembly.assemble import Segments
 from pfemfort_tpu_torch.cuda_build import CudaKernel
 from pfemfort_tpu_torch.elements.basis import tabulate_basis
 from pfemfort_tpu_torch.elements.geometry import grads_and_det
@@ -87,9 +86,9 @@ def kernel(npe: int, ndim: int, ngp: int, dtype: torch.dtype) -> CudaKernel:
 
 class NodePlan(NamedTuple):
     """The node pass's int32 plan: node n's incidences (element, node slot)
-    are entries[offsets[n]:offsets[n + 1]], in the stable order of
-    `Segments.from_dest`; each entry is the Fe index of the incidence's
-    component 0, and component c lies c * cstride further."""
+    are entries[offsets[n]:offsets[n + 1]], ordered by (slot, element) as
+    `Segments.from_dest` orders them; each entry is the Fe index of the
+    incidence's component 0, and component c lies c * cstride further."""
     offsets: torch.Tensor   # (n_node + 1,) int32
     entries: torch.Tensor   # (n_elem * npe,) int32
     cstride: int
@@ -105,25 +104,29 @@ def check_int32(n_elem: int, npe: int, ndof: int, n_node: int) -> None:
             f"{INT32_MAX}")
 
 
-def node_plan(seg: Segments, n_elem: int, npe: int, ndof: int, n_node: int,
-              element_major: bool = True) -> NodePlan:
-    """The node pass's plan from the explicit loop's sorted scatter `seg`
-    (`Segments.from_dest` over the element-minor node-dof table: entry
-    slot * E + e, slot = i * ndof + c).  A node's components hold the same
-    incidences in the same order, so the plan keeps component 0's.
-    element_major: index an (E, npe, ndof) Fe (the element pass's), else
-    the (npe * ndof, E) Fe of the torch residual (whose component-0 entries
-    are seg.perm's own)."""
+def node_plan_from_conn(conn_t: torch.Tensor, n_node: int, ndof: int,
+                        element_major: bool = True) -> NodePlan:
+    """The node pass's plan from the connectivity alone: conn_t (npe, E)
+    int32 node ids on the plan's device.  The explicit loop's sorted
+    scatter (`Segments.from_dest` over the element-minor node-dof table,
+    entry (i * ndof + c) * E + e) orders a node's component-0 incidences by
+    (slot i, element e), and its other components alike; a stable sort by
+    node of the slot-major incidences (entry i * E + e) gives that order,
+    and the offsets count each node's incidences.  element_major: index an
+    (E, npe, ndof) Fe (the element pass's), else the (npe * ndof, E) Fe of
+    the torch residual."""
+    npe, n_elem = conn_t.shape
     check_int32(n_elem, npe, ndof, n_node)
-    perm = seg.perm
-    slot = torch.div(perm, n_elem, rounding_mode="floor")
-    first = perm[slot % ndof == 0]
-    if element_major:
-        i = torch.div(first, n_elem * ndof, rounding_mode="floor")
-        first = ((first - i * n_elem * ndof) * npe + i) * ndof
-    offsets = seg.offsets[:n_node * ndof + 1:ndof] // ndof
+    node = conn_t.reshape(-1)
+    order = torch.sort(node, stable=True).indices
+    i = torch.div(order, n_elem, rounding_mode="floor")
+    e = order - i * n_elem
+    entries = (e * npe + i) * ndof if element_major \
+        else i * (ndof * n_elem) + e
+    offsets = torch.zeros(n_node + 1, dtype=torch.int64, device=node.device)
+    torch.cumsum(torch.bincount(node, minlength=n_node), 0, out=offsets[1:])
     return NodePlan(offsets=offsets.to(torch.int32),
-                    entries=first.to(torch.int32),
+                    entries=entries.to(torch.int32),
                     cstride=1 if element_major else n_elem)
 
 
@@ -172,12 +175,12 @@ class ElementPass:
     """B3's element pass for one mesh: `pass_(disp, t)` -> Fe, (E * npe *
     ndof,) element-major, from the full vector disp of n_full values.
 
-    coords_em: (npe, ndim, E) on the card; conn: (E, npe) the elements'
-    node ids in disp (node n's dofs are n * ndof + c); bforce_fn(t) ->
-    (ndim,) body force."""
+    coords_em: (npe, ndim, E) on the card; conn_t: (npe, E) int32 on the
+    card, the elements' node ids in disp (node n's dofs are n * ndof + c);
+    bforce_fn(t) -> (ndim,) body force."""
 
-    def __init__(self, coords_em: torch.Tensor, conn: np.ndarray, etype: str,
-                 D: np.ndarray, dens: float, thickness: float,
+    def __init__(self, coords_em: torch.Tensor, conn_t: torch.Tensor,
+                 etype: str, D: np.ndarray, dens: float, thickness: float,
                  bforce_fn: Callable, n_full: int):
         dtype, device = coords_em.dtype, coords_em.device
         npe, ndim, n_elem = coords_em.shape
@@ -190,9 +193,11 @@ class ElementPass:
         w = torch.as_tensor(wts, dtype=dtype, device=device)
         self.gradN = gradN.contiguous()
         self.dvol = (w[:, None] * det * thickness).contiguous()
-        self.conn = torch.as_tensor(
-            np.ascontiguousarray(np.asarray(conn).T), device=device
-        ).to(torch.int32).contiguous()
+        if conn_t.dtype != torch.int32 or conn_t.shape != (npe, n_elem) \
+                or conn_t.device != device:
+            raise ValueError(f"kernel B3: conn_t must be ({npe}, {n_elem}) "
+                             f"int32 node ids on {device}")
+        self.conn = conn_t.contiguous()
         self.fe = torch.empty(n_elem * npe * ndim, dtype=dtype, device=device)
         Dk = _isotropic(D)
         real = _REAL[dtype][1]
@@ -231,26 +236,28 @@ class ExplicitStep:
     """B3 for one mesh: `step(disp, disp_prev, velo, t)` -> (new, velo), the
     plain step's contract (dynamics/explicit.py).
 
-    coords_em: (npe, ndim, E) on the card; seg: the loop's sorted scatter;
-    fext, free: (n_full,) on the card; mass_em: (ns, E) lumped mass, which
-    the step sums in the node pass's order (`mass`, and `upd`, the free
-    dofs that have mass); bforce_fn(t) -> (ndim,) body force; residual:
-    None for the element pass (`element`), else the torch residual (disp,
-    velo, t) -> (ns, E) Fe whose sums the node pass takes."""
+    coords_em: (npe, ndim, E) on the card; conn_t: (npe, E) int32 node ids
+    on the card, which the node pass's plan (`node_plan_from_conn`) and the
+    element pass read; fext, free: (n_full,) on the card; mass_em: (ns, E)
+    lumped mass, which the step sums in the node pass's order (`mass`, and
+    `upd`, the free dofs that have mass); bforce_fn(t) -> (ndim,) body
+    force; residual: None for the element pass (`element`), else the torch
+    residual (disp, velo, t) -> (ns, E) Fe whose sums the node pass
+    takes."""
 
-    def __init__(self, coords_em: torch.Tensor, conn: np.ndarray, etype: str,
-                 seg: Segments, D: np.ndarray, dens: float, thickness: float,
+    def __init__(self, coords_em: torch.Tensor, conn_t: torch.Tensor,
+                 etype: str, D: np.ndarray, dens: float, thickness: float,
                  fext: torch.Tensor, free: torch.Tensor,
                  mass_em: torch.Tensor, dt: float, bforce_fn: Callable,
                  residual: Optional[Callable] = None):
         dtype, device = coords_em.dtype, coords_em.device
-        npe, ndim, n_elem = coords_em.shape
+        npe, ndim, _ = coords_em.shape
         self.kernel = kernel(npe, ndim, len(tabulate_basis(etype)[1]), dtype)
         self.device, self.dtype, self.ndim = device, dtype, ndim
         self.residual = residual
         n_node = free.numel() // ndim
-        self.plan = node_plan(seg, n_elem, npe, ndim, n_node,
-                              element_major=residual is None)
+        self.plan = node_plan_from_conn(conn_t, n_node, ndim,
+                                        element_major=residual is None)
         self.mass = ordered_summer(self.plan, ndim)(
             (mass_em.T if residual is None else mass_em)
             .contiguous().reshape(-1))
@@ -260,7 +267,7 @@ class ExplicitStep:
                                        self.plan.cstride, dt * dt,
                                        1.0 / (dt * dt), 2.0 * dt)
         self.element = None if residual is not None else ElementPass(
-            coords_em, conn, etype, D, dens, thickness, bforce_fn,
+            coords_em, conn_t, etype, D, dens, thickness, bforce_fn,
             free.numel())
 
     def forces(self, disp: torch.Tensor, velo: torch.Tensor,

@@ -38,7 +38,7 @@ from pfemfort_tpu_torch.assembly.assemble import Segments
 from pfemfort_tpu_torch.dofs.dofmap import build_dofmap
 from pfemfort_tpu_torch.dynamics.explicit import _MASS_NGP, ExplicitResult
 from pfemfort_tpu_torch.dynamics.explicit_cuda import ElementPass, \
-    node_plan, ordered_summer
+    node_plan_from_conn, ordered_summer
 from pfemfort_tpu_torch.elements.elasticity import apply_residual, dmat_3d, \
     dmat_plane_strain, lumped_mass, residual_geometry
 from pfemfort_tpu_torch.elements.geometry import rank_element_coords
@@ -65,6 +65,14 @@ class ShardedExplicitSetup:
     free: np.ndarray           # (P,) bool free-dof mask
     probe_owner: np.ndarray    # (n_probe,) owning rank
     probe_local: np.ndarray    # (n_probe,) row within the owner
+
+
+def rank_conn_t(setup: ShardedExplicitSetup, ndof: int) -> np.ndarray:
+    """(npe, k) int32 node ids of the rank's own k elements in its
+    extended [left|own|right] vector, whose node n holds rows n * ndof + c
+    (the halo is a whole number of nodes)."""
+    k = int(setup.wmask.sum())
+    return (setup.gather[::ndof, :k] // ndof).astype(np.int32)
 
 
 def build_sharded_explicit(mesh: Mesh, ndof: int, dirichlet: np.ndarray,
@@ -204,11 +212,10 @@ def explicit_dynamics_sharded(
         # bits
         k = int(setup.wmask.sum())
         coords_em = as_dev(setup.coords[:, :, :k])
-        gid = torch.as_tensor(setup.gather[:, :k], device=device)
-        plan = node_plan(Segments.from_dest(gid.reshape(-1), ext + 1), k,
-                         mesh.npe, ndof, ext // ndof)
-        element = ElementPass(coords_em, setup.gather[::ndof, :k].T // ndof,
-                              mesh.etype, D, dens, thick, bforce_fn, ext)
+        conn_t = torch.as_tensor(rank_conn_t(setup, ndof), device=device)
+        plan = node_plan_from_conn(conn_t, ext // ndof, ndof)
+        element = ElementPass(coords_em, conn_t, mesh.etype, D, dens, thick,
+                              bforce_fn, ext)
         mass_em = lumped_mass(coords_em, mesh.etype, dens, ndof,
                               ngp=_MASS_NGP[mesh.etype])
         summed = ordered_summer(plan, ndof)

@@ -12,7 +12,8 @@ elementwise pass coalesced (neighbouring threads on neighbouring elements).
 The tiny (pdim x pdim) inverses are closed-form.
 
 Every way a mesh's element coordinates reach a solver is made here: the
-host gather, an affine box made on the device, a rank's padded block.
+gather on the device, an affine box made on the device, a rank's padded
+block.
 
 Index conventions (matching the Fortran):
   J[g,a,d,e] = sum_i dNdu[g,a,i] * coords[i,d,e]     ("B" in the reference)
@@ -38,9 +39,26 @@ def to_element_minor(coords_e: np.ndarray) -> np.ndarray:
 
 def element_coords(mesh: Mesh, dtype: torch.dtype, device) -> torch.Tensor:
     """(npe, ndim, E) element-minor coordinates of `mesh` on `device`: the
-    host gather through the connectivity, transposed, copied once."""
-    return torch.as_tensor(to_element_minor(mesh.elem_coords()), dtype=dtype,
-                           device=device)
+    node coordinates (converted to `dtype` on the host) and the int32
+    connectivity sent once each and gathered there
+    (`gather_element_coords`).  The gather does no arithmetic, so
+    converting first gives the bits of the host gather converted after."""
+    coords = torch.as_tensor(mesh.coords, dtype=dtype).to(device)
+    conn_t = torch.as_tensor(mesh.conn).to(device).T.contiguous()
+    return gather_element_coords(coords, conn_t)
+
+
+def gather_element_coords(coords: torch.Tensor,
+                          conn_t: torch.Tensor) -> torch.Tensor:
+    """(npe, ndim, E) element-minor coordinates gathered on their device
+    from the (n_node, ndim) node coordinates through the (npe, E)
+    connectivity already there, one component at a time."""
+    npe, n_elem = conn_t.shape
+    out = torch.empty((npe, coords.shape[1], n_elem), dtype=coords.dtype,
+                      device=coords.device)
+    for d in range(coords.shape[1]):
+        out[:, d] = coords[:, d][conn_t]
+    return out
 
 
 def affine_box_bounds(mesh: Mesh) -> Optional[tuple]:

@@ -28,6 +28,7 @@ from pfemfort_tpu_torch import generate
 from pfemfort_tpu_torch.assembly.assemble import Segments
 from pfemfort_tpu_torch.dofs.dofmap import build_dofmap
 from pfemfort_tpu_torch.dynamics import explicit_cuda
+from pfemfort_tpu_torch.dynamics.checkpoint import ExplicitState
 from pfemfort_tpu_torch.dynamics.explicit import explicit_dynamics
 from pfemfort_tpu_torch.elements.elasticity import apply_residual, dmat_3d, \
     dmat_plane_strain, residual_geometry
@@ -79,9 +80,10 @@ def _setup(etype, device, dtype, seed=0, residual=None):
     free = torch.as_tensor(rng.random(n_full) < 0.8, device=device)
     fext = as_dev(rng.standard_normal(n_full))
     b = as_dev(rng.standard_normal(nd))
+    conn_t = torch.as_tensor(mesh.conn, device=device).T.contiguous()
     step = explicit_cuda.ExplicitStep(
-        coords_em, mesh.conn, mesh.etype, seg, D, DENS, 1.0, fext, free,
-        mass_em, DT, lambda t: b, residual=residual)
+        coords_em, conn_t, mesh.etype, D, DENS, 1.0, fext, free, mass_em,
+        DT, lambda t: b, residual=residual)
     state = [as_dev(rng.standard_normal(n_full)) for _ in range(2)]
     return dict(mesh=mesh, D=D, coords_em=coords_em, dest=dest, seg=seg,
                 mass_em=mass_em, free=free, fext=fext, b=b, step=step,
@@ -200,6 +202,27 @@ def test_a_card_run_gives_the_cpus_bits(cuda, etype, dtype):
         np.testing.assert_array_equal(getattr(r_gpu, field),
                                       getattr(r_cpu, field))
     assert np.abs(r_cpu.disp).max() > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_the_card_set_up_counts_the_bytes_it_sends(cuda, dtype):
+    """explicit.setup_h2d_bytes: the node coordinates, the connectivity
+    (sent once for the gather, B3's plan and its element pass), the free
+    mask, the loads, the probe ids and, resumed, the state."""
+    mesh = _mesh("tetra4")
+    n_full, size = mesh.n_node * 3, torch.empty((), dtype=dtype).itemsize
+    run = lambda steps, **kw: explicit_dynamics(
+        mesh, _clamped(mesh), 2.1e7, 0.1, 7.6, 2e-5, steps,
+        probe_dofs=(4, 7), device=cuda, dtype=dtype, **kw)
+    first = run(5)
+    want = mesh.coords.size * size + mesh.conn.nbytes + n_full \
+        + n_full * size + 2 * 8
+    assert first.timings["explicit.setup_h2d_bytes"] == want
+    resumed = run(5, init_state=ExplicitState(
+        disp=first.disp, disp_prev=first.disp_prev, velo=first.velo,
+        step=5))
+    assert resumed.timings["explicit.setup_h2d_bytes"] == \
+        want + 3 * n_full * size
 
 
 def test_hourglass_quad_on_the_card_matches_the_cpu_in_float64(cuda):

@@ -1,7 +1,9 @@
-"""Kernel B3's host side on the CPU: the node pass's int32 plan is the
-explicit loop's sorted scatter (`Segments.from_dest`), it refuses a mesh
-past int32 indexing, and a CPU run records no kernel steps.  The kernel
-itself runs only on the card (tests/test_torch_explicit_cuda.py)."""
+"""Kernel B3's host side on the CPU: the node pass's int32 plan, made from
+the connectivity alone (`node_plan_from_conn`), is the explicit loop's
+sorted scatter (`Segments.from_dest`) on the whole mesh and on a sharded
+rank's own elements, it refuses a mesh past int32 indexing, and a CPU run
+records no kernel steps.  The kernel itself runs only on the card
+(tests/test_torch_explicit_cuda.py)."""
 
 import numpy as np
 import pytest
@@ -11,6 +13,8 @@ from pfemfort_tpu_torch import explicit_dynamics, generate
 from pfemfort_tpu_torch.assembly.assemble import Segments
 from pfemfort_tpu_torch.dofs.dofmap import build_dofmap
 from pfemfort_tpu_torch.dynamics import explicit_cuda
+from pfemfort_tpu_torch.dynamics.sharded import build_sharded_explicit, \
+    rank_conn_t
 from pfemfort_tpu_torch.elements.elasticity import dmat_3d, \
     dmat_plane_strain
 from pfemfort_tpu_torch.utils import timing
@@ -34,14 +38,23 @@ def _scatter(etype):
     return mesh, Segments.from_dest(dest, mesh.n_node * nd + 1)
 
 
-def _per_dof(plan, mesh, to_slot_entry):
+def _conn_t(mesh):
+    """The connectivity as the explicit set-up sends it: (npe, E) int32."""
+    return torch.as_tensor(mesh.conn).T.contiguous()
+
+
+def _plan(mesh, element_major):
+    return explicit_cuda.node_plan_from_conn(
+        _conn_t(mesh), mesh.n_node, mesh.ndim, element_major=element_major)
+
+
+def _per_dof(plan, n_node, nd, to_slot_entry):
     """The plan spread back over every dof: (perm, offsets) in the form of
     Segments, each entry mapped by to_slot_entry to slot * E + e."""
-    nd = mesh.ndim
     off = plan.offsets.numpy().astype(np.int64)
     ent = plan.entries.numpy().astype(np.int64)
     perm, offsets = [], [0]
-    for n in range(mesh.n_node):
+    for n in range(n_node):
         for c in range(nd):
             run = ent[off[n]:off[n + 1]] + c * plan.cstride
             perm.append(to_slot_entry(run))
@@ -50,25 +63,61 @@ def _per_dof(plan, mesh, to_slot_entry):
     return np.concatenate(perm), np.asarray(offsets)
 
 
+def _element_major_to_slot_entry(E, npe, nd):
+    """(e * npe + i) * nd + c  ->  (i * nd + c) * E + e"""
+    def to_slot_entry(a):
+        e, r = a // (npe * nd), a % (npe * nd)
+        return r * E + e
+    return to_slot_entry
+
+
 @pytest.mark.parametrize("element_major", [True, False])
 @pytest.mark.parametrize("etype", sorted(MESHES))
 def test_node_plan_is_the_sorted_scatter(etype, element_major):
     mesh, seg = _scatter(etype)
     nd, E, npe = mesh.ndim, mesh.n_elem, mesh.conn.shape[1]
-    plan = explicit_cuda.node_plan(seg, E, npe, nd, mesh.n_node,
-                                   element_major=element_major)
+    plan = _plan(mesh, element_major)
     assert plan.offsets.dtype == plan.entries.dtype == torch.int32
     assert plan.offsets.numel() == mesh.n_node + 1
     assert plan.entries.numel() == E * npe
 
-    if element_major:
-        # (e * npe + i) * nd + c  ->  (i * nd + c) * E + e
-        def to_slot_entry(a):
-            e, r = a // (npe * nd), a % (npe * nd)
-            return r * E + e
-    else:
-        to_slot_entry = lambda a: a
-    perm, offsets = _per_dof(plan, mesh, to_slot_entry)
+    to_slot_entry = _element_major_to_slot_entry(E, npe, nd) \
+        if element_major else (lambda a: a)
+    perm, offsets = _per_dof(plan, mesh.n_node, nd, to_slot_entry)
+    np.testing.assert_array_equal(perm, seg.perm.numpy())
+    np.testing.assert_array_equal(offsets, seg.offsets.numpy())
+    assert plan.cstride == (1 if element_major else E)
+
+
+# meshes the slab partition cuts along their longest axis, as the sharded
+# explicit tests run them
+SHARDED = {
+    "tria3": lambda: generate.rect_tria(0, 1, 4, 0, 4, 12),
+    "quad4": lambda: generate.rect_quad(0, 1, 4, 0, 4, 12),
+    "tetra4": lambda: generate.box_tet(0, 1, 3, 0, 1, 3, 0, 3, 9)[0],
+    "hexa8": lambda: generate.box_hexa(0, 1, 2, 0, 1, 2, 0, 3, 9),
+}
+
+
+@pytest.mark.parametrize("size, rank", [(1, 0), (2, 0), (2, 1), (4, 0),
+                                        (4, 3)])
+@pytest.mark.parametrize("etype", sorted(SHARDED))
+def test_a_ranks_plan_is_its_sorted_scatter(etype, size, rank):
+    """On a sharded rank's own k elements the plan from `rank_conn_t` is
+    the sorted scatter of the rank's (ns, k) gather table into its
+    extended vector (dynamics/sharded.py's card path)."""
+    mesh = SHARDED[etype]()
+    nd, npe = mesh.ndim, mesh.npe
+    setup = build_sharded_explicit(mesh, nd, np.zeros((0, 3)), size, rank)
+    ext = setup.rows_per_shard + 2 * setup.halo
+    k = int(setup.wmask.sum())
+    seg = Segments.from_dest(
+        torch.as_tensor(setup.gather[:, :k]).reshape(-1), ext + 1)
+    conn_t = torch.as_tensor(rank_conn_t(setup, nd))
+    assert conn_t.dtype == torch.int32 and tuple(conn_t.shape) == (npe, k)
+    plan = explicit_cuda.node_plan_from_conn(conn_t, ext // nd, nd)
+    perm, offsets = _per_dof(plan, ext // nd, nd,
+                             _element_major_to_slot_entry(k, npe, nd))
     np.testing.assert_array_equal(perm, seg.perm.numpy())
     np.testing.assert_array_equal(offsets, seg.offsets.numpy())
 
@@ -84,8 +133,7 @@ def test_the_plans_order_is_the_segment_sums_bits(etype, element_major,
     nd, E, npe = mesh.ndim, mesh.n_elem, mesh.conn.shape[1]
     fe_em = torch.as_tensor(np.random.default_rng(0).standard_normal(
         (npe * nd, E)), dtype=dtype)
-    plan = explicit_cuda.node_plan(seg, E, npe, nd, mesh.n_node,
-                                   element_major=element_major)
+    plan = _plan(mesh, element_major)
     laid_out = fe_em.T if element_major else fe_em
     sums = explicit_cuda.ordered_summer(plan, nd)(
         laid_out.contiguous().reshape(-1))
@@ -99,7 +147,10 @@ def test_the_plans_order_is_the_segment_sums_bits(etype, element_major,
 ])
 def test_node_plan_refuses_past_int32(n_elem, npe, ndof, n_node):
     with pytest.raises(ValueError, match="int32"):
-        explicit_cuda.node_plan(None, n_elem, npe, ndof, n_node)
+        # a connectivity of that shape with no storage
+        explicit_cuda.node_plan_from_conn(
+            torch.empty((npe, n_elem), dtype=torch.int32, device="meta"),
+            n_node, ndof)
 
 
 def test_node_plan_takes_the_largest_int32_mesh():
@@ -151,7 +202,7 @@ def test_the_launch_parameters_carry_the_step(dtype):
     D = dmat_plane_strain(200.0, 0.3)
     ones = torch.ones(n_full, dtype=dtype)
     step = explicit_cuda.ExplicitStep(
-        coords, mesh.conn, "tria6", seg, D, 7.6, 0.5, ones * 0, ones > 0,
+        coords, _conn_t(mesh), "tria6", D, 7.6, 0.5, ones * 0, ones > 0,
         torch.ones(12, mesh.n_elem, dtype=dtype), 1e-3, lambda t: None)
     real = np.float32 if dtype == torch.float32 else np.float64
     np.testing.assert_array_equal(np.asarray(step.element.params.D[:], real),
@@ -174,13 +225,13 @@ def test_the_launch_parameters_carry_the_step(dtype):
 
 
 def test_the_node_pass_refuses_a_vector_it_cannot_read():
-    mesh, seg = _scatter("tetra4")
+    mesh, _ = _scatter("tetra4")
     from pfemfort_tpu_torch.elements.geometry import to_element_minor
 
     n_full, f64 = mesh.n_node * 3, torch.float64
     coords = torch.as_tensor(to_element_minor(mesh.elem_coords()))
     step = explicit_cuda.ExplicitStep(
-        coords, mesh.conn, "tetra4", seg, dmat_3d(2.1e7, 0.1), 7.6, 1.0,
+        coords, _conn_t(mesh), "tetra4", dmat_3d(2.1e7, 0.1), 7.6, 1.0,
         torch.zeros(n_full, dtype=f64), torch.ones(n_full, dtype=torch.bool),
         torch.ones(12, mesh.n_elem, dtype=f64), 1e-3, lambda t: None)
     u = torch.zeros(n_full, dtype=f64)
@@ -192,3 +243,18 @@ def test_the_node_pass_refuses_a_vector_it_cannot_read():
         step.update(fe[:-1], u, u)
     with pytest.raises(ValueError, match="disp"):
         step.forces(u[:-1], None, None)
+
+
+def test_the_element_pass_refuses_a_connectivity_it_cannot_read():
+    """The element pass reads (npe, E) int32 node ids on its own device."""
+    from pfemfort_tpu_torch.elements.geometry import element_coords
+
+    mesh, _ = _scatter("tetra4")
+    coords = element_coords(mesh, torch.float64, "cpu")
+    conn_t = _conn_t(mesh)
+    for bad in (conn_t.long(), conn_t.T.contiguous(), conn_t[:, :-1],
+                conn_t.to("meta")):
+        with pytest.raises(ValueError, match="conn_t"):
+            explicit_cuda.ElementPass(coords, bad, "tetra4",
+                                      dmat_3d(2.1e7, 0.1), 7.6, 1.0,
+                                      lambda t: None, mesh.n_node * 3)

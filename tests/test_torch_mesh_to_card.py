@@ -180,7 +180,8 @@ def test_nodal_loads_are_the_inline_full_vector():
 # decision -> (pattern, the files that may hold it); a `quoted` mention in
 # a docstring is not a use
 OWNERS = {
-    "element_gather": (r"(?<!`)to_element_minor\(\s*\w+\.elem_coords\(\)",
+    "element_gather": (r"(?<!`)to_element_minor\(\s*\w+\.elem_coords\(\)"
+                       r"|coords\[:, \w+\]\[conn_t\]",
                        {"elements/geometry.py"}),
     "box_on_device": (r"box_tet_coords_em_device",
                       {"elements/geometry.py", "mesh/generate.py"}),

@@ -24,7 +24,9 @@ PATTERN = ("pattern.dofmap_s", "pattern.census_s", "pattern.plan_s",
 KRYLOV = ("krylov.loop_s", "krylov.wait_s", "krylov.host_reads")
 # the stage each dotted key sits in
 PARENT = {"pattern": "pattern_s", "assemble": "host_assemble_s",
-          "mg": "mg_setup_s", "krylov": "solve_s", "ic0": "ic0_setup_s"}
+          "mg": "mg_setup_s", "krylov": "solve_s", "ic0": "ic0_setup_s",
+          "explicit.setup": "explicit.setup_s"}
+EXPLICIT_SETUP = ("explicit.setup.coords_s", "explicit.setup.plan_s")
 IC0 = ("ic0.csr_s", "ic0.factor_s", "ic0.layout_s")
 
 
@@ -308,13 +310,34 @@ def test_the_explicit_result_carries_its_spans():
     res = _explicit(nsteps=7)
     t = res.timings
     assert set(t) == {"explicit.setup_s", "explicit.loop_s", "steps",
-                      "explicit.kernel_steps"}
+                      "explicit.kernel_steps", "explicit.setup_h2d_bytes"} \
+        | set(EXPLICIT_SETUP)
     assert t["steps"] == 7 and t["explicit.setup_s"] > 0 \
         and t["explicit.loop_s"] > 0
+    assert all(t[k] > 0 for k in EXPLICIT_SETUP)
+    assert sum(t[k] for k in EXPLICIT_SETUP) <= t["explicit.setup_s"]
     assert t["explicit.kernel_steps"] == 0      # the CPU runs no kernel
+    assert t["explicit.setup_h2d_bytes"] == 0   # nor sends anything
     rec = timing.RECENT[-1]
     assert rec.name == "explicit_dynamics" and rec.timings is t \
         and rec.profiled is False
+
+
+def test_the_explicit_set_ups_children_sit_inside_it_in_the_profile():
+    """Under a profiler each child's range lies inside its parent's range
+    and outside the loop's."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _explicit(nsteps=3)
+    at = {e.name()[len("pfem."):]: (e.start_ns(), e.end_ns())
+          for e in prof.profiler.kineto_results.events()
+          if e.name().startswith("pfem.")}
+    assert set(at) == {"explicit.setup_s", "explicit.loop_s"} \
+        | set(EXPLICIT_SETUP)
+    (s0, s1), (l0, _) = at["explicit.setup_s"], at["explicit.loop_s"]
+    for k in EXPLICIT_SETUP:
+        assert s0 <= at[k][0] <= at[k][1] <= s1 <= l0, k
+    assert at["explicit.setup.coords_s"][1] <= at["explicit.setup.plan_s"][0]
+    assert timing.RECENT[-1].profiled is True
 
 
 def test_recent_keeps_the_last_32():
