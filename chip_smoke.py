@@ -62,18 +62,23 @@ of JAX.  Phases, one JSON line each:
                      x=0 clamped, probes 670/671, 2,500 steps: float32 twice
                      bit for bit, 1,250 + checkpoint + 1,250 bit for bit,
                      float64 against float32 on the probes; a quad preset
-                     (hourglass) run, float64, card against CPU; ms per step
-                     (the steps run through kernel B3, csrc/explicit_step.cu:
-                     each run counts B3's launches from zero and checks
-                     explicit.kernel_steps = steps, an element and a node
-                     pass a step, the node pass alone for the hourglass
-                     quad, none on the CPU);
+                     (hourglass) run, float64, card against CPU bit for bit;
+                     ms per step (the steps run through kernel B3,
+                     csrc/explicit_step.cu: each run counts B3's launches
+                     from zero and checks explicit.kernel_steps = steps, an
+                     element and a node pass a step of the mesh's own
+                     library and no other, the hourglass quad's its own
+                     (B3_HG) with explicit.hg_kernel_steps = steps, none on
+                     the CPU);
  9b. explicit_b3     B3 as explicit_dynamics builds it: one step on the card
                      against the same step on the CPU, bit for bit (the
                      element pass's forces, the node pass's new disp and
-                     velo), on phase 9's tria case from its last states and
-                     on the explicit cell's 1,572,864-element tetra4 box
-                     from a seeded state, float32 and float64; each pass's
+                     velo), one launch of each pass of the shape's library,
+                     on phase 9's tria case from its last states, on the
+                     explicit cell's 1,572,864-element tetra4 box and on the
+                     hourglass cell's 4096 x 2048 quad4 plate (its
+                     hourglass pass and velocity-form node pass) from
+                     seeded states, float32 and float64; each pass's
                      device us, back to back and each behind a write that
                      empties the L2, beside the bytes it must move (its
                      bound at the card's HBM peak); the box's float32 case
@@ -387,6 +392,7 @@ EXPLICIT_CELLS, EXPLICIT_STEPS = (1000, 200), 2500
 EXPLICIT_F32_VS_F64 = 0.25
 B3_BOX_CELLS = 64           # phase 9b: the explicit cell's box, 1,572,864 tetra4
 QUAD_CELLS, QUAD_STEPS = (200, 40), 500
+HG_PLATE_CELLS = (4096, 2048)   # phase 9b: the hourglass cell's plate
 # Preconditioners, the full system and refinement.  Bars from the JAX
 # package: its bench's flagship MG stage (7 iterations, 4 levels), its amg
 # stage (12 iterations, levels [857375, 107983, 38008, 542]) and its 48M
@@ -959,11 +965,22 @@ def _elasticity2d(dev, counted, errs, rng):
     return A_dia, A_ell, r_dia, r_ell
 
 
+def _b3_library(mesh, dtype, hourglass):
+    """The key of B3's library that explicit_dynamics builds for `mesh`."""
+    from pfemfort_tpu_torch.elements.basis import tabulate_basis
+
+    ngp = 1 if hourglass else len(tabulate_basis(mesh.etype)[1])
+    return (mesh.conn.shape[1], mesh.ndim, ngp, dtype, bool(hourglass))
+
+
 def _explicit_run(mesh, dbc, preset, nsteps, device, dtype, **kw):
     """explicit_dynamics with kernel B3's counters at zero: (result,
     seconds, B3's launches by entry point).  Checks that every step on the
-    card ran through B3 (its element and node passes once a step, the node
-    pass alone under the torch hourglass residual) and none on the CPU."""
+    card ran through B3, in the one library of the mesh's shape and type
+    (`_b3_library`; under use_hourglass the hourglass library, B3_HG=1):
+    its element and node passes once a step, the hourglass pass counted in
+    explicit.hg_kernel_steps, and no other library launched; on the CPU
+    none."""
     bforce = torch.tensor(preset.bforce, dtype=dtype, device=device)
     if preset.pulse_t is None:
         bforce_fn = lambda t: bforce
@@ -979,20 +996,23 @@ def _explicit_run(mesh, dbc, preset, nsteps, device, dtype, **kw):
         bforce_fn=bforce_fn, thickness=preset.thickness,
         use_hourglass=preset.use_hourglass, device=device, dtype=dtype, **kw)
     seconds = time.perf_counter() - t0
-    launches = collections.Counter()
-    for k in explicit_cuda._KERNELS.values():
-        launches.update(k.entry_launches)
+    by_library = {key: dict(+collections.Counter(k.entry_launches))
+                  for key, k in explicit_cuda._KERNELS.items()
+                  if k.launches}
     on_card = torch.device(device).type == "cuda"
-    want = {} if not on_card else {"explicit_step_node": nsteps} \
-        if preset.use_hourglass else {"explicit_step_element": nsteps,
-                                      "explicit_step_node": nsteps}
+    want = {} if not on_card else {
+        _b3_library(mesh, dtype, preset.use_hourglass):
+        {"explicit_step_element": nsteps, "explicit_step_node": nsteps}}
     kernel_steps = res.timings["explicit.kernel_steps"]
+    hg_steps = res.timings["explicit.hg_kernel_steps"]
     _check(kernel_steps == (nsteps if on_card else 0)
-           and dict(+launches) == want
-           and sum(k.launches for k in explicit_cuda._KERNELS.values())
-           == sum(want.values()),
+           and hg_steps == (kernel_steps if preset.use_hourglass else 0)
+           and by_library == want,
            f"explicit on {device}: {nsteps} steps, {kernel_steps} through "
-           f"B3, launches {dict(launches)}")
+           f"B3 ({hg_steps} hourglass), launches {by_library}")
+    launches = collections.Counter()
+    for entries in by_library.values():
+        launches.update(entries)
     return res, seconds, dict(+launches)
 
 
@@ -1073,10 +1093,11 @@ def _explicit(dev):
                          for d in ("cpu", dev))
     qrel = float(np.abs(qg.disp - qc.disp).max() / np.abs(qc.disp).max())
     _phase("explicit", preset="quad (hourglass)", cells=[qx, qy],
-           steps=QUAD_STEPS, card_vs_cpu_rel=qrel, bound=1e-10,
-           seconds=tq, u_max=float(np.abs(qc.disp).max()))
+           steps=QUAD_STEPS, card_vs_cpu_rel=qrel, bound=0.0,
+           bit_identical=_same(qg, qc), seconds=tq,
+           u_max=float(np.abs(qc.disp).max()))
     _phase("explicit", b3_launches=counted)
-    _check(qrel <= 1e-10 and np.abs(qc.disp).max() > 0,
+    _check(_same(qg, qc) and np.abs(qc.disp).max() > 0,
            f"quad preset card vs CPU: {qrel}")
     single["b3_launches"] = counted
     return single
@@ -1086,7 +1107,8 @@ def _b3_step(mesh, dbc, preset, device, dtype, b, state):
     """One step of explicit_dynamics from `state` under the constant body
     force b: (result, what the step computed its forces with).  On the
     card that is the loop's own kernel B3 step (`ExplicitStep`), on the CPU
-    the forces `apply_residual` returned, element-major."""
+    the forces `apply_residual` (`quad_hg_residual` under the preset's
+    use_hourglass) returned, element-major."""
     from unittest import mock
     from pfemfort_tpu_torch.dynamics import explicit as explicit_mod
 
@@ -1097,19 +1119,23 @@ def _b3_step(mesh, dbc, preset, device, dtype, b, state):
             super().__init__(*args, **kwargs)
             seen.append(self)
 
+    residual = "quad_hg_residual" if preset.use_hourglass \
+        else "apply_residual"
+    plain = getattr(explicit_mod, residual)
+
     def kept_residual(*args, **kwargs):
-        fe = apply_residual(*args, **kwargs)
+        fe = plain(*args, **kwargs)
         seen.append(fe)
         return fe
 
     on_card = torch.device(device).type == "cuda"
     with mock.patch.object(explicit_mod, *(("ExplicitStep", Kept) if on_card
-                                           else ("apply_residual",
-                                                 kept_residual))):
+                                           else (residual, kept_residual))):
         res = explicit_dynamics(
             mesh, dbc, preset.E, preset.nu, preset.dens, preset.dt, 1,
             bforce_fn=lambda t: b, thickness=preset.thickness,
-            device=device, dtype=dtype, init_state=state)
+            use_hourglass=preset.use_hourglass, device=device, dtype=dtype,
+            init_state=state)
     if on_card:
         return res, seen[0]
     npe, nd = mesh.conn.shape[1], mesh.ndim
@@ -1119,31 +1145,53 @@ def _b3_step(mesh, dbc, preset, device, dtype, b, state):
 def _b3_case(dev, smi, peak, label, mesh, dbc, preset, dtype, b, state):
     """One B3 case of phase 9b: the card's step against the CPU's from the
     same state, bit for bit (the element pass's forces, and the new
-    displacements and velocities of the node pass), and each pass's
-    device us beside its bytes at the card's HBM peak."""
+    displacements and velocities of the node pass), the launches of the
+    shape's own library (`_b3_library`), and each pass's device us beside
+    its bytes at the card's HBM peak.  Under the preset's use_hourglass the
+    element pass is the hourglass pass, which reads the velocities too,
+    and the node pass the velocity form's, whose carry is the half-step
+    velocity (u^n - u^{n-1}) / dt."""
     nd, E, npe = mesh.ndim, mesh.n_elem, mesh.conn.shape[1]
+    hg = preset.use_hourglass
     size = torch.tensor([], dtype=dtype).element_size()
     cpu, fe_cpu = _b3_step(mesh, dbc, preset, "cpu", dtype, b.cpu(), state)
+    library = explicit_cuda.kernel(*_b3_library(mesh, dtype, hg)[:4],
+                                   hourglass=hg)
+    before = dict(library.entry_launches)
     card, step = _b3_step(mesh, dbc, preset, dev, dtype, b.to(dev), state)
-    ud, upd = (torch.as_tensor(a, dtype=dtype, device=dev)
-               for a in (state.disp, state.disp_prev))
-    fe = step.forces(ud, None, None)
+    launched = {k: v - before.get(k, 0)
+                for k, v in library.entry_launches.items()}
+    ud, upd, vd = (torch.as_tensor(a, dtype=dtype, device=dev)
+                   for a in (state.disp, state.disp_prev, state.velo))
+    carry = (ud - upd) / torch.as_tensor(preset.dt, dtype=dtype,
+                                         device=dev) if hg else upd
+    fe = step.forces(ud, vd, None)
     differ = {"forces": int((fe.cpu() != fe_cpu).sum()),
               "disp": int((card.disp != cpu.disp).sum()),
               "velo": int((card.velo != cpu.velo).sum())}
-    n_full, G = mesh.n_node * nd, step.element.gradN.shape[0]
-    # read: node ids, gradN, dvol, u; write: Fe.  read: offsets, the plan's
-    # entries, Fe, fext, M, upd (bytes), u, u_prev; write: u, v
-    bytes_el = E * (npe * 4 + G * (nd * npe + 1) * size
-                    + npe * nd * size) + n_full * size
+    n_full = mesh.n_node * nd
+    if hg:
+        # read: node ids, the five values of geometry, u, v; write: Fe.
+        # read: offsets, the plan's entries, Fe, fext, M, upd (bytes), u,
+        # w; write: u, w, v
+        bytes_el = E * (npe * 4 + 5 * size + npe * nd * size) \
+            + 2 * n_full * size
+        node_vectors = 7
+    else:
+        # read: node ids, gradN, dvol, u; write: Fe.  read: offsets, the
+        # plan's entries, Fe, fext, M, upd (bytes), u, u_prev; write: u, v
+        G = step.element.gradN.shape[0]
+        bytes_el = E * (npe * 4 + G * (nd * npe + 1) * size
+                        + npe * nd * size) + n_full * size
+        node_vectors = 6
     bytes_node = (mesh.n_node + 1) * 4 + E * npe * 4 + E * npe * nd * size \
-        + n_full * (6 * size + 1)
+        + n_full * (node_vectors * size + 1)
     times, hidden, cold = {}, {}, {}
     scratch = torch.empty(2 * int(COLD_L2_BELOW_BYTES) // 4,
                           dtype=torch.float32, device=dev)
-    for name, fn in (("element", lambda: step.forces(ud, None, None)),
-                     ("node", lambda: step.update(fe, ud, upd)),
-                     ("step", lambda: step(ud, upd, None, None))):
+    for name, fn in (("element", lambda: step.forces(ud, vd, None)),
+                     ("node", lambda: step.update(fe, ud, carry)),
+                     ("step", lambda: step(ud, carry, vd, None))):
         fn()
         times[name], hidden[name] = _device_ms(fn, reps=50)
         cold[name] = _each_device_ms(fn, scratch)
@@ -1152,7 +1200,7 @@ def _b3_case(dev, smi, peak, label, mesh, dbc, preset, dtype, b, state):
         ("element", bytes_el), ("node", bytes_node),
         ("step", bytes_el + bytes_node))}
     case = dict(case=label, dtype=str(dtype)[6:], elements=E, dofs=n_full,
-                differ_from_cpu=differ,
+                differ_from_cpu=differ, launches=launched,
                 device_us={k: 1e3 * v for k, v in times.items()},
                 cold_l2_device_us={k: 1e3 * v for k, v in cold.items()},
                 host_hidden=hidden,
@@ -1163,6 +1211,9 @@ def _b3_case(dev, smi, peak, label, mesh, dbc, preset, dtype, b, state):
     _phase("explicit_b3", card=smi, **case)
     _check(not any(differ.values()),
            f"B3 {label} {dtype} differs from the CPU's step: {differ}")
+    _check(launched == {"explicit_step_element": 1, "explicit_step_node": 1},
+           f"B3 {label} {dtype}: the step's launches of its library "
+           f"{launched}")
     return case
 
 
@@ -1170,8 +1221,9 @@ def _explicit_b3(dev, single, smi, peak):
     """Phase 9b: kernel B3 as explicit_dynamics builds it, one step on the
     card against the same step on the CPU, bit for bit, and each pass's
     device time beside the bytes it must move: phase 9's tria case from
-    phase 9's last states, and the explicit benchmark cell's 1,572,864
-    tetra4 box from a seeded state, each in float32 and float64."""
+    phase 9's last states, the explicit benchmark cell's 1,572,864 tetra4
+    box and the hourglass cell's 4096 x 2048 quad4 plate from seeded
+    states, each in float32 and float64."""
     out = {"name": "explicit_step", "route": "cuda",
            "source": "pfemfort_tpu_torch/csrc/explicit_step.cu",
            "replaces": None, "cases": []}
@@ -1202,12 +1254,36 @@ def _explicit_b3(dev, single, smi, peak):
         out["cases"].append(_b3_case(
             dev, smi, peak, f"tetra4 box {n}^3", box, _clamped(box), cell,
             dtype, torch.tensor(cell.bforce, dtype=dtype), state))
-    cell_f32 = out["cases"][2]
+    # the hourglass cell's plate
+    # (benchmark/configs/elastodynamics2d_quadhg_4096x2048.json): h = 0.006,
+    # x = 0 clamped, the quad preset's material, thickness and dt (the
+    # configuration's), a body force to load the pass's body-force term
+    qx, qy = HG_PLATE_CELLS
+    plate = generate.rect_quad(0, qx * 0.006, qx, 0, qy * 0.006, qy)
+    q = presets.QUAD_EXPLICIT
+    n_full = plate.n_node * 2
+    fixed = _clamped(plate)[:, :2].astype(np.int64) @ np.array([2, 1])
+    u = 1e-4 * rng.standard_normal((3, n_full))
+    u[2] *= 1e4                                # velocities of ~1 m/s
+    u[:, fixed] = 0.0
+    for dtype in (torch.float32, torch.float64):
+        state = ExplicitState(disp=u[0], disp_prev=u[1], velo=u[2], step=0)
+        out["cases"].append(_b3_case(
+            dev, smi, peak, f"hourglass quad4 plate {qx}x{qy}", plate,
+            _clamped(plate), q, dtype,
+            torch.tensor([0.0, -9.81], dtype=dtype), state))
+    cell_f32, plate_f32 = out["cases"][2], out["cases"][4]
     out.update(shape=f"tetra4 box {n}^3, {box.n_elem} elements, float32 "
                      f"(the explicit cell's)",
                device_us=cell_f32["cold_l2_device_us"]["step"],
                warm_device_us=cell_f32["device_us"]["step"],
-               bound_us=cell_f32["bound_us"]["step"], bound_by="bytes")
+               bound_us=cell_f32["bound_us"]["step"], bound_by="bytes",
+               hourglass={"shape": f"quad4 plate {qx}x{qy}, "
+                                   f"{plate.n_elem} elements, float32 (the "
+                                   f"hourglass cell's)",
+                          "device_us": plate_f32["cold_l2_device_us"],
+                          "warm_device_us": plate_f32["device_us"],
+                          "bound_us": plate_f32["bound_us"]})
     return out
 
 
@@ -3092,12 +3168,14 @@ def main():
         return time.perf_counter() - t0
 
     # B3 in the shapes and types of phases 9 and 9b (tria3 f32/f64, the
-    # hourglass quad4's node pass in f64, the tetra4 box f32/f64)
-    b3 = {f"explicit_step {npe},{nd},{g} {str(dt)[6:]}":
-          explicit_cuda.kernel(npe, nd, g, dt) for npe, nd, g, dt in (
-              (3, 2, 1, torch.float32), (3, 2, 1, torch.float64),
-              (4, 2, 4, torch.float64), (4, 3, 1, torch.float32),
-              (4, 3, 1, torch.float64))}
+    # hourglass quad4 f32/f64, the tetra4 box f32/f64)
+    b3 = {f"explicit_step {npe},{nd},{g}{' hg' if hg else ''} "
+          f"{str(dt)[6:]}": explicit_cuda.kernel(npe, nd, g, dt, hg)
+          for npe, nd, g, dt, hg in (
+              (3, 2, 1, torch.float32, False), (3, 2, 1, torch.float64, False),
+              (4, 2, 1, torch.float32, True), (4, 2, 1, torch.float64, True),
+              (4, 3, 1, torch.float32, False),
+              (4, 3, 1, torch.float64, False))}
     libs = dict(KERNELS, **b3, host_native=host_native.library)
     with ThreadPoolExecutor(len(libs) + len(host_native.PROGRAMS)) as pool:
         builds = {name: pool.submit(build, k) for name, k in libs.items()}

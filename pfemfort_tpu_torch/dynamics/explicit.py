@@ -18,12 +18,29 @@ difference, PFEMFort src/triaelasticityexplicit.F:1072-1085):
 Dirichlet BCs are homogeneous (the reference assumes all-zero BC values in
 the explicit path; triaelasticityexplicit.F:1060-1062).
 
+The hourglass quad4 (use_hourglass) takes the same step in velocity form,
+carrying the half-step velocity w = v^{n-1/2} = (u^n - u^{n-1}) / dt:
+
+  w^{n+1/2} = w^{n-1/2} + dt * (rhs / M)            (rhs without the M term)
+  u^{n+1}   = u^n + dt * w^{n+1/2}
+  v         = (w^{n-1/2} + w^{n+1/2}) / 2
+
+In exact arithmetic it is the step above.  In float32 it is not: the
+displacement form keeps the velocity only as u^{n+1} - u^{n-1}, which
+rounds to ulp(u) / dt a step, and the quad program's plate deflects by
+tens of thousands of times a step's motion, so its velocities lose most
+of their digits within thousands of steps; carried as w they keep their
+own.  A
+resumed run takes w from the state's u^n - u^{n-1}, so it differs from an
+uninterrupted one by that one rounding.  The other shapes keep the
+displacement form.
+
 On the card the step is kernel B3 (dynamics/explicit_cuda.py,
 csrc/explicit_step.cu): an element pass that forms the residual in
 registers from the gathered displacements, and a node pass that sums each
 dof's entries in the same fixed order and applies the update; the quad4
-hourglass residual stays in torch and feeds the node pass.  A CPU tensor
-takes the plain step below.
+hourglass residual has an element pass of its own there, which reads the
+velocities too.  A CPU tensor takes the plain step below.
 
 Three things differ from the JAX `lax.scan` on purpose:
   * Determinism.  The mass and the per-step residual are scattered with
@@ -31,7 +48,7 @@ Three things differ from the JAX `lax.scan` on purpose:
     sorted segments reduced without atomics; on the card B3 sums in the
     same order, its plan sorted on the card from the connectivity), so an
     f32 run repeats bit for bit on the card and a resumed run matches an
-    uninterrupted one.
+    uninterrupted one (in the displacement form; see above).
   * No per-step host sync.  The probe values go into a preallocated
     (nsteps, 2*n_probe) device buffer that is copied to the host once per
     snapshot chunk (once per run without snapshots); only the last step's
@@ -56,8 +73,10 @@ from pfemfort_tpu_torch.elements.elasticity import (
     apply_residual,
     dmat_3d,
     dmat_plane_strain,
+    dmat_plane_stress,
     lumped_mass,
     quad_hg_residual,
+    quad_hg_viscosity,
     residual_geometry,
 )
 from pfemfort_tpu_torch.elements.geometry import gather_element_coords
@@ -133,7 +152,10 @@ def explicit_dynamics(
     map's node-dof table and the residual's geometry); explicit.loop_s,
     from the first step to the last chunk's probe copy to the host; steps,
     the steps run; explicit.kernel_steps, those of them that ran through
-    B3 (all on the card, none on the CPU); explicit.setup_h2d_bytes, the
+    B3, its node-pass launches (all on the card, none on the CPU);
+    explicit.hg_kernel_steps, those whose hourglass residual ran in B3's
+    element pass, the hourglass library's element launches (use_hourglass
+    on the card; 0 otherwise); explicit.setup_h2d_bytes, the
     bytes of the host arrays the set-up sends to the card (the node
     coordinates, the connectivity, the free mask, the loads, the probe
     ids, a resumed state; 0 on the CPU; the step's scalars and basis
@@ -159,11 +181,12 @@ def explicit_dynamics(
                   timings)
             return t.to(device)
 
-        D = dmat_plane_strain(E, nu) if ndim == 2 else dmat_3d(E, nu)
+        # the hourglass quad's residual takes the plane-stress D
+        D = dmat_plane_stress(E, nu) if use_hourglass else \
+            dmat_plane_strain(E, nu) if ndim == 2 else dmat_3d(E, nu)
         with span("explicit.setup.coords_s", timings):
-            # the connectivity sent once, as (npe, E) int32: the gather, on
-            # the card B3's plan and element pass and the hourglass
-            # residual's gather table all read it
+            # the connectivity sent once, as (npe, E) int32: the gather and,
+            # on the card, B3's plan and element pass read it
             conn_t = send(mesh.conn, torch.int32).T.contiguous()
             coords_em = gather_element_coords(send(mesh.coords), conn_t)
         # the card needs the free mask alone; the CPU's sorted scatter reads
@@ -178,53 +201,44 @@ def explicit_dynamics(
 
         # the step's scalars as device tensors of the working dtype, as the
         # JAX package's weakly typed Python floats become
-        dtt, idtt, two_dt = as_dev(dt * dt), as_dev(1.0 / (dt * dt)), \
-            as_dev(2.0 * dt)
+        dt_t, dtt, idtt, two_dt = as_dev(dt), as_dev(dt * dt), \
+            as_dev(1.0 / (dt * dt)), as_dev(2.0 * dt)
         probe = send(np.asarray(probe_dofs, dtype=np.int64), torch.int64)
         n_probe = probe.numel()
 
         with span("explicit.setup.plan_s", timings):
-            # the node-dof gather table, element-minor (ns, E) flattened:
-            # entry (i * ndof + c) * E + e is conn[e, i] * ndof + c
-            if on_card:
-                dest = (conn_t.long()[:, None, :] * ndof + torch.arange(
-                    ndof, device=device)[None, :, None]).reshape(-1) \
-                    if use_hourglass else None
-            else:
-                dest = torch.as_tensor(
-                    dofmap.elem_nodedof.T.reshape(-1).astype(np.int64),
-                    device=device)
-            ns_e = mesh.npe * ndof, mesh.n_elem
             mass_em = lumped_mass(coords_em, mesh.etype, dens, ndof,
                                   ngp=_MASS_NGP[mesh.etype])
-
-            if use_hourglass:
-                def residual(disp_full, velo_full, t):
-                    return quad_hg_residual(
-                        coords_em, disp_full[dest].reshape(ns_e),
-                        velo_full[dest].reshape(ns_e), E, nu, dens,
-                        bforce_fn(t), thickness=thickness)
-            else:
-                residual = None
             if on_card:
                 # B3's plan from conn_t, the mass summed in its order, and
-                # the element pass's geometry
+                # the element pass's geometry (the hourglass pass's own)
                 step = ExplicitStep(
                     coords_em, conn_t, mesh.etype, D, dens,
                     thickness if ndim == 2 else 1.0, fext, free, mass_em,
-                    dt, bforce_fn, residual=residual)
-                if residual is None:
-                    del coords_em           # B3 keeps what it reads
-                del mass_em, conn_t
+                    dt, bforce_fn, hourglass=quad_hg_viscosity(dens)
+                    if use_hourglass else None)
+                del coords_em, mass_em, conn_t   # B3 keeps what it reads
             else:
-                # the mass and every step's residual scattered in one
-                # sorted order
+                # the node-dof gather table, element-minor (ns, E)
+                # flattened: entry (i * ndof + c) * E + e is
+                # conn[e, i] * ndof + c; the mass and every step's
+                # residual scattered in one sorted order
+                dest = torch.as_tensor(
+                    dofmap.elem_nodedof.T.reshape(-1).astype(np.int64),
+                    device=device)
+                ns_e = mesh.npe * ndof, mesh.n_elem
                 seg = Segments.from_dest(dest, n_full + 1)
                 M_full = seg.sum(mass_em)
                 has_mass = M_full > 0
                 upd = torch.logical_and(free, has_mass)
                 Msafe = torch.where(has_mass, M_full, 1.0)
-                if residual is None:
+                if use_hourglass:
+                    def residual(disp_full, velo_full, t):
+                        return quad_hg_residual(
+                            coords_em, disp_full[dest].reshape(ns_e),
+                            velo_full[dest].reshape(ns_e), E, nu, dens,
+                            bforce_fn(t), thickness=thickness)
+                else:
                     geom = residual_geometry(
                         coords_em, mesh.etype,
                         thickness=thickness if ndim == 2 else 1.0)
@@ -234,11 +248,21 @@ def explicit_dynamics(
                             geom, disp_full[dest].reshape(ns_e), D, dens,
                             bforce_fn(t))
 
-                def step(disp, disp_prev, velo, t):
-                    rhs = seg.sum(residual(disp, velo, t)) + fext
-                    rhs = rhs + idtt * M_full * (2.0 * disp - disp_prev)
-                    new = torch.where(upd, dtt * rhs / Msafe, 0.0)
-                    return new, (new - disp_prev) / two_dt
+                # step(disp, carry, velo, t) -> (new, carry, velo): carry
+                # is u^{n-1}, or w = v^{n-1/2} in the velocity form
+                if use_hourglass:
+                    def step(disp, w, velo, t):
+                        rhs = seg.sum(residual(disp, velo, t)) + fext
+                        w_new = torch.where(upd, w + dt_t * (rhs / Msafe),
+                                            0.0)
+                        new = torch.where(upd, disp + dt_t * w_new, 0.0)
+                        return new, w_new, (w + w_new) * 0.5
+                else:
+                    def step(disp, disp_prev, velo, t):
+                        rhs = seg.sum(residual(disp, velo, t)) + fext
+                        rhs = rhs + idtt * M_full * (2.0 * disp - disp_prev)
+                        new = torch.where(upd, dtt * rhs / Msafe, 0.0)
+                        return new, disp, (new - disp_prev) / two_dt
 
         if init_state is not None:
             disp, disp_prev, velo = (send(init_state.disp),
@@ -248,6 +272,7 @@ def explicit_dynamics(
         else:
             disp = torch.zeros(n_full, dtype=dtype, device=device)
             disp_prev, velo = disp.clone(), disp.clone()
+        carry = (disp - disp_prev) / dt_t if use_hourglass else disp_prev
         acce = torch.zeros(n_full, dtype=dtype, device=device)
 
         end_step = start_step + nsteps
@@ -258,14 +283,18 @@ def explicit_dynamics(
         chunk = snapshot_every if snapshots else nsteps
         hist = []
         k0 = start_step
+        # B3's launches, counted where they are made (CudaKernel.launch)
+        launched = (lambda: dict(step.kernel.entry_launches)) if on_card \
+            else dict
+        before = launched()
     with span("explicit.loop_s", timings):
         while k0 < end_step:
             kn = min(k0 + chunk, end_step)
             buf = torch.empty((kn - k0, 2 * n_probe), dtype=dtype,
                               device=device)
             for k in range(k0, kn):
-                new, velo = step(disp, disp_prev, velo,
-                                 t_all[k - start_step])
+                new, carry, velo = step(disp, carry, velo,
+                                        t_all[k - start_step])
                 if k == end_step - 1:
                     acce = (new - 2.0 * disp + disp_prev) * idtt
                 disp_prev, disp = disp, new
@@ -276,8 +305,12 @@ def explicit_dynamics(
             if snapshots:
                 snapshot_cb(kn, disp.cpu().to(torch.float64).numpy())
             k0 = kn
+    after = launched()
+    ran = lambda entry: after.get(entry, 0) - before.get(entry, 0)
     count("steps", nsteps, timings)
-    count("explicit.kernel_steps", nsteps if on_card else 0, timings)
+    count("explicit.kernel_steps", ran("explicit_step_node"), timings)
+    count("explicit.hg_kernel_steps", ran("explicit_step_element")
+          if on_card and step.hourglass else 0, timings)
 
     host = lambda a: a.cpu().to(torch.float64).numpy()
     res = ExplicitResult(

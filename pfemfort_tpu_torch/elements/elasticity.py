@@ -343,6 +343,51 @@ def lumped_mass(
     return Mnode.repeat_interleave(ndof, dim=0)
 
 
+class QuadHGGeometry(NamedTuple):
+    """The 1-point quad's closed-form midpoint geometry, element-minor."""
+    dNdx: torch.Tensor   # (4, E); rows 2, 3 are -rows 0, 1
+    dNdy: torch.Tensor   # (4, E)
+    area: torch.Tensor   # (E,)
+
+
+def quad_hg_geometry(coords_em: torch.Tensor) -> QuadHGGeometry:
+    """The midpoint gradients and area of ResidualElasticityLinearQuadHG
+    (elasticity2D.F:700-889) from coords_em (4, 2, E).  The explicit loop's
+    card set-up keeps rows 0 and 1 of each and the area for kernel B3's
+    hourglass pass, which forms the rest as quad_hg_residual does."""
+    x = coords_em[:, 0, :]   # (4, E)
+    y = coords_em[:, 1, :]
+    area = 0.5 * ((x[2] - x[0]) * (y[3] - y[1])
+                  + (x[1] - x[3]) * (y[2] - y[0]))
+    fact = 2.0 * area
+    dNdx = torch.stack([
+        (y[1] - y[3]) / fact,
+        (y[2] - y[0]) / fact,
+        -(y[1] - y[3]) / fact,
+        -(y[2] - y[0]) / fact,
+    ])  # (4, E)
+    dNdy = torch.stack([
+        (x[3] - x[1]) / fact,
+        (x[0] - x[2]) / fact,
+        -(x[3] - x[1]) / fact,
+        -(x[0] - x[2]) / fact,
+    ])
+    return QuadHGGeometry(dNdx, dNdy, area)
+
+
+def quad_hg_viscosity(dens: float, hg_visc: float = 1.0,
+                      wave_speed: float = 50.0) -> float:
+    """The hourglass force's factor 0.25 hg_visc dens c before sqrt|A|, in
+    the host's double as the residual forms it."""
+    return 0.25 * hg_visc * dens * wave_speed
+
+
+def _sum4(a: torch.Tensor) -> torch.Tensor:
+    """The sum over a (4, E) tensor's rows, in row order (the order kernel
+    B3's hourglass pass keeps)."""
+    return ((a[0] + a[1]) + a[2]) + a[3]
+
+
 def quad_hg_residual(
     coords_em: torch.Tensor,
     disp_em: torch.Tensor,
@@ -367,30 +412,14 @@ def quad_hg_residual(
     coords_em (4, 2, E); disp_em/velo_em (8, E).  Returns (8, E).
     """
     dtype, device = coords_em.dtype, coords_em.device
-    x = coords_em[:, 0, :]   # (4, E)
-    y = coords_em[:, 1, :]
-    area = 0.5 * ((x[2] - x[0]) * (y[3] - y[1])
-                  + (x[1] - x[3]) * (y[2] - y[0]))
-    fact = 2.0 * area
-    dNdx = torch.stack([
-        (y[1] - y[3]) / fact,
-        (y[2] - y[0]) / fact,
-        -(y[1] - y[3]) / fact,
-        -(y[2] - y[0]) / fact,
-    ])  # (4, E)
-    dNdy = torch.stack([
-        (x[3] - x[1]) / fact,
-        (x[0] - x[2]) / fact,
-        -(x[3] - x[1]) / fact,
-        -(x[0] - x[2]) / fact,
-    ])
+    dNdx, dNdy, area = quad_hg_geometry(coords_em)
 
     d3 = disp_em.reshape(4, 2, -1)
     ux, uy = d3[:, 0, :], d3[:, 1, :]   # (4, E)
-    g11 = torch.sum(ux * dNdx, dim=0)
-    g12 = torch.sum(ux * dNdy, dim=0)
-    g21 = torch.sum(uy * dNdx, dim=0)
-    g22 = torch.sum(uy * dNdy, dim=0)
+    g11 = _sum4(ux * dNdx)
+    g12 = _sum4(ux * dNdy)
+    g21 = _sum4(uy * dNdx)
+    g22 = _sum4(uy * dNdy)
     strain = torch.stack([g11, g22, 0.5 * (g12 + g21)])  # (3, E)
     Dnp = dmat_plane_stress(E, nu)
     stress = torch.stack([
@@ -410,7 +439,8 @@ def quad_hg_residual(
                            + dNdy * stress[1][None, :])
 
     # Hourglass viscous force
-    hg = 0.25 * hg_visc * dens * wave_speed * torch.sqrt(torch.abs(area))
+    hg = quad_hg_viscosity(dens, hg_visc, wave_speed) \
+        * torch.sqrt(torch.abs(area))
     v3 = velo_em.reshape(4, 2, -1)
     vx, vy = v3[:, 0, :], v3[:, 1, :]
     gamma = torch.tensor([1.0, -1.0, 1.0, -1.0], dtype=dtype, device=device)

@@ -4,12 +4,12 @@ B3 rounds each product and sum where the plain step's torch ops round them,
 and sums in the CPU's order, so from the same inputs its passes give the
 plain step's bits on the CPU in float32 and float64, and so does a whole
 run (its lumped mass summed in that order too).  The quad4 hourglass
-residual stays in torch, whose reductions on the card may sum in another
-order: it is held to 1e-12 in float64.  A card run of each element path
-(tria3 and tetra4 through the element pass, the hourglass quad4 through
-the node pass) is also held to the JAX package's own run, which the card
-cannot make, through the file tests/explicit_reference.py reads, at the
-CPU parity tests' 1e-10.
+residual has an element pass of its own (`HourglassPass`), held to
+`quad_hg_residual` the same way, and its node pass takes the update in
+velocity form, held to the plain step's.  A card run of each element path (tria3,
+tetra4 and the hourglass quad4) is also held to the JAX package's own run,
+which the card cannot make, through the file tests/explicit_reference.py
+reads, at the CPU parity tests' 1e-10.
 
 Marked `cuda`: each test skips without a CUDA device.  This file imports no
 JAX, so it runs where JAX is not installed:
@@ -31,7 +31,8 @@ from pfemfort_tpu_torch.dynamics import explicit_cuda
 from pfemfort_tpu_torch.dynamics.checkpoint import ExplicitState
 from pfemfort_tpu_torch.dynamics.explicit import explicit_dynamics
 from pfemfort_tpu_torch.elements.elasticity import apply_residual, dmat_3d, \
-    dmat_plane_strain, residual_geometry
+    dmat_plane_strain, dmat_plane_stress, quad_hg_residual, \
+    quad_hg_viscosity, residual_geometry
 from pfemfort_tpu_torch.elements.geometry import to_element_minor
 
 pytestmark = pytest.mark.cuda
@@ -44,7 +45,7 @@ MESHES = {
     "tetra4": lambda: generate.box_tet(0, 2, 8, 0, 1, 4, 0, 1, 4)[0],
     "hexa8": lambda: generate.box_hexa(0, 2, 8, 0, 1, 4, 0, 1, 4),
 }
-DENS, DT = 7.6, 1e-3
+DENS, DT, THICK = 7.6, 1e-3, 1.0
 
 
 @pytest.fixture
@@ -63,13 +64,15 @@ def _rel_err(y, y_ref):
     return float((y - y_ref).abs().max() / y_ref.abs().max())
 
 
-def _setup(etype, device, dtype, seed=0, residual=None):
-    """A mesh's B3 step with random state, and the plain pieces beside it."""
+def _setup(etype, device, dtype, seed=0, hourglass=None):
+    """A mesh's B3 step with random state, and the plain pieces beside it;
+    hourglass: the quad4 hourglass factor (the step's HourglassPass)."""
     mesh = _mesh(etype)
     nd, E = mesh.ndim, mesh.n_elem
     rng = np.random.default_rng(seed)
     as_dev = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
-    D = dmat_plane_strain(200.0, 0.3) if nd == 2 else dmat_3d(2.1e7, 0.1)
+    D = dmat_plane_stress(200.0, 0.3) if hourglass is not None else \
+        dmat_plane_strain(200.0, 0.3) if nd == 2 else dmat_3d(2.1e7, 0.1)
     coords_em = as_dev(to_element_minor(mesh.elem_coords()))
     dofmap = build_dofmap(mesh, nd, np.zeros((0, 3)))
     dest = torch.as_tensor(dofmap.elem_nodedof.T.reshape(-1).astype(np.int64),
@@ -82,9 +85,9 @@ def _setup(etype, device, dtype, seed=0, residual=None):
     b = as_dev(rng.standard_normal(nd))
     conn_t = torch.as_tensor(mesh.conn, device=device).T.contiguous()
     step = explicit_cuda.ExplicitStep(
-        coords_em, conn_t, mesh.etype, D, DENS, 1.0, fext, free, mass_em,
-        DT, lambda t: b, residual=residual)
-    state = [as_dev(rng.standard_normal(n_full)) for _ in range(2)]
+        coords_em, conn_t, mesh.etype, D, DENS, THICK, fext, free, mass_em,
+        DT, lambda t: b, hourglass=hourglass)
+    state = [as_dev(rng.standard_normal(n_full)) for _ in range(3)]
     return dict(mesh=mesh, D=D, coords_em=coords_em, dest=dest, seg=seg,
                 mass_em=mass_em, free=free, fext=fext, b=b, step=step,
                 state=state, as_dev=as_dev)
@@ -101,6 +104,19 @@ def _plain_update(s, fe_em, disp, disp_prev):
     rhs = rhs + idtt * M * (2.0 * disp - disp_prev)
     new = torch.where(upd, dtt * rhs / torch.where(M > 0, M, 1.0), 0.0)
     return new, (new - disp_prev) / two_dt
+
+
+def _plain_velocity_update(s, fe_em, disp, w):
+    """The plain step's velocity form (the hourglass quad4's) from
+    element-minor forces and the half-step velocity w: (new, w_new, v)."""
+    dt = s["as_dev"](DT)
+    M = s["seg"].sum(s["mass_em"])
+    upd = s["free"] & (M > 0)
+    rhs = s["seg"].sum(fe_em) + s["fext"]
+    w_new = torch.where(upd, w + dt * (rhs / torch.where(M > 0, M, 1.0)),
+                        0.0)
+    new = torch.where(upd, disp + dt * w_new, 0.0)
+    return new, w_new, (w + w_new) * 0.5
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -128,9 +144,10 @@ def test_node_pass_matches_the_segment_sum_and_update(cuda, etype, dtype):
     mesh = s["mesh"]
     ns, E = mesh.conn.shape[1] * mesh.ndim, mesh.n_elem
     fe = np.random.default_rng(2).standard_normal(E * ns)
-    new, velo = s["step"].update(s["as_dev"](fe), *s["state"])
+    new, carry, velo = s["step"].update(s["as_dev"](fe), *s["state"][:2])
     ref_new, ref_velo = _plain_update(
-        c, c["as_dev"](fe).reshape(E, ns).T.contiguous(), *c["state"])
+        c, c["as_dev"](fe).reshape(E, ns).T.contiguous(), *c["state"][:2])
+    assert carry is s["state"][0]          # u^n, the next step's u^{n-1}
     assert torch.equal(s["step"].mass.cpu(), c["seg"].sum(c["mass_em"]))
     assert torch.equal(new.cpu(), ref_new)
     assert torch.equal(velo.cpu(), ref_velo)
@@ -138,25 +155,45 @@ def test_node_pass_matches_the_segment_sum_and_update(cuda, etype, dtype):
     assert torch.equal(ref_new[fixed], torch.zeros_like(ref_new[fixed]))
 
 
-def test_node_pass_sums_the_torch_residual_layout(cuda):
-    """The hourglass path's plan indexes the (ns, E) Fe of the torch
-    residual."""
-    dtype = torch.float64
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_hourglass_pass_matches_quad_hg_residual(cuda, dtype):
+    """The hourglass pass gives quad_hg_residual's bits, element-major, from
+    the same displacements, velocities and body force."""
+    hg = quad_hg_viscosity(DENS)
+    s = _setup("quad4", cuda, dtype, seed=4, hourglass=hg)
+    step = s["step"]
+    before = step.kernel.launches
+    disp, _, velo = s["state"]
+    fe = step.forces(disp, velo, None).cpu()
+    torch.cuda.synchronize()
+    assert step.kernel.launches == before + 1
+    assert isinstance(step.element, explicit_cuda.HourglassPass)
+    c = _setup("quad4", "cpu", dtype, seed=4, hourglass=hg)
+    E, (disp, _, velo) = c["mesh"].n_elem, c["state"]
+    ref = quad_hg_residual(c["coords_em"], disp[c["dest"]].reshape(8, E),
+                           velo[c["dest"]].reshape(8, E), 200.0, 0.3, DENS,
+                           c["b"], thickness=THICK)
+    assert torch.equal(fe, ref.reshape(4, 2, E).permute(2, 0, 1)
+                       .reshape(-1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_the_hourglass_node_pass_is_the_plain_velocity_form(cuda, dtype):
+    """The hourglass step's node pass sums the element-major Fe in the
+    plain step's order and takes the update in velocity form, from u and
+    the half-step velocity w: the plain step's u, w and v, bit for bit."""
     rng = np.random.default_rng(3)
-    fe_em = None
-
-    def residual(disp, velo, t):
-        return fe_em
-
-    s = _setup("quad4", cuda, dtype, seed=3, residual=residual)
+    s, c = (_setup("quad4", d, dtype, seed=3,
+                   hourglass=quad_hg_viscosity(DENS)) for d in (cuda, "cpu"))
     ns, E = 8, s["mesh"].n_elem
-    fe_em = s["as_dev"](rng.standard_normal((ns, E)))
-    disp, disp_prev = s["state"]
-    new, velo = s["step"](disp, disp_prev, None, None)
-    ref_new, ref_velo = _plain_update(s, fe_em, disp, disp_prev)
-    assert s["step"].plan.cstride == E
-    assert _rel_err(new, ref_new) <= 1e-12
-    assert _rel_err(velo, ref_velo) <= 1e-12
+    fe = rng.standard_normal(E * ns)
+    new, w_new, velo = s["step"].update(s["as_dev"](fe), *s["state"][:2])
+    ref = _plain_velocity_update(
+        c, c["as_dev"](fe).reshape(E, ns).T.contiguous(), *c["state"][:2])
+    for got, want in zip((new, w_new, velo), ref):
+        assert torch.equal(got.cpu(), want)
+    fixed = ~c["free"]
+    assert not bool(ref[0][fixed].any()) and not bool(ref[1][fixed].any())
 
 
 def _clamped(mesh):
@@ -225,19 +262,71 @@ def test_the_card_set_up_counts_the_bytes_it_sends(cuda, dtype):
         want + 3 * n_full * size
 
 
-def test_hourglass_quad_on_the_card_matches_the_cpu_in_float64(cuda):
+def _hourglass_runs(cuda, dtype, steps):
+    """The quad preset's run from rest under a point load, on the CPU and
+    on the card, with B3's launches on the card counted."""
     from pfemfort_tpu_torch.drivers import presets as P
 
     p = P.QUAD_EXPLICIT
     mesh = generate.rect_quad(0, 10, 40, 0, 2, 8)
     loads = np.array([[mesh.n_node - 1, 1, 1e3]])
-    r_cpu, r_gpu = (explicit_dynamics(
-        mesh, _clamped(mesh), p.E, p.nu, p.dens, p.dt, 60, force_bc=loads,
-        thickness=p.thickness, use_hourglass=True, device=d,
-        dtype=torch.float64) for d in ("cpu", cuda))
+    run = lambda d: explicit_dynamics(
+        mesh, _clamped(mesh), p.E, p.nu, p.dens, p.dt, steps, force_bc=loads,
+        probe_dofs=(mesh.n_node * 2 - 1,), thickness=p.thickness,
+        use_hourglass=True, device=d, dtype=dtype)
+    r_cpu = run("cpu")
+    k = explicit_cuda.kernel(4, 2, 1, dtype, hourglass=True)
+    before = dict(k.entry_launches)
+    r_gpu = run(cuda)
+    launched = {n: k.entry_launches[n] - before.get(n, 0)
+                for n in k.entry_launches}
+    return r_cpu, r_gpu, launched
+
+
+def test_hourglass_quad_on_the_card_matches_the_cpu_in_float64(cuda):
+    r_cpu, r_gpu, _ = _hourglass_runs(cuda, torch.float64, 60)
     assert r_gpu.timings["explicit.kernel_steps"] == 60
-    assert np.abs(r_gpu.disp - r_cpu.disp).max() <= \
-        1e-12 * np.abs(r_cpu.disp).max()
+    np.testing.assert_array_equal(r_gpu.disp, r_cpu.disp)
+    assert np.abs(r_cpu.disp).max() > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_an_hourglass_card_run_gives_the_cpus_bits(cuda, dtype):
+    """Each hourglass step on the card is one hourglass pass and one node
+    pass, and the run gives the CPU's bits."""
+    r_cpu, r_gpu, launched = _hourglass_runs(cuda, dtype, 80)
+    t = r_gpu.timings
+    assert t["explicit.kernel_steps"] == t["explicit.hg_kernel_steps"] == 80
+    assert r_cpu.timings["explicit.hg_kernel_steps"] == 0
+    assert launched == {"explicit_step_element": 80,
+                        "explicit_step_node": 80}
+    for field in ("disp", "disp_prev", "velo", "acce", "probe_history"):
+        np.testing.assert_array_equal(getattr(r_gpu, field),
+                                      getattr(r_cpu, field))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_a_resumed_hourglass_card_run_gives_the_cpus_bits(cuda, dtype):
+    """Resumed from a moving state, the velocity form takes its half-step
+    velocity from the state's u^n - u^{n-1} on the card as on the CPU."""
+    from pfemfort_tpu_torch.drivers import presets as P
+
+    p = P.QUAD_EXPLICIT
+    mesh = generate.rect_quad(0, 10, 40, 0, 2, 8)
+    loads = np.array([[mesh.n_node - 1, 1, 1e3]])
+    run = lambda d, steps, **kw: explicit_dynamics(
+        mesh, _clamped(mesh), p.E, p.nu, p.dens, p.dt, steps, force_bc=loads,
+        thickness=p.thickness, use_hourglass=True, device=d, dtype=dtype,
+        **kw)
+    first = run("cpu", 40)
+    state = ExplicitState(disp=first.disp, disp_prev=first.disp_prev,
+                          velo=first.velo, step=40)
+    r_cpu, r_gpu = (run(d, 40, init_state=state) for d in ("cpu", cuda))
+    assert r_gpu.timings["explicit.hg_kernel_steps"] == 40
+    for field in ("disp", "disp_prev", "velo", "acce"):
+        np.testing.assert_array_equal(getattr(r_gpu, field),
+                                      getattr(r_cpu, field))
+    assert np.abs(r_cpu.velo).max() > 0
 
 
 @pytest.mark.parametrize("name", explicit_reference.NAMES)

@@ -2,8 +2,9 @@
 the connectivity alone (`node_plan_from_conn`), is the explicit loop's
 sorted scatter (`Segments.from_dest`) on the whole mesh and on a sharded
 rank's own elements, it refuses a mesh past int32 indexing, and a CPU run
-records no kernel steps.  The kernel itself runs only on the card
-(tests/test_torch_explicit_cuda.py)."""
+records no kernel steps.  The hourglass quad4's pass is set up from
+`quad_hg_geometry` with the residual's own scalars.  The kernel itself
+runs only on the card (tests/test_torch_explicit_cuda.py)."""
 
 import numpy as np
 import pytest
@@ -16,7 +17,8 @@ from pfemfort_tpu_torch.dynamics import explicit_cuda
 from pfemfort_tpu_torch.dynamics.sharded import build_sharded_explicit, \
     rank_conn_t
 from pfemfort_tpu_torch.elements.elasticity import dmat_3d, \
-    dmat_plane_strain
+    dmat_plane_strain, dmat_plane_stress, quad_hg_geometry, \
+    quad_hg_viscosity
 from pfemfort_tpu_torch.utils import timing
 
 MESHES = {
@@ -43,9 +45,9 @@ def _conn_t(mesh):
     return torch.as_tensor(mesh.conn).T.contiguous()
 
 
-def _plan(mesh, element_major):
-    return explicit_cuda.node_plan_from_conn(
-        _conn_t(mesh), mesh.n_node, mesh.ndim, element_major=element_major)
+def _plan(mesh):
+    return explicit_cuda.node_plan_from_conn(_conn_t(mesh), mesh.n_node,
+                                             mesh.ndim)
 
 
 def _per_dof(plan, n_node, nd, to_slot_entry):
@@ -56,7 +58,7 @@ def _per_dof(plan, n_node, nd, to_slot_entry):
     perm, offsets = [], [0]
     for n in range(n_node):
         for c in range(nd):
-            run = ent[off[n]:off[n + 1]] + c * plan.cstride
+            run = ent[off[n]:off[n + 1]] + c
             perm.append(to_slot_entry(run))
             offsets.append(offsets[-1] + len(run))
     offsets.append(offsets[-1])                # the dropped (BC) segment
@@ -71,22 +73,19 @@ def _element_major_to_slot_entry(E, npe, nd):
     return to_slot_entry
 
 
-@pytest.mark.parametrize("element_major", [True, False])
 @pytest.mark.parametrize("etype", sorted(MESHES))
-def test_node_plan_is_the_sorted_scatter(etype, element_major):
+def test_node_plan_is_the_sorted_scatter(etype):
     mesh, seg = _scatter(etype)
     nd, E, npe = mesh.ndim, mesh.n_elem, mesh.conn.shape[1]
-    plan = _plan(mesh, element_major)
+    plan = _plan(mesh)
     assert plan.offsets.dtype == plan.entries.dtype == torch.int32
     assert plan.offsets.numel() == mesh.n_node + 1
     assert plan.entries.numel() == E * npe
 
-    to_slot_entry = _element_major_to_slot_entry(E, npe, nd) \
-        if element_major else (lambda a: a)
-    perm, offsets = _per_dof(plan, mesh.n_node, nd, to_slot_entry)
+    perm, offsets = _per_dof(plan, mesh.n_node, nd,
+                             _element_major_to_slot_entry(E, npe, nd))
     np.testing.assert_array_equal(perm, seg.perm.numpy())
     np.testing.assert_array_equal(offsets, seg.offsets.numpy())
-    assert plan.cstride == (1 if element_major else E)
 
 
 # meshes the slab partition cuts along their longest axis, as the sharded
@@ -123,20 +122,16 @@ def test_a_ranks_plan_is_its_sorted_scatter(etype, size, rank):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("element_major", [True, False])
 @pytest.mark.parametrize("etype", ["tria6", "quad4", "tetra4", "hexa8"])
-def test_the_plans_order_is_the_segment_sums_bits(etype, element_major,
-                                                  dtype):
+def test_the_plans_order_is_the_segment_sums_bits(etype, dtype):
     """Summed in the plan's order one incidence after another, as the node
     pass sums, the values give Segments.sum's bits on the CPU."""
     mesh, seg = _scatter(etype)
     nd, E, npe = mesh.ndim, mesh.n_elem, mesh.conn.shape[1]
     fe_em = torch.as_tensor(np.random.default_rng(0).standard_normal(
         (npe * nd, E)), dtype=dtype)
-    plan = _plan(mesh, element_major)
-    laid_out = fe_em.T if element_major else fe_em
-    sums = explicit_cuda.ordered_summer(plan, nd)(
-        laid_out.contiguous().reshape(-1))
+    sums = explicit_cuda.ordered_summer(_plan(mesh), nd)(
+        fe_em.T.contiguous().reshape(-1))
     assert torch.equal(sums, seg.sum(fe_em))
 
 
@@ -172,7 +167,73 @@ def test_a_cpu_run_records_no_kernel_steps():
                             device="cpu", dtype=torch.float64)
     assert res.timings["steps"] == 5
     assert res.timings["explicit.kernel_steps"] == 0
+    assert res.timings["explicit.hg_kernel_steps"] == 0
     assert timing.RECENT[-1].timings is res.timings
+
+
+def test_a_cpu_hourglass_run_records_no_kernel_steps():
+    mesh = MESHES["quad4"]()
+    res = explicit_dynamics(mesh, np.zeros((0, 3)), 1e9, 0.0, 1000.0, 1e-5,
+                            3, force_bc=np.array([[mesh.n_node - 1, 1, 1e3]]),
+                            thickness=0.025, use_hourglass=True,
+                            device="cpu", dtype=torch.float64)
+    assert res.timings["explicit.kernel_steps"] == 0
+    assert res.timings["explicit.hg_kernel_steps"] == 0
+    assert np.abs(res.disp).max() > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_the_hourglass_pass_reads_the_residuals_geometry(dtype):
+    """The hourglass step's set-up, which builds nothing: its own library,
+    the five values of geometry an element (dN/dx and dN/dy at nodes 0 and
+    1, the area: quad_hg_geometry's, whose other rows are their negatives),
+    the plane-stress D, the thickness and the hourglass factor in the
+    working type, and the element-major node plan."""
+    from pfemfort_tpu_torch.elements.geometry import to_element_minor
+
+    mesh, seg = _scatter("quad4")
+    n_full, E = mesh.n_node * 2, mesh.n_elem
+    coords = torch.as_tensor(to_element_minor(mesh.elem_coords()),
+                             dtype=dtype)
+    D = dmat_plane_stress(1e9, 0.25)
+    ones = torch.ones(n_full, dtype=dtype)
+    hg = quad_hg_viscosity(1000.0)
+    step = explicit_cuda.ExplicitStep(
+        coords, _conn_t(mesh), "quad4", D, 1000.0, 0.025, ones * 0, ones > 0,
+        torch.ones(8, E, dtype=dtype), 1e-5, lambda t: None, hourglass=hg)
+    hp = step.element
+    assert isinstance(hp, explicit_cuda.HourglassPass)
+    assert step.kernel is hp.kernel is explicit_cuda.kernel(
+        4, 2, 1, dtype, hourglass=True)
+    assert step.kernel is not explicit_cuda.kernel(4, 2, 1, dtype)
+    assert "-DB3_HG=1" in step.kernel.flags
+    args, _ = step.kernel.entries["explicit_step_element"]
+    assert args[6] is explicit_cuda.element_params(4, 2, 1, dtype, True)
+    g = quad_hg_geometry(coords)
+    assert torch.equal(hp.geom, torch.stack([g.dNdx[0], g.dNdx[1],
+                                             g.dNdy[0], g.dNdy[1], g.area]))
+    assert torch.equal(g.dNdx[2:], -g.dNdx[:2])
+    assert torch.equal(g.dNdy[2:], -g.dNdy[:2])
+    real = np.float32 if dtype == torch.float32 else np.float64
+    np.testing.assert_array_equal(np.asarray(hp.params.D[:], real),
+                                  D.reshape(-1).astype(real))
+    assert (real(hp.params.thick), real(hp.params.hg), real(hp.params.dens)) \
+        == (real(0.025), real(hg), real(1000.0))
+    assert hp.params.n_elem == E and tuple(hp.fe.shape) == (E * 8,)
+    assert real(step.node.dt) == real(1e-5)
+    assert torch.equal(step.mass, seg.sum(torch.ones(8, E, dtype=dtype)))
+
+
+def test_the_hourglass_pass_takes_quad4_alone():
+    from pfemfort_tpu_torch.elements.geometry import to_element_minor
+
+    mesh, _ = _scatter("tria3")
+    coords = torch.as_tensor(to_element_minor(mesh.elem_coords()))
+    with pytest.raises(ValueError, match="quad4"):
+        explicit_cuda.HourglassPass(coords, _conn_t(mesh),
+                                    dmat_plane_stress(1e9, 0.0), 1000.0,
+                                    0.025, 12500.0, lambda t: None,
+                                    mesh.n_node * 2)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -183,7 +244,7 @@ def test_the_launch_parameters_are_the_entry_points_classes(dtype):
     element_args, _ = k.entries["explicit_step_element"]
     node_args, _ = k.entries["explicit_step_node"]
     assert element_args[6] is explicit_cuda.element_params(4, 3, 1, dtype)
-    assert node_args[10] is explicit_cuda.node_params(dtype)
+    assert node_args[11] is explicit_cuda.node_params(dtype)
     assert "-DB3_REAL=" + ("float" if dtype == torch.float32 else "double") \
         in k.flags
 
@@ -212,9 +273,10 @@ def test_the_launch_parameters_carry_the_step(dtype):
                                   np.asarray(N).reshape(-1).astype(real))
     assert step.element.params.n_elem == mesh.n_elem
     assert real(step.element.params.dens) == real(7.6)
-    assert (real(step.node.dtt), real(step.node.idtt),
-            real(step.node.two_dt)) == (real(1e-6), real(1e6), real(2e-3))
-    assert step.node.n_node == mesh.n_node and step.node.cstride == 1
+    assert (real(step.node.dt), real(step.node.dtt), real(step.node.idtt),
+            real(step.node.two_dt)) == (real(1e-3), real(1e-6), real(1e6),
+                                        real(2e-3))
+    assert step.node.n_node == mesh.n_node
     assert torch.equal(step.mass, seg.sum(torch.ones(12, mesh.n_elem,
                                                      dtype=dtype)))
     assert step.upd.dtype == torch.uint8 and bool(step.upd.all())

@@ -310,13 +310,14 @@ def test_the_explicit_result_carries_its_spans():
     res = _explicit(nsteps=7)
     t = res.timings
     assert set(t) == {"explicit.setup_s", "explicit.loop_s", "steps",
-                      "explicit.kernel_steps", "explicit.setup_h2d_bytes"} \
-        | set(EXPLICIT_SETUP)
+                      "explicit.kernel_steps", "explicit.hg_kernel_steps",
+                      "explicit.setup_h2d_bytes"} | set(EXPLICIT_SETUP)
     assert t["steps"] == 7 and t["explicit.setup_s"] > 0 \
         and t["explicit.loop_s"] > 0
     assert all(t[k] > 0 for k in EXPLICIT_SETUP)
     assert sum(t[k] for k in EXPLICIT_SETUP) <= t["explicit.setup_s"]
     assert t["explicit.kernel_steps"] == 0      # the CPU runs no kernel
+    assert t["explicit.hg_kernel_steps"] == 0
     assert t["explicit.setup_h2d_bytes"] == 0   # nor sends anything
     rec = timing.RECENT[-1]
     assert rec.name == "explicit_dynamics" and rec.timings is t \
